@@ -7,13 +7,15 @@ JAX, and nothing of ``bdvcil_tpu``.
 
 Layout:
   ops      temporal shift and the fused block epilogue, the 1x1-conv GEMM
-           with a BatchNorm-statistics epilogue; each hand-written CUDA
-           kernel (``csrc/``) beside its plain PyTorch version
+           with a BatchNorm-statistics epilogue, the whole-block fused
+           bottleneck forward; each hand-written CUDA kernel (``csrc/``)
+           beside its plain PyTorch version
   models   ResNet-TSM backbone, flax-semantics BatchNorm, incremental heads,
            recognizer, builder, and the JAX <-> torch weight converter
   losses   LSC/NCA, cross-entropy, soft-target CE, feature-KD
   optim    the labeled 6-group SGD with torch-order updates and optax clip
   runtime  train state and the ``base``-method CIL train step
+  bench_block_fused  the block-fused bottleneck against the plain schedule
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``
 with time folded into the batch. Inside the model they are NCHW tensors in

@@ -7,6 +7,10 @@
 //              shifted = temporal_shift(out)
 //   backward _fused_bwd_kernel (:140), called by _fused_bwd_rule (:212):
 //              g_in    = (out > 0) * (g_out + unshift(g_shifted))
+//   plain    _shift_kernel (:235) and the reverse kernel (:280) of
+//            temporal_shift_pallas (:248, call :291; its VJP _shift_bwd :315):
+//              out     = temporal_shift(x) or its transpose, one kernel with
+//                        a direction argument
 //
 // Layout: (N, T, H*W, C) contiguous, i.e. the (N*T, H, W, C) activations
 // with time folded into the batch. The shift moves channel fold [0, C/div)
@@ -23,7 +27,9 @@
 // stores are 16 bytes a thread, neighbouring threads on neighbouring
 // addresses. The add is done in f32 and rounded once, which is what a bf16
 // add does in PyTorch and in XLA, so the kernel is bit-exact against its
-// plain version.
+// plain version. The plain shift reads one tensor and writes one, with the
+// same layout of threads; where C/div is not a multiple of the pack, the
+// packs that straddle a fold boundary are copied element by element.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -137,6 +143,43 @@ __global__ void fused_bwd_kernel(const Pack<E, VEC>* __restrict__ out,
   }
 }
 
+// The frame offset that channel ch reads: fold 0 reads frame t + 1, fold 1
+// frame t - 1, the rest frame t; the reverse shift (the transpose) swaps the
+// two folds' directions.
+__device__ __forceinline__ int shift_step(int ch, int fold, int reverse) {
+  const int d = ch < fold ? 1 : (ch < 2 * fold ? -1 : 0);
+  return reverse ? -d : d;
+}
+
+// Plain temporal shift (or its reverse): out[t, ., c] = x[t + step(c), ., c],
+// zero where t + step falls outside [0, segs). A pure index copy, so it is
+// bit-exact in any dtype.
+template <typename E, int VEC>
+__global__ void shift_kernel(const E* __restrict__ x, E* __restrict__ out, int64_t n_packs,
+                             int64_t frame_packs, int segs, int c_packs, int fold, int reverse) {
+  using P = Pack<E, VEC>;
+  const P* xp = reinterpret_cast<const P*>(x);
+  P* op = reinterpret_cast<P*>(out);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_packs; i += stride) {
+    int t, ch;
+    position(i, frame_packs, segs, c_packs, VEC, &t, &ch);
+    const int d = shift_step(ch, fold, reverse);
+    P v;
+    if (d == shift_step(ch + VEC - 1, fold, reverse)) {  // one pack, one source frame
+      v = (t + d >= 0 && t + d < segs) ? xp[i + d * frame_packs] : zero_pack<E, VEC>();
+    } else {  // the pack straddles a fold boundary: element by element
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const int dk = shift_step(ch + k, fold, reverse);
+        v.v[k] = (t + dk >= 0 && t + dk < segs) ? x[(i + dk * frame_packs) * VEC + k]
+                                                 : Cvt<E>::store(0.f);
+      }
+    }
+    op[i] = v;
+  }
+}
+
 constexpr int kThreads = 256;
 
 inline int grid_for(int64_t n_packs) {
@@ -176,6 +219,24 @@ inline bool wide_ok(int vec, int c, int fold, const void* a, const void* b, cons
                     const void* e) {
   return c % vec == 0 && fold % vec == 0 && aligned16(a) && aligned16(b) && aligned16(d) &&
          aligned16(e);
+}
+
+template <typename E>
+cudaError_t launch_shift(const void* x, void* out, int64_t numel, int segs, int64_t hw, int c,
+                         int fold, int reverse, cudaStream_t stream) {
+  // 16-byte packs wherever a row of C splits into whole packs; a pack that
+  // straddles a fold boundary is copied element by element inside the kernel
+  constexpr int V = 16 / sizeof(E);
+  if (c % V == 0 && aligned16(x) && aligned16(out)) {
+    const int64_t n_packs = numel / V;
+    shift_kernel<E, V><<<grid_for(n_packs), kThreads, 0, stream>>>(
+        static_cast<const E*>(x), static_cast<E*>(out), n_packs, hw * c / V, segs, c / V, fold,
+        reverse);
+  } else {
+    shift_kernel<E, 1><<<grid_for(numel), kThreads, 0, stream>>>(
+        static_cast<const E*>(x), static_cast<E*>(out), numel, hw * c, segs, c, fold, reverse);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -220,6 +281,21 @@ int bdv_fused_residual_relu_shift_bwd(const void* out, const void* g_out, const 
       return (int)launch_bwd<float, 4>(out, g_out, g_shifted, g_in, numel, segs, hw, c, fold, s);
     return (int)launch_bwd<float, 1>(out, g_out, g_shifted, g_in, numel, segs, hw, c, fold, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The plain temporal shift (reverse = 0) or its transpose (reverse = 1), the
+// forward and backward of temporal_shift_pallas. dtype: 0 = float32,
+// 1 = bfloat16; numel = N * segs * hw * c.
+int bdv_temporal_shift(const void* x, void* out, long long numel, int segs, long long hw, int c,
+                       int fold, int dtype, int reverse, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (numel <= 0 || segs <= 0 || c <= 0 || fold < 0 || 2LL * fold > c ||
+      numel % ((long long)segs * hw * c) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_shift<float>(x, out, numel, segs, hw, c, fold, reverse, s);
+  if (dtype == 1)
+    return (int)launch_shift<__nv_bfloat16>(x, out, numel, segs, hw, c, fold, reverse, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,9 @@ in both directions:
   head ``fc_weights``, ``fc_weight``, ``fc_bias``, ``eta`` (same names;
   the head is ``head`` in JAX and ``cls_head`` in the port)
 
+``block_params_from_jax`` carries the whole-block fused bottleneck's
+``BlockParams`` (``ops/block_fused.py``) across.
+
 The converter works on arrays, so it imports nothing of the JAX package.
 """
 
@@ -24,6 +27,8 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.block_fused import BlockParams
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -128,3 +133,23 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return out
+
+
+def block_params_from_jax(params, dtype: torch.dtype = torch.bfloat16) -> BlockParams:
+    """The JAX ``block_fused.BlockParams`` (a NamedTuple or a mapping of its
+    field names to numpy arrays) -> the port's, on the CPU: conv weights in
+    ``dtype`` with w1 as (C, Cm) and w3 as (Cm, C), BN scale and bias in f32."""
+    fields = params._asdict() if hasattr(params, "_asdict") else dict(params)
+
+    def tensor(name):
+        return torch.from_numpy(np.array(np.asarray(fields[name], dtype=np.float32), order="C"))
+
+    w1, w2, w3 = tensor("w1"), tensor("w2"), tensor("w3")
+    return BlockParams(
+        w1=w1.reshape(-1, w1.shape[-1]).to(dtype),
+        g1=tensor("g1"), b1=tensor("b1"),
+        w2=w2.to(dtype),
+        g2=tensor("g2"), b2=tensor("b2"),
+        w3=w3.reshape(-1, w3.shape[-1]).to(dtype),
+        g3=tensor("g3"), b3=tensor("b3"),
+    )

@@ -1,7 +1,12 @@
 """Device ops: each hand-written CUDA kernel (``csrc/``) beside its plain
 PyTorch version.
 
-  tsm_shift   temporal_shift, fused_residual_relu_shift (forward + backward kernels)
-  conv1x1_bn  conv1x1_with_stats (GEMM + BatchNorm-statistics kernel), conv1x1_bn
-  _build      nvcc build, ctypes loading, launch counts
+  tsm_shift    temporal_shift, temporal_shift_kernel (the shift kernel, both
+               directions), fused_residual_relu_shift (forward + backward kernels)
+  conv1x1_bn   conv1x1_with_stats and gemm_with_stats (GEMM + BatchNorm-statistics
+               kernel), conv1x1_bn
+  block_fused  the whole-block fused bottleneck forward: conv1x1_stats,
+               conv3x3_affine_relu_stats, conv1x1_affine_relu_stats (kernels),
+               fused_bottleneck_fwd, plain_bottleneck_fwd
+  _build       nvcc build, ctypes loading, launch counts, CPU/CUDA dispatch
 """

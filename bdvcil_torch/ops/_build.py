@@ -116,3 +116,14 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.bdv_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def dispatch(name: str, x, kernel, plain, *args):
+    """``kernel(*args)`` when ``x`` is a CUDA tensor, ``plain(*args)`` when it
+    lies on the CPU; any other device raises. No fallback: a kernel that fails
+    to build or launch raises."""
+    if x.is_cuda:
+        return kernel(*args)
+    if x.device.type == "cpu":
+        return plain(*args)
+    raise NotImplementedError(f"no {name} for device {x.device}")

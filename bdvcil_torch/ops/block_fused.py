@@ -1,0 +1,297 @@
+"""Whole-block fused bottleneck forward.
+
+Port of ``bdvcil_tpu/ops/block_fused.py``: a training-mode (batch-statistics)
+ResNet bottleneck, NHWC, stride 1, as three fused kernels and one elementwise
+pass (layer1 geometry: 56x56, 256 -> 64 -> 64 -> 256):
+
+  y1 = conv1x1(x)                 + BN1 statistics      conv1x1_stats
+  y2 = conv3x3(relu(bn1(y1)))     + BN2 statistics      conv3x3_affine_relu_stats
+  y3 = conv1x1(relu(bn2(y2)))     + BN3 statistics      conv1x1_affine_relu_stats
+  out = relu(bn3(y3) + x)         one plain elementwise pass
+
+Each kernel reads its input activation once (the previous BatchNorm's
+normalize and relu run as a prologue on the tile already loaded) and writes
+its output once (the per-channel sum and sum of squares come out of the
+epilogue). Between kernels the statistics become an affine (a, b) in
+``_finalize``, (C,)-sized math.
+
+On a CUDA tensor each stats op is its hand-written kernel:
+``csrc/conv1x1_stats.cu`` for the two 1x1 GEMMs (the second with its
+prologue), ``csrc/conv3x3_stats.cu`` for the 3x3 implicit GEMM, which serves
+both of the JAX package's variant names ("taps", "im2col": one function, two
+ways of tiling the TPU's matrix unit). On a CPU tensor each is its ``_plain``
+version; the plain 3x3 mirrors each variant's summation (nine f32 tap
+products accumulated in order, or one K=9C product).
+
+Forward-only, as the JAX ops are (they have no VJP): the ops raise if an input
+requires grad rather than letting autograd reach the plain versions.
+``plain_bottleneck_fwd`` is the counterpart of ``xla_bottleneck_fwd``: the
+same block with library convolutions and eager BatchNorm.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from functools import partial
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .. import _device
+from . import _build
+from .conv1x1_bn import check_affine, gemm_stats_cuda, gemm_stats_plain
+
+CONV1 = "block_conv1x1_stats"
+CONV2 = "conv3x3_affine_relu_stats"
+CONV3 = "conv1x1_affine_relu_stats"
+VARIANTS = ("taps", "im2col")
+
+
+class BlockParams(NamedTuple):
+    """Bottleneck parameters; conv weights HWIO (the kernels read them K-major)."""
+
+    w1: torch.Tensor  # (C, Cm) or (1, 1, C, Cm)
+    g1: torch.Tensor  # (Cm,) BN scale
+    b1: torch.Tensor  # (Cm,) BN bias
+    w2: torch.Tensor  # (3, 3, Cm, Cm)
+    g2: torch.Tensor
+    b2: torch.Tensor
+    w3: torch.Tensor  # (Cm, C) or (1, 1, Cm, C)
+    g3: torch.Tensor  # (C,)
+    b3: torch.Tensor
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """``jax.nn.initializers.lecun_normal``: a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in."""
+    t = torch.empty(shape, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
+def make_params(generator: Optional[torch.Generator] = None, c: int = 256, cm: int = 64,
+                dtype: torch.dtype = torch.bfloat16, device=None) -> BlockParams:
+    """Random block parameters as the JAX ``make_params`` draws them (lecun-normal
+    convs in ``dtype``, BN scale |N| + 0.5, bias 0.1 N, in f32). The values
+    come from ``generator`` and differ from JAX's; on the card unless
+    ``device`` says otherwise."""
+    device = _device.resolve_device(device)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def normal(n):
+        return torch.randn((n,), generator=gen, device=gen.device)
+
+    p = BlockParams(
+        w1=_lecun_normal((c, cm), c, gen).to(dtype),
+        g1=normal(cm).abs() + 0.5,
+        b1=normal(cm) * 0.1,
+        w2=_lecun_normal((3, 3, cm, cm), 9 * cm, gen).to(dtype),
+        g2=normal(cm).abs() + 0.5,
+        b2=normal(cm) * 0.1,
+        w3=_lecun_normal((cm, c), cm, gen).to(dtype),
+        g3=normal(c).abs() + 0.5,
+        b3=normal(c) * 0.1,
+    )
+    return BlockParams(*(t.to(device) for t in p))
+
+
+# --- plain versions -----------------------------------------------------------
+
+
+def affine_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16(relu(f32(x) * a + b)): a product and a sum, each rounded to f32."""
+    return torch.relu(x.float() * a + b).to(x.dtype)
+
+
+def conv1x1_affine_relu_stats_plain(x, a, b, w):
+    return gemm_stats_plain(affine_relu(x, a, b), w)
+
+
+def conv3x3_affine_relu_stats_plain(x, a, b, w, variant: str = "taps"):
+    """conv3x3(pad(relu(x * a + b)), w) 'SAME' + stats; the halo is padded
+    after the prologue, so it is zero."""
+    nt, h, w_, k = x.shape
+    n = w.shape[-1]
+    xp = F.pad(affine_relu(x, a, b), (0, 0, 1, 1, 1, 1))
+    taps = [xp[:, dy:dy + h, dx:dx + w_, :].reshape(-1, k) for dy in range(3) for dx in range(3)]
+    if variant == "taps":
+        acc = torch.zeros((nt * h * w_, n), dtype=torch.float32, device=x.device)
+        for i, tap in enumerate(taps):
+            acc = acc + tap.float() @ w[i // 3, i % 3].float()
+    else:
+        acc = torch.cat(taps, dim=-1).float() @ w.reshape(9 * k, n).float()
+    y = acc.to(x.dtype)
+    yf = y.float()
+    return y.reshape(nt, h, w_, n), yf.sum(0), (yf * yf).sum(0)
+
+
+# --- kernels ------------------------------------------------------------------
+
+
+def _conv3x3_lib() -> ctypes.CDLL:
+    lib = _build.library("conv3x3_stats")
+    if not getattr(lib, "_bdv_typed", False):
+        lib.bdv_conv3x3_affine_relu_stats.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.bdv_conv3x3_affine_relu_stats.restype = ctypes.c_int
+        for fn in (lib.bdv_conv3x3_stats_block_k, lib.bdv_conv3x3_stats_block_n,
+                   lib.bdv_conv3x3_stats_block_m):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib._bdv_typed = True
+    return lib
+
+
+def _conv1x1_affine_cuda(x, a, b, w):
+    return gemm_stats_cuda(CONV3, x, w, a, b)
+
+
+def _conv3x3_cuda(x, a, b, w, variant):
+    del variant  # one kernel serves both variants
+    if x.dim() != 4 or w.shape[:2] != (3, 3) or w.dim() != 4 or w.shape[2] != x.shape[-1]:
+        raise ValueError(f"{CONV2}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"{CONV2}: the kernel takes bfloat16, got {x.dtype} x {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"{CONV2}: operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{CONV2}: operands must be contiguous (NHWC x, HWIO w)")
+    nt, h, w_, k = x.shape
+    n = w.shape[-1]
+    check_affine(CONV2, k, a, b, x.device)
+    lib = _conv3x3_lib()
+    bm, bn, bk = (lib.bdv_conv3x3_stats_block_m(), lib.bdv_conv3x3_stats_block_n(),
+                  lib.bdv_conv3x3_stats_block_k())
+    if k % bk or n % bn:
+        raise ValueError(f"{CONV2}: needs Cin % {bk} == 0 and Cout % {bn} == 0, got "
+                         f"Cin={k} Cout={n}")
+    m = nt * h * w_
+    y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, -(-m // bm), n), dtype=torch.float32, device=x.device)
+    stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.bdv_conv3x3_affine_relu_stats(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
+        stats.data_ptr(), nt, h, w_, k, n, stream,
+    )
+    _build.check(lib, code, CONV2)
+    _build.LAUNCHES[CONV2] += 1
+    return y, stats[0], stats[1]
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward-only (the JAX op has no VJP): an input "
+                           "requires grad")
+
+
+def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
+    """y = x @ w over x's channels (NHWC, f32 accumulate) + per-channel
+    sum(y) and sum(y^2) of the rounded y. x (NT, H, W, K), w (K, N)."""
+    _forward_only(CONV1, x, w)
+    return _build.dispatch(CONV1, x, partial(gemm_stats_cuda, CONV1), gemm_stats_plain, x, w)
+
+
+def conv1x1_affine_relu_stats(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                              w: torch.Tensor):
+    """y = bf16(relu(x * a + b)) @ w + stats; a, b (K,) (cast to f32)."""
+    k = x.shape[-1]
+    a, b = a.reshape(k).float(), b.reshape(k).float()
+    _forward_only(CONV3, x, a, b, w)
+    return _build.dispatch(CONV3, x, _conv1x1_affine_cuda, conv1x1_affine_relu_stats_plain,
+                           x, a, b, w)
+
+
+def conv3x3_affine_relu_stats(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                              w: torch.Tensor, variant: str = "taps"):
+    """y = conv3x3(relu(x * a + b), w), stride 1, 'SAME', + stats.
+    x (NT, H, W, Cin), w (3, 3, Cin, Cout) HWIO, a, b (Cin,)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"{CONV2}: variant must be one of {VARIANTS}, got {variant!r}")
+    k = x.shape[-1]
+    a, b = a.reshape(k).float(), b.reshape(k).float()
+    _forward_only(CONV2, x, a, b, w)
+    return _build.dispatch(CONV2, x, _conv3x3_cuda, conv3x3_affine_relu_stats_plain,
+                           x, a, b, w, variant)
+
+
+# --- the block ----------------------------------------------------------------
+
+
+def _finalize(s1, s2, count, gamma, beta, eps):
+    """Batch statistics -> the normalize affine (inv, beta - mean * inv), in f32."""
+    mean = s1 / count
+    var = s2 / count - mean * mean
+    inv = gamma / torch.sqrt(var + eps)
+    return inv, beta - mean * inv
+
+
+def _bottleneck(x, p: BlockParams, eps, conv1, conv2, conv3):
+    nt, h, w_, c = x.shape
+    w1 = p.w1.reshape(c, -1).to(x.dtype).contiguous()
+    w3 = p.w3.reshape(p.w3.shape[-2], p.w3.shape[-1]).to(x.dtype).contiguous()
+    w2 = p.w2.to(x.dtype).contiguous()
+    cnt = float(nt * h * w_)
+
+    y1, s1, q1 = conv1(x, w1)
+    a1, b1 = _finalize(s1, q1, cnt, p.g1, p.b1, eps)
+    y2, s2, q2 = conv2(y1, a1, b1, w2)
+    a2, b2 = _finalize(s2, q2, cnt, p.g2, p.b2, eps)
+    y3, s3, q3 = conv3(y2, a2, b2, w3)
+    a3, b3 = _finalize(s3, q3, cnt, p.g3, p.b3, eps)
+    out = torch.relu(y3.float() * a3 + b3 + x.float()).to(x.dtype)
+
+    def mv(s, q):
+        m = s / cnt
+        return m, q / cnt - m * m
+
+    return out, (mv(s1, q1), mv(s2, q2), mv(s3, q3))
+
+
+def fused_bottleneck_fwd(x: torch.Tensor, p: BlockParams, eps: float = 1e-5,
+                         conv3x3_variant: str = "taps"):
+    """Training-mode bottleneck forward as three fused stats kernels and one
+    elementwise pass. x (NT, H, W, C) NHWC, contiguous. Returns (out,
+    ((mean, var) per BN)): the statistics a full integration would feed the
+    running averages."""
+    conv2 = partial(conv3x3_affine_relu_stats, variant=conv3x3_variant)
+    return _bottleneck(x.contiguous(), p, eps, conv1x1_stats, conv2, conv1x1_affine_relu_stats)
+
+
+def fused_bottleneck_fwd_plain(x: torch.Tensor, p: BlockParams, eps: float = 1e-5,
+                               conv3x3_variant: str = "taps"):
+    """``fused_bottleneck_fwd`` over the stats ops' plain versions, on any device."""
+    conv2 = partial(conv3x3_affine_relu_stats_plain, variant=conv3x3_variant)
+    return _bottleneck(x.contiguous(), p, eps, gemm_stats_plain, conv2,
+                       conv1x1_affine_relu_stats_plain)
+
+
+def plain_bottleneck_fwd(x: torch.Tensor, p: BlockParams, eps: float = 1e-5):
+    """The same block with library convolutions (``F.conv2d``) and eager
+    BatchNorm: the counterpart of ``xla_bottleneck_fwd`` (f32 statistics,
+    normalize in f32 rounded to the activation dtype)."""
+
+    def conv(xv, w):  # NHWC x HWIO -> NHWC (a channels_last view)
+        wt = w.to(xv.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(xv.permute(0, 3, 1, 2), wt, padding=1 if w.shape[0] == 3 else 0)
+        return y.permute(0, 2, 3, 1)
+
+    def bn(y, g, b):
+        yf = y.float()
+        m = yf.mean((0, 1, 2))
+        v = (yf * yf).mean((0, 1, 2)) - m * m
+        inv = g / torch.sqrt(v + eps)
+        return (yf * inv + (b - m * inv)).to(y.dtype), (m, v)
+
+    c = x.shape[-1]
+    w1 = p.w1.reshape(1, 1, c, -1)
+    w3 = p.w3.reshape(1, 1, p.w3.shape[-2], p.w3.shape[-1])
+    y1, mv1 = bn(conv(x, w1), p.g1, p.b1)
+    y2, mv2 = bn(conv(torch.relu(y1), p.w2), p.g2, p.b2)
+    y3, mv3 = bn(conv(torch.relu(y2), w3), p.g3, p.b3)
+    out = torch.relu(y3.float() + x.float()).to(x.dtype)
+    return out, (mv1, mv2, mv3)

@@ -6,18 +6,19 @@ outputs feed a train-mode BatchNorm, whose statistics would otherwise take a
 second full read of the conv output. ``conv1x1_with_stats`` emits the
 per-channel sum and sum of squares from the pass that produces the output,
 computed on the ROUNDED bf16 output so they equal a reduction over the stored
-tensor.
+tensor. ``gemm_with_stats`` is the same function on a 2-D (M, K) operand.
 
 On a CUDA tensor the forward is the hand-written kernel of
-``csrc/conv1x1_stats.cu``; on a CPU tensor it is
-``conv1x1_with_stats_plain``. The backward is plain PyTorch on both, as the
-JAX package leaves it to XLA: the cotangents of s1/s2 are folded into dy
-(``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward.
+``csrc/conv1x1_stats.cu``; on a CPU tensor it is ``gemm_stats_plain``. The
+backward is plain PyTorch on both, as the JAX package leaves it to XLA: the
+cotangents of s1/s2 are folded into dy (``dy += gs1 + 2 * gs2 * y``), then
+the GEMM's own backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -25,18 +26,19 @@ import torch
 from . import _build
 
 KERNEL = "conv1x1_with_stats"
+GEMM_KERNEL = "gemm_with_stats"
 EPS = 1e-5
 
 
-def conv1x1_with_stats_plain(
-    x4: torch.Tensor, w: torch.Tensor
+def gemm_stats_plain(
+    x: torch.Tensor, w: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """y = x4 @ w in f32, rounded to the input dtype; stats over the rounded y."""
-    nt, h, w_, k = x4.shape
-    n = w.shape[-1]
-    y = (x4.reshape(-1, k).float() @ w.float()).to(x4.dtype)
+    """y = x @ w over x's last dim in f32, rounded to x's dtype; stats over the
+    rounded y. x (..., K), w (K, N) -> y (..., N), s1 (N,), s2 (N,)."""
+    k, n = w.shape
+    y = (x.reshape(-1, k).float() @ w.float()).to(x.dtype)
     yf = y.float()
-    return y.reshape(nt, h, w_, n), yf.sum(0), (yf * yf).sum(0)
+    return y.reshape(*x.shape[:-1], n), yf.sum(0), (yf * yf).sum(0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -46,6 +48,10 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.bdv_conv1x1_with_stats.restype = ctypes.c_int
+        lib.bdv_conv1x1_affine_relu_stats.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.bdv_conv1x1_affine_relu_stats.restype = ctypes.c_int
         for fn in (lib.bdv_conv1x1_stats_block_m, lib.bdv_conv1x1_stats_block_n,
                    lib.bdv_conv1x1_stats_block_k):
             fn.argtypes = []
@@ -54,55 +60,84 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _conv1x1_with_stats_cuda(x4: torch.Tensor, w: torch.Tensor):
-    if x4.dim() != 4 or w.dim() != 2 or x4.shape[-1] != w.shape[0]:
-        raise ValueError(f"{KERNEL}: shapes {tuple(x4.shape)} x {tuple(w.shape)}")
-    if x4.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"{KERNEL}: the kernel takes bfloat16, got {x4.dtype} x {w.dtype}")
-    if w.device != x4.device:
-        raise ValueError(f"{KERNEL}: operands on {x4.device} and {w.device}")
-    if not (x4.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{KERNEL}: operands must be contiguous (NHWC x4, (K, N) w)")
+def check_affine(name: str, k: int, a: torch.Tensor, b: torch.Tensor, device) -> None:
+    """The prologue's (a, b): contiguous f32 (K,) vectors on the operand's device."""
+    for v in (a, b):
+        if v.shape != (k,) or v.dtype != torch.float32 or v.device != device:
+            raise ValueError(f"{name}: a, b must be ({k},) float32 on {device}, got "
+                             f"{tuple(v.shape)} {v.dtype} on {v.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: a, b must be contiguous")
+
+
+def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
+                    a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
+    """Launch the GEMM-with-statistics kernel on the rows of x (..., K) and
+    w (K, N); with (a, b), on the rows of bf16(relu(x * a + b)). Counts one
+    launch under ``name``. Returns y (..., N), s1 (N,), s2 (N,)."""
+    if x.dim() < 2 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype} x {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"{name}: operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous (row-major x, (K, N) w)")
+    k, n = w.shape
+    if a is not None:
+        check_affine(name, k, a, b, x.device)
     lib = _lib()
-    nt, h, w_, k = x4.shape
-    n = w.shape[1]
     bm, bn, bk = (lib.bdv_conv1x1_stats_block_m(), lib.bdv_conv1x1_stats_block_n(),
                   lib.bdv_conv1x1_stats_block_k())
     if k % bk or n % bn:
-        raise ValueError(f"{KERNEL}: needs K % {bk} == 0 and N % {bn} == 0, got K={k} N={n}")
-    m = nt * h * w_
-    y = torch.empty((nt, h, w_, n), dtype=x4.dtype, device=x4.device)
-    part = torch.empty((2, -(-m // bm), n), dtype=torch.float32, device=x4.device)
-    stats = torch.empty((2, n), dtype=torch.float32, device=x4.device)
-    stream = torch.cuda.current_stream(x4.device).cuda_stream
-    code = lib.bdv_conv1x1_with_stats(
-        x4.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), stats.data_ptr(),
-        m, k, n, stream,
-    )
-    _build.check(lib, code, KERNEL)
-    _build.LAUNCHES[KERNEL] += 1
+        raise ValueError(f"{name}: needs K % {bk} == 0 and N % {bn} == 0, got K={k} N={n}")
+    m = x.numel() // k
+    y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, -(-m // bm), n), dtype=torch.float32, device=x.device)
+    stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if a is None:
+        code = lib.bdv_conv1x1_with_stats(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), stats.data_ptr(),
+            m, k, n, stream,
+        )
+    else:
+        code = lib.bdv_conv1x1_affine_relu_stats(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            part.data_ptr(), stats.data_ptr(), m, k, n, stream,
+        )
+    _build.check(lib, code, name)
+    _build.LAUNCHES[name] += 1
     return y, stats[0], stats[1]
 
 
 def conv1x1_with_stats_fwd(x4: torch.Tensor, w: torch.Tensor):
     """The forward: the kernel on a CUDA tensor, the plain version on a CPU one."""
-    if x4.is_cuda:
-        return _conv1x1_with_stats_cuda(x4, w)
-    if x4.device.type == "cpu":
-        return conv1x1_with_stats_plain(x4, w)
-    raise NotImplementedError(f"no {KERNEL} for device {x4.device}")
+    if x4.dim() != 4:
+        raise ValueError(f"{KERNEL}: x must be (N*T, H, W, K), got {tuple(x4.shape)}")
+    return _build.dispatch(KERNEL, x4, partial(gemm_stats_cuda, KERNEL), gemm_stats_plain, x4, w)
 
 
-class _Conv1x1WithStats(torch.autograd.Function):
+def gemm_with_stats_fwd(x: torch.Tensor, w: torch.Tensor):
+    """``gemm_with_stats``'s forward on (M, K) x (K, N)."""
+    if x.dim() != 2:
+        raise ValueError(f"{GEMM_KERNEL}: x must be (M, K), got {tuple(x.shape)}")
+    return _build.dispatch(GEMM_KERNEL, x, partial(gemm_stats_cuda, GEMM_KERNEL),
+                           gemm_stats_plain, x, w)
+
+
+class _GemmWithStats(torch.autograd.Function):
+    """(y, sum(y), sum(y^2)) of a GEMM over x's rows; ``fwd`` is the forward."""
+
     @staticmethod
-    def forward(ctx, x4, w):
-        y, s1, s2 = conv1x1_with_stats_fwd(x4, w)
-        ctx.save_for_backward(x4, w, y)
+    def forward(ctx, x, w, fwd):
+        y, s1, s2 = fwd(x, w)
+        ctx.save_for_backward(x, w, y)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
-        x4, w, y = ctx.saved_tensors
+        x, w, y = ctx.saved_tensors
         k, n = w.shape
         # d/dy of (y, sum(y), sum(y^2)) contracted with the cotangents
         dy = gy.float()
@@ -110,16 +145,25 @@ class _Conv1x1WithStats(torch.autograd.Function):
             dy = dy + gs1
         if gs2 is not None:
             dy = dy + 2.0 * gs2 * y.float()
-        dy = dy.to(x4.dtype).reshape(-1, n)
-        dx = (dy @ w.t()).reshape(x4.shape)
-        dw = x4.reshape(-1, k).t() @ dy
-        return dx, dw
+        dy = dy.to(x.dtype).reshape(-1, n)
+        dx = (dy @ w.t()).reshape(x.shape)
+        dw = x.reshape(-1, k).t() @ dy
+        return dx, dw, None
 
 
 def conv1x1_with_stats(x4: torch.Tensor, w: torch.Tensor):
     """y = 1x1-conv(x4, w) (NHWC, f32 accumulate) + per-channel sum(y) and
     sum(y^2) in f32, one pass. x4 (N*T, H, W, K), w (K, N)."""
-    return _Conv1x1WithStats.apply(x4, w)
+    return _GemmWithStats.apply(x4, w, conv1x1_with_stats_fwd)
+
+
+def gemm_with_stats(x: torch.Tensor, w: torch.Tensor):
+    """y = x @ w (f32 accumulate, rounded to x's dtype) plus per-column sum(y)
+    and sum(y*y) in f32, in one pass over the output. x (M, K), w (K, N).
+
+    The JAX version pads M to its tile; the kernel masks the ragged edge, and y
+    is (M, N) either way. The VJP is JAX's ``_bwd``."""
+    return _GemmWithStats.apply(x, w, gemm_with_stats_fwd)
 
 
 def bn_affine_from_sums(

@@ -7,6 +7,11 @@ pass through; boundary frames read zero.
 
   * ``temporal_shift`` — plain PyTorch (slice + cat), differentiable by
     autograd. ``shift_mode='pad'`` uses it before every block's conv1.
+  * ``temporal_shift_kernel`` — the same shift through the hand-written
+    kernel of ``csrc/tsm_shift.cu`` (the port of ``temporal_shift_pallas``):
+    forward and backward are one kernel with a direction argument, the
+    backward being the reverse shift. On a CPU tensor it runs
+    ``temporal_shift`` / ``temporal_unshift``.
   * ``fused_residual_relu_shift`` — ``shift_mode='fused_block'``: a block's
     epilogue ``out = relu(h + identity)`` together with the next block's
     shifted input ``temporal_shift(out)``, in one pass. On a CUDA tensor the
@@ -29,6 +34,7 @@ from . import _build
 
 FWD = "fused_residual_relu_shift_fwd"
 BWD = "fused_residual_relu_shift_bwd"
+SHIFT = "temporal_shift"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -104,6 +110,11 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.bdv_fused_residual_relu_shift_fwd, lib.bdv_fused_residual_relu_shift_bwd):
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        lib.bdv_temporal_shift.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.bdv_temporal_shift.restype = ctypes.c_int
         lib._bdv_typed = True
     return lib
 
@@ -146,20 +157,14 @@ def _fused_bwd_cuda(out, g_out, g_shifted, num_segments, shift_div):
 
 def fused_fwd(h, identity, num_segments: int, shift_div: int = 8):
     """The forward: the kernel on a CUDA tensor, the plain version on a CPU one."""
-    if h.is_cuda:
-        return _fused_fwd_cuda(h, identity, num_segments, shift_div)
-    if h.device.type == "cpu":
-        return fused_residual_relu_shift_plain(h, identity, num_segments, shift_div)
-    raise NotImplementedError(f"no fused_residual_relu_shift for device {h.device}")
+    return _build.dispatch(FWD, h, _fused_fwd_cuda, fused_residual_relu_shift_plain,
+                           h, identity, num_segments, shift_div)
 
 
 def fused_bwd(out, g_out, g_shifted, num_segments: int, shift_div: int = 8):
     """The backward: the kernel on a CUDA tensor, the plain version on a CPU one."""
-    if out.is_cuda:
-        return _fused_bwd_cuda(out, g_out, g_shifted, num_segments, shift_div)
-    if out.device.type == "cpu":
-        return fused_residual_relu_shift_bwd_plain(out, g_out, g_shifted, num_segments, shift_div)
-    raise NotImplementedError(f"no fused_residual_relu_shift backward for device {out.device}")
+    return _build.dispatch(BWD, out, _fused_bwd_cuda, fused_residual_relu_shift_bwd_plain,
+                           out, g_out, g_shifted, num_segments, shift_div)
 
 
 class _FusedResidualReluShift(torch.autograd.Function):
@@ -187,3 +192,46 @@ def fused_residual_relu_shift(
     ``shift_mode='fused_block'``.
     """
     return _FusedResidualReluShift.apply(h, identity, num_segments, shift_div)
+
+
+# --- the plain shift through its kernel (temporal_shift_pallas) ----------------
+
+
+def _shift_cuda(x, num_segments, shift_div, reverse):
+    _check(SHIFT, x)
+    lib = _lib()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.bdv_temporal_shift(x.data_ptr(), out.data_ptr(),
+                                  *_geometry(x, num_segments, shift_div), int(reverse), stream)
+    _build.check(lib, code, SHIFT)
+    _build.LAUNCHES[SHIFT] += 1
+    return out
+
+
+def shift_fwd(x, num_segments: int, shift_div: int = 8, reverse: bool = False):
+    """The shift (or with ``reverse`` its transpose): the kernel on a CUDA
+    tensor, ``temporal_shift`` / ``temporal_unshift`` on a CPU one."""
+    plain = temporal_unshift if reverse else temporal_shift
+    return _build.dispatch(SHIFT, x, lambda *a: _shift_cuda(*a, reverse), plain,
+                           x, num_segments, shift_div)
+
+
+class _TemporalShiftKernel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, num_segments, shift_div):
+        ctx.geometry = (num_segments, shift_div)
+        return shift_fwd(x, num_segments, shift_div)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the shift is linear: its VJP is the reverse shift (_shift_bwd)
+        return shift_fwd(g.contiguous(), *ctx.geometry, reverse=True), None, None
+
+
+def temporal_shift_kernel(x: torch.Tensor, num_segments: int, shift_div: int = 8) -> torch.Tensor:
+    """``temporal_shift`` through the shift kernel, forward and backward.
+
+    x: (N*T, H, W, C), contiguous, float32 or bfloat16 on the card; any C
+    (packs that straddle a fold boundary are copied element by element)."""
+    return _TemporalShiftKernel.apply(x, num_segments, shift_div)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 The main path is the ``base``-method CIL train step: TSM-ResNet-50, 8 frames
 at 224x224, batch 16, bf16 compute, LSC head (nb_proxies=1) with LSCLoss, the
@@ -11,16 +11,31 @@ hand-written kernels (the defaults reach none):
   B  shift_mode='fused_block'                        -> fused_residual_relu_shift
                                                         forward and backward
 
+The other entry points, each with its own kernels:
+
+  block  fused_bottleneck_fwd at TSM-R50 layer1 width (16 clips x 8 frames,
+         56x56, 256 -> 64 -> 64 -> 256), both conv3x3 variants
+         -> block_conv1x1_stats, conv3x3_affine_relu_stats,
+            conv1x1_affine_relu_stats, one each per block forward
+  gemm   gemm_with_stats, forward and VJP, at the eight ResNet-50 1x1 shapes
+         -> gemm_with_stats
+  shift  temporal_shift_kernel, forward and VJP, at the block inputs of the
+         pad path and at (64, 28, 28, 512) f32 -> temporal_shift
+
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. build every kernel from bdvcil_torch/csrc (nvcc, sm_90a);
   2. kernels: each against its plain PyTorch version at every ResNet-50 shape
-     of the path, forward and backward, with CUDA-event times of the kernel,
-     the plain version and, where one exists, the library call;
+     of its path, forward and backward, with CUDA-event times of the kernel,
+     the plain version and, where one exists, the library call; the block
+     kernels' statistics on a second run, bit for bit;
   3. reference: one small train step per configuration on the card against
      the same step on the CPU, where the port runs the plain versions;
   4. train A and B at full width: 3 task-0 steps (26 classes), growth to 31,
      3 task-1 KD steps; launch counts, finite losses, moved parameters and
-     updated running statistics; step times.
+     updated running statistics; step times;
+  5. the block, gemm and shift paths, each with its launch counts set to 0
+     before and read after: outputs against the plain compositions, the
+     block against the library-convolution block, chained ms per block.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -44,6 +59,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -54,28 +70,45 @@ BATCH, SEGMENTS, SIZE = 16, 8, 224
 KERNEL_CONFIGS = ("A", "B")  # bdvcil_torch.config_templates.SWITCHES
 FWD, BWD, CONV = ("fused_residual_relu_shift_fwd", "fused_residual_relu_shift_bwd",
                   "conv1x1_with_stats")
+GEMM, SHIFT = "gemm_with_stats", "temporal_shift"
+CONV1, CONV2, CONV3 = ("block_conv1x1_stats", "conv3x3_affine_relu_stats",
+                       "conv1x1_affine_relu_stats")
 KERNEL_META = {
     FWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:131"),
     BWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:140"),
     CONV: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/conv1x1_bn.py:164"),
+    GEMM: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37"),
+    SHIFT: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:235"),
+    CONV1: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/block_fused.py:96"),
+    CONV3: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/block_fused.py:73"),
+    CONV2: ("bdvcil_torch/csrc/conv3x3_stats.cu", "bdvcil_tpu/ops/block_fused.py:110"),
 }
+# the 1x1 shapes of tools/bench_gemm_stats.py (M = 16 clips x 8 frames x H x W)
+GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 512, 128),
+               (NT * 28 * 28, 128, 512), (NT * 14 * 14, 1024, 256), (NT * 14 * 14, 256, 1024),
+               (NT * 7 * 7, 2048, 512), (NT * 7 * 7, 512, 2048)]
+# the stride-1 bottlenecks of ResNet-50: (H = W, C, Cm); the first is layer1
+BLOCKS = [(56, 256, 64), (28, 512, 128), (14, 1024, 256), (7, 2048, 512)]
+BLOCK_ITERS = 20
 
 
 def r50_shapes():
     """Per train forward: the fused epilogue's (N*T, H, W, C) shapes and the
-    1x1 GEMMs' (M, K, N) shapes of configuration A, each with its count."""
-    fused, gemm = collections.Counter(), collections.Counter()
+    1x1 GEMMs' (M, K, N) shapes of configuration A, each with its count, and
+    the pad path's shifted block inputs (N*T, H, W, C)."""
+    fused, gemm, shifted = collections.Counter(), collections.Counter(), collections.Counter()
     inplanes, planes, size = 64, 64, SIZE // 4
     for stage, blocks in enumerate((3, 4, 6, 3)):
         for b in range(blocks):
             stride = 2 if stage > 0 and b == 0 else 1
+            shifted[(NT, size, size, inplanes)] += 1
             gemm[(NT * size * size, inplanes, planes)] += 1  # conv1, input resolution
             size //= stride
             gemm[(NT * size * size, planes, 4 * planes)] += 1  # conv3
             fused[(NT, size, size, 4 * planes)] += 1
             inplanes = 4 * planes
         planes *= 2
-    return fused, gemm
+    return fused, gemm, shifted
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -130,7 +163,7 @@ def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
              lambda: tsm.fused_residual_relu_shift_bwd_plain(out, g_out, g_sh, SEGMENTS, 8)),
         ):
             b_ms, b_by = bound_ms(nbytes, 0.0)
-            rows.append(dict(kernel=name, shape=list(shape), per_step=per_fwd,
+            rows.append(dict(kernel=name, shape=list(shape), per_path=per_fwd,
                              ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
                              bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
                              bytes=nbytes, flops=0))
@@ -140,7 +173,7 @@ def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
         x = torch.randn((m, 1, 1, k), generator=gen, device=dev).to(bf16)
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
         y, s1, s2 = conv.conv1x1_with_stats_fwd(x, w)
-        ry, rs1, rs2 = conv.conv1x1_with_stats_plain(x, w)
+        ry, rs1, rs2 = conv.gemm_stats_plain(x, w)
         torch.cuda.synchronize()
         err = (y.float() - ry.float()).abs()
         if not bool((err <= bf16_ulp(ry.float())).all()):
@@ -159,9 +192,9 @@ def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
         nbytes = 2 * (m * k + m * n + k * n) + 2 * 4 * n
         flops = 2 * m * k * n
         b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append(dict(kernel=CONV, shape=[m, k, n], per_step=per_fwd,
+        rows.append(dict(kernel=CONV, shape=[m, k, n], per_path=per_fwd,
                          ms=cuda_ms(lambda: conv.conv1x1_with_stats_fwd(x, w)),
-                         plain_ms=cuda_ms(lambda: conv.conv1x1_with_stats_plain(x, w)),
+                         plain_ms=cuda_ms(lambda: conv.gemm_stats_plain(x, w)),
                          library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=float(err.max()), bytes=nbytes, flops=flops))
         # the autograd backward on the card against the JAX rule (_bwd4) in f32
@@ -184,6 +217,248 @@ def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
         del x, w, y, ry, x2, gy, xi, wi, yk, dy
 
     return rows
+
+
+def assert_stats(what, got, ref):
+    """y within one bf16 ulp of the plain version's, the statistics rtol 1e-3."""
+    (y, s1, s2), (ry, rs1, rs2) = got, ref
+    if y.shape != ry.shape or y.dtype != ry.dtype:
+        raise AssertionError(f"{what}: y {tuple(y.shape)} {y.dtype} vs {tuple(ry.shape)} "
+                             f"{ry.dtype}")
+    err = (y.float() - ry.float()).abs()
+    if not bool((err <= bf16_ulp(ry.float())).all()):
+        raise AssertionError(f"{what}: y is off by more than one bf16 ulp "
+                             f"(max abs err {float(err.max())})")
+    for g, r, name in ((s1, rs1, "s1"), (s2, rs2, "s2")):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3 * float(r.abs().max()),
+                                   msg=lambda m: f"{what} {name}: {m}")
+    return float(err.max())
+
+
+def off_terms(out, ref, terms, tol):
+    """Elements with |out - ref| > tol + tol * (|ref| + sum |term|), and the
+    largest |out - ref|. The block's output is relu(y3 * a3 + b3 + x) rounded
+    to bf16, so one ulp of a large term shows in a small output: the
+    tolerance is taken against the terms' size."""
+    scale = ref.float().abs() + sum(t.float().abs() for t in terms)
+    err = (out.float() - ref.float()).abs()
+    return int((err > tol + tol * scale).sum()), float(err.max())
+
+
+def assert_block_close(what, out, ref, terms):
+    """Every element within 5e-2 of the terms, and all but 1e-5 of them within
+    2e-2. Three bf16 roundings, each a legitimate ulp apart between two
+    summation orders, feed the next stage's normalize; on 10^8 outputs a
+    few elements land outside 2e-2 (one ulp of y3 amplified by a3)."""
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"{what}: not finite")
+    n_tight, err = off_terms(out, ref, terms, 2e-2)
+    n_loose, _ = off_terms(out, ref, terms, 5e-2)
+    if n_loose or n_tight > 1e-5 * out.numel():
+        raise AssertionError(f"{what}: {n_tight} of {out.numel()} elements outside 2e-2, "
+                             f"{n_loose} outside 5e-2 (max abs err {err})")
+    return dict(max_abs_err=err, outside_2e2=n_tight, numel=out.numel())
+
+
+def timed_row(kernel, shape, per_path, fn, plain, library, nbytes, flops, err):
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return dict(kernel=kernel, shape=list(shape), per_path=per_path, ms=cuda_ms(fn),
+                plain_ms=cuda_ms(plain), library_ms=None if library is None else cuda_ms(library),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops)
+
+
+def stats_of(y):
+    """The library yardstick's statistics: two f32 sums over the channels."""
+    yf = y.float().reshape(-1, y.shape[-1])
+    return yf.sum(0), (yf * yf).sum(0)
+
+
+def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
+    """Kernels #4-#8 against their plain versions at the shapes of their paths."""
+    rows = []
+    bf16 = torch.bfloat16
+
+    # #4 gemm_with_stats: forward, and the VJP against JAX's _bwd rule in f32
+    for m, k, n in GEMM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
+        err = assert_stats(f"{GEMM} {(m, k, n)}", conv.gemm_with_stats_fwd(x, w),
+                           conv.gemm_stats_plain(x, w))
+        gy = torch.randn((m, n), generator=gen, device=dev).to(bf16)
+        gs1 = torch.randn((n,), generator=gen, device=dev)
+        gs2 = torch.randn((n,), generator=gen, device=dev) * 1e-3
+        xi, wi = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y, s1, s2 = conv.gemm_with_stats(xi, wi)
+        torch.autograd.backward([y, s1, s2], [gy, gs1, gs2])
+        dy = (gy.float() + gs1 + 2.0 * gs2 * y.detach().float()).to(bf16).float()
+        for got, ref, what in ((xi.grad, dy @ w.float().t(), "dx"),
+                               (wi.grad, x.float().t() @ dy, "dw")):
+            torch.testing.assert_close(got.float(), ref, rtol=1e-2,
+                                       atol=1e-2 * float(ref.abs().max()),
+                                       msg=lambda s: f"{GEMM} {what} {(m, k, n)}: {s}")
+        rows.append(timed_row(
+            GEMM, (m, k, n), 1, lambda: conv.gemm_with_stats_fwd(x, w),
+            lambda: conv.gemm_stats_plain(x, w), lambda: stats_of(torch.matmul(x, w)),
+            2 * (m * k + m * n + k * n) + 2 * 4 * n, 2 * m * k * n, err))
+        del x, w, gy, xi, wi, y, dy
+
+    # #5 the plain shift, forward and reverse: bit-exact
+    for shape, dtype in shift_shapes:
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for reverse, plain in ((False, tsm.temporal_shift), (True, tsm.temporal_unshift)):
+            if not torch.equal(tsm.shift_fwd(x, SEGMENTS, 8, reverse), plain(x, SEGMENTS, 8)):
+                raise AssertionError(f"{SHIFT} (reverse={reverse}) differs from its plain "
+                                     f"version at {shape} {dtype}")
+            rows.append(timed_row(
+                SHIFT, shape, 1, lambda r=reverse: tsm.shift_fwd(x, SEGMENTS, 8, r),
+                lambda p=plain: p(x, SEGMENTS, 8), None, 2 * x.numel() * x.element_size(), 0,
+                0.0))
+        del x
+
+    # #6-#8 at the stride-1 bottlenecks (layer1 is the block path's shape);
+    # b > 0 on every channel, so a halo of relu(b) would show
+    for hw, c, cm in BLOCKS:
+        per = 1 if (hw, c, cm) == BLOCKS[0] else 0
+        m = NT * hw * hw
+        x = torch.randn((NT, hw, hw, c), generator=gen, device=dev).to(bf16)
+        y = torch.randn((NT, hw, hw, cm), generator=gen, device=dev).to(bf16)
+        a = torch.rand((cm,), generator=gen, device=dev) + 0.5
+        b = torch.randn((cm,), generator=gen, device=dev).abs() * 0.5 + 0.1
+        w1 = (torch.randn((c, cm), generator=gen, device=dev) / math.sqrt(c)).to(bf16)
+        w2 = (torch.randn((3, 3, cm, cm), generator=gen, device=dev) / math.sqrt(9 * cm)).to(bf16)
+        w3 = (torch.randn((cm, c), generator=gen, device=dev) / math.sqrt(cm)).to(bf16)
+        w2_lib = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y_nchw = y.permute(0, 3, 1, 2)  # channels_last view, no copy
+        cases = [
+            (CONV1, (m, c, cm), lambda: bf.conv1x1_stats(x, w1),
+             lambda: conv.gemm_stats_plain(x, w1),
+             lambda: stats_of(torch.matmul(x, w1)),
+             2 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm),
+            (CONV3, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
+             lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
+             lambda: stats_of(torch.matmul(y, w3)),
+             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c),
+        ] + [
+            (CONV2, (NT, hw, hw, cm, cm, variant),
+             lambda v=variant: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
+             lambda v=variant: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v),
+             lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
+             2 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm)
+            for variant in ("taps", "im2col")
+        ]
+        for name, shape, fn, plain, library, nbytes, flops in cases:
+            first = fn()
+            err = assert_stats(f"{name} {shape}", first, plain())
+            again = fn()  # determinism: the same statistics, bit for bit
+            if not all(torch.equal(u, v) for u, v in zip(first, again)):
+                raise AssertionError(f"{name} {shape}: a second run differs")
+            # the two variant names are one kernel: count its layer1 time once
+            weight = per if shape[-1] != "im2col" else 0
+            rows.append(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err))
+            del first, again
+        del x, y, w1, w2, w3, w2_lib, y_nchw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def block_path(dev, seed, smi):
+    """fused_bottleneck_fwd at TSM-R50 layer1 width, both variants, against
+    its plain composition and the library-convolution block; chained ms."""
+    from bdvcil_torch import bench_block_fused as bench
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.ops import block_fused as bf
+
+    hw, c, cm = BLOCKS[0]
+    x, p = bench.block_inputs(NT, hw, c, cm, seed, dev)
+    _build.LAUNCHES.clear()
+    forwards, checks = 0, {}
+    with torch.no_grad():
+        lib, lib_stats = bf.plain_bottleneck_fwd(x, p)
+        for variant in bf.VARIANTS:
+            out, stats = bf.fused_bottleneck_fwd(x, p, conv3x3_variant=variant)
+            forwards += 1
+            torch.cuda.synchronize()
+            ref, ref_stats = bf.fused_bottleneck_fwd_plain(x, p, conv3x3_variant=variant)
+            for (got, want, rtol, atol, against) in ((stats, ref_stats, 1e-3, 1e-4, "plain"),
+                                                     (stats, lib_stats, 1e-4, 1e-4, "library")):
+                for g, w in zip(got, want):
+                    for u, v in zip(g, w):
+                        torch.testing.assert_close(
+                            u, v, rtol=rtol, atol=atol,
+                            msg=lambda s: f"block {variant} stats vs {against}: {s}")
+            checks[variant] = dict(
+                vs_plain=assert_block_close(f"block {variant} vs plain composition", out, ref,
+                                            (x, p.b3)),
+                vs_library=assert_block_close(f"block {variant} vs library block", out, lib,
+                                              (x, p.b3)),
+                # the yardstick: two plain schedules against each other
+                plain_vs_library=dict(zip(("outside_2e2", "max_abs_err"),
+                                          off_terms(ref, lib, (x, p.b3), 2e-2))),
+            )
+            print(f"block {variant} checks: {checks[variant]}", flush=True)
+            del out, stats, ref, ref_stats
+        del lib, lib_stats
+        blocks = bench.time_blocks(x, p, BLOCK_ITERS, dev)
+        forwards += 2 * (BLOCK_ITERS + 2)  # two fused schedules, warm-up and chain
+    launches = dict(_build.LAUNCHES)
+    want = {CONV1: forwards, CONV2: forwards, CONV3: forwards}
+    if launches != want:
+        raise AssertionError(f"block path: kernel launches {launches}, expected {want}")
+    result = dict(shape=[NT, hw, hw, c, cm], checks=checks, launches=launches,
+                  iters=BLOCK_ITERS, **{f"{k}_ms_per_block": v for k, v in blocks.items()})
+    print(f"block {NT}x{hw}x{hw}x{c}/{cm}: fused taps {blocks['fused_taps']:.4f} ms, fused "
+          f"im2col {blocks['fused_im2col']:.4f} ms, plain {blocks['plain']:.4f} ms per block "
+          f"(chain of {BLOCK_ITERS}), launches {launches} [{smi}]", flush=True)
+    del x, p
+    torch.cuda.empty_cache()
+    return result
+
+
+def gemm_path(dev, gen):
+    """gemm_with_stats, forward and VJP, once at each shape."""
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.ops import conv1x1_bn as conv
+
+    _build.LAUNCHES.clear()
+    for m, k, n in GEMM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        w.requires_grad_(True)
+        y, s1, s2 = conv.gemm_with_stats(x, w)
+        (y.float().mean() + s1.mean() * 1e-3 + s2.mean() * 1e-6).backward()
+        for t in (y, s1, s2, x.grad, w.grad):
+            if not bool(torch.isfinite(t.float()).all()):
+                raise AssertionError(f"gemm path {(m, k, n)}: non-finite output")
+        if y.shape != (m, n):
+            raise AssertionError(f"gemm path: y {tuple(y.shape)} for M={m}, N={n}")
+        del x, w, y
+    launches = dict(_build.LAUNCHES)
+    if launches != {GEMM: len(GEMM_SHAPES)}:
+        raise AssertionError(f"gemm path: kernel launches {launches}")
+    return launches
+
+
+def shift_path(dev, gen, shift_shapes):
+    """temporal_shift_kernel, forward and VJP, once at each shape; bit-exact
+    against the plain shift and its transpose."""
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.ops import tsm_shift as tsm
+
+    _build.LAUNCHES.clear()
+    for shape, dtype in shift_shapes:
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        out = tsm.temporal_shift_kernel(x, SEGMENTS, 8)
+        out.backward(g)
+        with torch.no_grad():
+            if not (torch.equal(out, tsm.temporal_shift(x, SEGMENTS, 8))
+                    and torch.equal(x.grad, tsm.temporal_unshift(g, SEGMENTS, 8))):
+                raise AssertionError(f"shift path {shape} {dtype}: differs from the plain shift")
+        del x, g, out
+    launches = dict(_build.LAUNCHES)
+    if launches != {SHIFT: 2 * len(shift_shapes)}:
+        raise AssertionError(f"shift path: kernel launches {launches}")
+    return launches
 
 
 def reference_phase(dev, seed):
@@ -317,6 +592,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script measures the GPU only", file=sys.stderr)
         return 1
     from bdvcil_torch.ops import _build
+    from bdvcil_torch.ops import block_fused as bf
     from bdvcil_torch.ops import conv1x1_bn as conv
     from bdvcil_torch.ops import tsm_shift as tsm
 
@@ -332,11 +608,18 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, one process per source)", flush=True)
 
-    fused_shapes, gemm_shapes = r50_shapes()
+    wall0 = time.perf_counter()
+    fused_shapes, gemm_shapes, shifted = r50_shapes()
+    # the pad path's shifted block inputs (bf16), and the shape of
+    # tools/check_tpu_kernels.py in f32
+    shift_shapes = [(s, torch.bfloat16) for s in sorted(shifted)] + [
+        ((64, 28, 28, 512), torch.float32)]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv)
+    torch.cuda.empty_cache()
+    rows += kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf)
     for r in rows:
-        print(f"kernel {r['kernel']} {r['shape']} x{r['per_step']}/fwd: {r['ms']:.4f} ms, "
+        print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/path: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']}",
               flush=True)
@@ -352,28 +635,45 @@ def main(argv=None) -> int:
         if got != want:
             raise AssertionError(f"config {name}: kernel launches {got}, expected {want}")
 
-    launches = {**trains["A"]["launches"], **trains["B"]["launches"]}
+    block = block_path(dev, args.seed, smi)
+    gemm_launches = gemm_path(dev, gen)
+    shift_launches = shift_path(dev, gen, shift_shapes)
+    print(f"gemm path launches {gemm_launches}, shift path launches {shift_launches}",
+          flush=True)
+
+    launches = {**trains["A"]["launches"], **trains["B"]["launches"], **block["launches"],
+                **gemm_launches, **shift_launches}
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname]
-        per_step = lambda key: sum(r[key] * r["per_step"] for r in mine)  # noqa: E731
-        t_bytes = sum(r["bytes"] * r["per_step"] for r in mine) / PEAK_HBM_BYTES * 1e3
-        t_ops = sum(r["flops"] * r["per_step"] for r in mine) / PEAK_BF16_FLOPS * 1e3
+        per_path = lambda key: sum(r[key] * r["per_path"] for r in mine)  # noqa: E731
+        t_bytes = sum(r["bytes"] * r["per_path"] for r in mine) / PEAK_HBM_BYTES * 1e3
+        t_ops = sum(r["flops"] * r["per_path"] for r in mine) / PEAK_BF16_FLOPS * 1e3
+        if not launches.get(kname):
+            raise AssertionError(f"{kname}: launched no time on its path")
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname], max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=per_step("ms"), plain_ms=per_step("plain_ms"), bound_ms=per_step("bound_ms"),
+            ms=per_path("ms"), plain_ms=per_path("plain_ms"), bound_ms=per_path("bound_ms"),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None if mine[0]["library_ms"] is None else per_step("library_ms"),
+            library_ms=None if mine[0]["library_ms"] is None else per_path("library_ms"),
         ))
+    wall_s = time.perf_counter() - wall0 + build_s
+    print(f"chip_smoke wall time {wall_s:.1f} s (build included)", flush=True)
 
     outdir = pathlib.Path("chiprun_out")
     outdir.mkdir(exist_ok=True)
     detail = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=build_s, kernel_rows=rows, reference=reference, train=trains,
-                  kernels=kernels,
-                  note="kernel ms/plain_ms/bound_ms/library_ms: per train step (task 0) at the "
-                       "main path's shapes, summed over its launches; per-shape rows per launch")
+                  build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
+                  train=trains, block=block, kernels=kernels,
+                  note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
+                       "kernel's path at its shapes (rows weighted by per_path): a task-0 train "
+                       "forward for #1-#3 (backward for _bwd), one call per shape for "
+                       "gemm_with_stats and temporal_shift (forward and reverse), one layer1 "
+                       "block forward for the block kernels; kernel_rows are per launch. "
+                       "library_ms: torch.matmul + two f32 sums for the 1x1 GEMMs (no "
+                       "prologue), F.conv2d (channels_last) + two sums for the 3x3 (no "
+                       "prologue), none for the shifts")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

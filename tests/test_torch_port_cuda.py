@@ -7,9 +7,12 @@ PyTorch; there run it without the suite's conftest (which sets JAX up):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: the fused epilogue kernels are bit-exact (f32 add rounded once,
-as a bf16 add is); conv1x1_with_stats: y within one bf16 ulp (accumulation
-order; near zero the ulp is taken at 1/256 of the tensor's rms), the
-statistics rtol 1e-3 (f32 sums in another order).
+as a bf16 add is), and so is the plain shift (an index copy); the GEMM and
+convolution kernels with the statistics epilogue (conv1x1_with_stats,
+gemm_with_stats, the block's three stats ops): y within one bf16 ulp
+(accumulation order; near zero the ulp is taken at 1/256 of the tensor's
+rms), the statistics rtol 1e-3 (f32 sums in another order), and the same
+statistics bit for bit on a second run.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from bdvcil_torch.ops import _build
+from bdvcil_torch.ops import block_fused as port_bf
 from bdvcil_torch.ops import conv1x1_bn as port_conv
 from bdvcil_torch.ops import tsm_shift as port_tsm
 
@@ -30,6 +34,17 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def assert_close_to_terms(out, ref, terms, tol=2e-2):
+    """|out - ref| <= tol + tol * (|ref| + sum |term|): the block's output is
+    relu(y3 * a3 + b3 + x) rounded to bf16, so one ulp of a large term shows
+    in a small output; the tolerance is taken against the terms' size."""
+    scale = ref.float().abs() + sum(t.float().abs() for t in terms)
+    err = (out.float() - ref.float()).abs()
+    bad = err > tol + tol * scale
+    assert not bool(bad.any()), (f"{int(bad.sum())} of {bad.numel()} elements off; "
+                                 f"max error {float(err.max())}")
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -69,10 +84,14 @@ def test_conv1x1_kernel_matches_plain(cuda, mkn):
     y, s1, s2 = port_conv.conv1x1_with_stats_fwd(x, w)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[port_conv.KERNEL] == 1
-    ry, rs1, rs2 = port_conv.conv1x1_with_stats_plain(x, w)
+    ry, _, _ = port_conv.gemm_stats_plain(x, w)
     assert bool(((y.float() - ry.float()).abs() <= _bf16_ulp(ry.float())).all())
-    torch.testing.assert_close(s1, rs1, rtol=1e-3, atol=1e-2)
-    torch.testing.assert_close(s2, rs2, rtol=1e-3, atol=1e-2)
+    # the statistics are sums over the kernel's own rounded y: the plain
+    # version's y differs by an ulp here and there, and over M rows those
+    # flips add up to more than the summation order does
+    yd = y.double().reshape(m, n)
+    torch.testing.assert_close(s1.double(), yd.sum(0), rtol=1e-3, atol=1e-2)
+    torch.testing.assert_close(s2.double(), (yd * yd).sum(0), rtol=1e-3, atol=1e-2)
 
 
 def test_conv1x1_kernel_statistics_are_deterministic(cuda):
@@ -94,3 +113,137 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_conv.conv1x1_with_stats_fwd(x.float()[..., :32], torch.zeros((32, 64), device=cuda))
     with pytest.raises(ValueError):  # not contiguous
         port_tsm.fused_fwd(x[..., ::2], x[..., ::2], 2, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,segs", [((2 * 4, 4, 4, 16), 4), ((8, 2, 2, 8), 4),
+                                        ((8 * T, 7, 7, 256), T), ((4, 3, 5, 12), T),
+                                        ((64, 28, 28, 512), 8)])
+def test_shift_kernel_bit_exact_both_directions(cuda, shape, segs, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    _build.LAUNCHES.clear()
+    fwd = port_tsm.shift_fwd(x, segs, 8)
+    rev = port_tsm.shift_fwd(x, segs, 8, reverse=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[port_tsm.SHIFT] == 2
+    assert torch.equal(fwd, port_tsm.temporal_shift(x, segs, 8))
+    assert torch.equal(rev, port_tsm.temporal_unshift(x, segs, 8))
+    xi = x.clone().requires_grad_(True)
+    port_tsm.temporal_shift_kernel(xi, segs, 8).backward(x)
+    assert torch.equal(xi.grad, port_tsm.temporal_unshift(x, segs, 8))
+
+
+def _check_stats(got, ref):
+    (y, s1, s2), (ry, rs1, rs2) = got, ref
+    assert y.shape == ry.shape and y.dtype == ry.dtype
+    assert bool(((y.float() - ry.float()).abs() <= _bf16_ulp(ry.float())).all())
+    for a, b in ((s1, rs1), (s2, rs2)):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("mk", [(300, 64, 64), (401408 // 8, 256, 64), (6272, 2048, 512)])
+def test_gemm_with_stats_kernel_matches_plain_and_jax_rule(cuda, mk):
+    m, k, n = mk
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    _build.LAUNCHES.clear()
+    got = port_conv.gemm_with_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[port_conv.GEMM_KERNEL] == 1 and got[0].shape == (m, n)
+    _check_stats(got, port_conv.gemm_stats_plain(x, w))
+    # the VJP against JAX's _bwd rule in f32 on the kernel's own y
+    gy = torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16)
+    gs1 = torch.randn((n,), generator=g, device=cuda)
+    gs2 = torch.randn((n,), generator=g, device=cuda) * 1e-3
+    xi, wi = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y, s1, s2 = port_conv.gemm_with_stats(xi, wi)
+    torch.autograd.backward([y, s1, s2], [gy, gs1, gs2])
+    dy = (gy.float() + gs1 + 2.0 * gs2 * y.detach().float()).to(torch.bfloat16).float()
+    for got_g, ref in ((xi.grad, dy @ w.float().t()), (wi.grad, x.float().t() @ dy)):
+        torch.testing.assert_close(got_g.float(), ref, rtol=1e-2, atol=1e-2 * float(ref.abs().max()))
+
+
+def _block_operands(cuda, nt, hw, c, cm, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((nt, hw, hw, c), generator=g, device=cuda).to(torch.bfloat16)
+    y = torch.randn((nt, hw, hw, cm), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.rand((cm,), generator=g, device=cuda) + 0.5
+    b = torch.randn((cm,), generator=g, device=cuda).abs() * 0.5 + 0.1  # b > 0: halo shows
+    p = port_bf.make_params(torch.Generator().manual_seed(seed), c=c, cm=cm, device=cuda)
+    w1 = p.w1.contiguous()
+    w3 = p.w3.contiguous()
+    return x, y, a, b, w1, p.w2.contiguous(), w3
+
+
+@pytest.mark.parametrize("geometry", [(4, 9, 64, 64), (8, 14, 256, 64), (16, 7, 512, 128),
+                                      (3, 5, 128, 256)])
+def test_block_stats_kernels_match_plain(cuda, geometry):
+    x, y, a, b, w1, w2, w3 = _block_operands(cuda, *geometry)
+    _build.LAUNCHES.clear()
+    out1 = port_bf.conv1x1_stats(x, w1)
+    out3 = port_bf.conv1x1_affine_relu_stats(y, a, b, w3)
+    out2 = {v: port_bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v)
+            for v in port_bf.VARIANTS}
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV1: 1, port_bf.CONV3: 1, port_bf.CONV2: 2}
+    _check_stats(out1, port_conv.gemm_stats_plain(x, w1))
+    _check_stats(out3, port_bf.conv1x1_affine_relu_stats_plain(y, a, b, w3))
+    for v, got in out2.items():
+        _check_stats(got, port_bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v))
+
+
+def test_block_stats_kernels_are_deterministic(cuda):
+    x, y, a, b, w1, w2, w3 = _block_operands(cuda, 32, 28, 256, 64)
+    for fn in (lambda: port_bf.conv1x1_stats(x, w1),
+               lambda: port_bf.conv1x1_affine_relu_stats(y, a, b, w3),
+               lambda: port_bf.conv3x3_affine_relu_stats(y, a, b, w2)):
+        for u, v in zip(fn(), fn()):
+            assert torch.equal(u, v)
+
+
+def test_fused_block_on_the_card_matches_its_plain_composition(cuda):
+    x, *_ = _block_operands(cuda, 16, 14, 256, 64)
+    p = port_bf.make_params(torch.Generator().manual_seed(6), c=256, cm=64, device=cuda)
+    for variant in port_bf.VARIANTS:
+        _build.LAUNCHES.clear()
+        out, stats = port_bf.fused_bottleneck_fwd(x, p, conv3x3_variant=variant)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {port_bf.CONV1: 1, port_bf.CONV2: 1, port_bf.CONV3: 1}
+        ref, ref_stats = port_bf.fused_bottleneck_fwd_plain(x, p, conv3x3_variant=variant)
+        assert_close_to_terms(out, ref, (x, p.b3))
+        for got, want in zip(stats, ref_stats):
+            for u, v in zip(got, want):
+                torch.testing.assert_close(u, v, rtol=1e-3, atol=1e-3)
+        lib, lib_stats = port_bf.plain_bottleneck_fwd(x, p)
+        assert_close_to_terms(out, lib, (x, p.b3))
+        for got, want in zip(stats, lib_stats):
+            for u, v in zip(got, want):
+                torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-4)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    bf16 = torch.bfloat16
+    y = torch.zeros((2, 4, 4, 48), device=cuda, dtype=bf16)
+    a = torch.ones((48,), device=cuda)
+    with pytest.raises(ValueError):  # Cin % 32 != 0
+        port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 48, 64), device=cuda,
+                                                               dtype=bf16))
+    y = y[..., :32].contiguous()
+    a = a[:32].contiguous()
+    with pytest.raises(ValueError):  # Cout % 64 != 0
+        port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 32, 48), device=cuda,
+                                                               dtype=bf16))
+    with pytest.raises(TypeError):  # f32 activations
+        port_bf.conv1x1_affine_relu_stats(y.float(), a, a, torch.zeros((32, 64), device=cuda))
+    with pytest.raises(ValueError):  # a on the wrong device
+        port_bf.conv1x1_affine_relu_stats(y, a.cpu(), a, torch.zeros((32, 64), device=cuda,
+                                                                   dtype=bf16))
+    with pytest.raises(ValueError):  # not contiguous
+        port_conv.gemm_with_stats_fwd(torch.zeros((64, 64), device=cuda, dtype=bf16).t()[:, :32],
+                                      torch.zeros((32, 64), device=cuda, dtype=bf16))
+    with pytest.raises(TypeError):
+        port_tsm.shift_fwd(torch.zeros((2, 2, 2, 16), device=cuda, dtype=torch.float16), 2)
+    with pytest.raises(ValueError):  # N*T not a multiple of T
+        port_tsm.shift_fwd(torch.zeros((3, 2, 2, 16), device=cuda), 2)

@@ -7,7 +7,10 @@ version. Tolerances:
     rounded once, and an index permutation);
   * conv1x1_with_stats, f32: y rtol 1e-5; s1, s2 rtol 1e-5, atol 1e-4
     (summation order); bf16: y within one bf16 ulp;
-  * the autograd gradient, including the gs1/gs2 path: rtol 1e-5.
+  * the autograd gradient, including the gs1/gs2 path: rtol 1e-5;
+  * gemm_with_stats: as conv1x1_with_stats, at M = 300 (padded to the tile in
+    JAX, masked by the port's kernel) and M = 512;
+  * temporal_shift_kernel forward and VJP: bit-exact (an index copy).
 The kernels themselves run only on the card: tests/test_torch_port_cuda.py
 holds each one against its plain version there.
 """
@@ -141,12 +144,79 @@ def test_conv1x1_with_stats_gradient_matches_jax_vjp(use_gs):
     np.testing.assert_allclose(tw.grad.numpy(), _np(jdw), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("m", [300, 512])
+def test_gemm_with_stats_matches_jax(m):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((m, 64)).astype(np.float32)
+    wm = (rng.standard_normal((64, 128)) * 0.1).astype(np.float32)
+    jy, js1, js2 = jax_conv.gemm_with_stats(jnp.asarray(x), jnp.asarray(wm), True)
+    py, ps1, ps2 = port_conv.gemm_with_stats(_t(x), _t(wm))
+    assert py.shape == (m, 128) and ps1.shape == (128,)
+    np.testing.assert_allclose(py.numpy(), _np(jy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ps1.numpy(), _np(js1), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(ps2.numpy(), _np(js2), rtol=1e-5, atol=1e-4)
+
+    jy, js1, _ = jax_conv.gemm_with_stats(jnp.asarray(x, jnp.bfloat16),
+                                         jnp.asarray(wm, jnp.bfloat16), True)
+    py, ps1, ps2 = port_conv.gemm_with_stats(_t(x, torch.bfloat16), _t(wm, torch.bfloat16))
+    assert py.dtype == torch.bfloat16 and py.shape == (m, 128)
+    jyf, pyf = _np(jy), py.float().numpy()
+    assert np.all(np.abs(pyf - jyf) <= _bf16_ulp(jyf))
+    np.testing.assert_allclose(ps1.numpy(), pyf.sum(0), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(ps2.numpy(), (pyf ** 2).sum(0), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [300, 512])
+@pytest.mark.parametrize("use_gs", [False, True])
+def test_gemm_with_stats_gradient_matches_jax_vjp(m, use_gs):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((m, 32)).astype(np.float32)
+    wm = (rng.standard_normal((32, 64)) * 0.1).astype(np.float32)
+    gy = rng.standard_normal((m, 64)).astype(np.float32)
+    gs1 = rng.standard_normal(64).astype(np.float32) * use_gs
+    gs2 = rng.standard_normal(64).astype(np.float32) * use_gs
+
+    _, vjp = jax.vjp(lambda a, b: jax_conv.gemm_with_stats(a, b, True),
+                     jnp.asarray(x), jnp.asarray(wm))
+    jdx, jdw = vjp((jnp.asarray(gy), jnp.asarray(gs1), jnp.asarray(gs2)))
+
+    tx, tw = _t(x).requires_grad_(True), _t(wm).requires_grad_(True)
+    y, s1, s2 = port_conv.gemm_with_stats(tx, tw)
+    torch.autograd.backward([y, s1, s2], [_t(gy), _t(gs1), _t(gs2)])
+    np.testing.assert_allclose(tx.grad.numpy(), _np(jdx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), _np(jdw), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,segs", [((2 * 4, 4, 4, 16), 4), ((8, 2, 2, 8), 4),
+                                        ((2 * 8, 3, 5, 64), 8), ((3 * T, 2, 3, 24), T)])
+def test_temporal_shift_kernel_op_matches_pallas_bit_exact(shape, segs, dtype):
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal(shape).astype(np.float32)
+    ct = rng.standard_normal(shape).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    j_out, vjp = jax.vjp(lambda v: jax_tsm.temporal_shift_pallas(v, segs, 8, True),
+                         jnp.asarray(x, jdt))
+    (j_g,) = vjp(jnp.asarray(ct, jdt))
+
+    tx = _t(x, tdt).requires_grad_(True)
+    p_out = port_tsm.temporal_shift_kernel(tx, segs, 8)
+    p_out.backward(_t(ct, tdt))
+    assert p_out.dtype == tdt and tx.grad.dtype == tdt
+    np.testing.assert_array_equal(p_out.detach().float().numpy(), _np(j_out))
+    np.testing.assert_array_equal(tx.grad.float().numpy(), _np(j_g))
+
+
 def test_wrappers_refuse_devices_they_have_no_kernel_for():
     x = torch.empty((2, 2, 2, 32), device="meta")
     with pytest.raises(NotImplementedError):
         port_tsm.fused_fwd(x, x, 2, 8)
     with pytest.raises(NotImplementedError):
         port_conv.conv1x1_with_stats_fwd(x, torch.empty((32, 64), device="meta"))
+    with pytest.raises(NotImplementedError):
+        port_conv.gemm_with_stats_fwd(x.reshape(-1, 32), torch.empty((32, 64), device="meta"))
+    with pytest.raises(NotImplementedError):
+        port_tsm.shift_fwd(x, 2, 8)
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -154,4 +224,6 @@ def test_cpu_dispatch_launches_no_kernel():
     x = torch.ones((2 * T, 2, 2, 32))
     port_tsm.fused_residual_relu_shift(x, x, T, 8)
     port_conv.conv1x1_with_stats(x, torch.ones((32, 64)))
+    port_conv.gemm_with_stats(x.reshape(-1, 32), torch.ones((32, 64)))
+    port_tsm.temporal_shift_kernel(x.requires_grad_(True), T, 8).sum().backward()
     assert sum(_build.LAUNCHES.values()) == 0
