@@ -14,43 +14,63 @@
 // not relu(b).
 //
 // As an implicit GEMM: M = NT*H*W output pixels, K = 9*C in the order
-// (dy, dx, c), which is w.reshape(9*C, N), N = Cout. The A tile is never
-// materialized: the Im2colA loader copies each BK-slice (one tap, 2*BK
-// contiguous bytes per pixel) from x with cp.async, zero-filled outside the
-// image, and the prologue rewrites only the rows inside the image.
+// (dy, dx, c), which is w.reshape(9*C, N), N = Cout, on the persistent wgmma
+// core of gemm_stats_sm90.cuh (its note has the details). The im2col matrix
+// is never materialized. The K steps run channel slice by channel slice (64
+// channels, C % 64 == 0); for each slice of a 128-row tile one TMA box brings
+// a window of x, rows m0 - W - 1 .. m0 + 128 + W of x seen as (M, C) (at
+// most 256 rows, hence W <= 63), zero-filled where it leaves x. The two
+// consumer warpgroups apply the prologue to the window once, in place, then
+// copy each of the 9 taps' A rows from it, shifted by one image row and
+// column per dy and dx, into the swizzled layout wgmma reads, writing zero
+// where the tap leaves the image (the halo) or the row is past M.
 //
 // Bound: at layer1 (128 x 56 x 56, 64 -> 64) the bytes (x and y once, 102.8
-// MB) and the operations (29.6 GFLOP) weigh about the same on the card. x is
-// read nine times by the taps, from L2 after the first: neighbouring output
-// rows of a tile share most of their source pixels. The tiles, ring and
-// epilogue are gemm_stats.cuh's.
+// MB) bound it at 0.031 ms; at layer2-4 (K = 1152-4608) the operations (29.6
+// GFLOP at every width, 0.030 ms). What the design does about it: x leaves
+// L2 about twice per tile and slice instead of nine times (the window
+// instead of one gather per tap), the prologue runs once per pixel and slice
+// instead of once per tap, the tile width is picked per shape (64-256), so
+// that for N <= 256 the window is read for one column tile only, and the
+// 3-6 stage ring of w overlaps the loads with the products.
 
-#include "gemm_stats.cuh"
+#include "gemm_stats_sm90.cuh"
+
+using sm90::aligned16;
 
 extern "C" {
 
-int bdv_conv3x3_stats_block_k() { return BK; }
-int bdv_conv3x3_stats_block_n() { return BN; }
-int bdv_conv3x3_stats_block_m() { return BM; }
+int bdv_conv3x3_stats_block_k() { return sm90::BK; }
+int bdv_conv3x3_stats_block_n() { return 64; }
 
-// x (NT, H, W, C), w (9*C, N), y (NT, H, W, N): bf16, contiguous. a, b: (C,)
-// f32. part: (2, ceil(NT*H*W / BM), N) f32 scratch. stats: (2, N) f32.
+// x (NT, H, W, C), w (9*C, N), y (NT, H, W, N): bf16, contiguous; C % 64 ==
+// 0, N % 64 == 0, W <= 63. a, b: (C,) f32. part: (2, part_rows, N) f32
+// scratch, one row per persistent CTA; the grid has at most part_rows CTAs
+// (pass the device's SM count). stats: (2, N) f32.
 int bdv_conv3x3_affine_relu_stats(const void* x, const void* w, const void* a, const void* b,
-                                  void* y, void* part, void* stats, long long NT, int H, int W,
-                                  int C, int N, void* stream) {
-  if (NT <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || C % BK != 0 || N % BN != 0)
+                                  void* y, void* part, int part_rows, void* stats, long long NT,
+                                  int H, int W, int C, int N, void* stream) {
+  if (NT <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || C % sm90::BK != 0 || N % 64 != 0)
+    return (int)cudaErrorInvalidValue;
+  // a window of 128 + 2 W + 2 rows is one TMA box (at most 256 rows)
+  if (H >= (1 << 15) || W > 63 || NT * H * W > (1ll << 31) - sm90::BM)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(y) || !aligned16(a) || !aligned16(b))
     return (int)cudaErrorMisalignedAddress;
-  const long long M = NT * H * W;
-  Im2colA loader;
-  loader.x = static_cast<const bf16*>(x);
-  loader.M = (int64_t)M;
-  loader.H = H;
-  loader.W = W;
-  loader.C = C;
-  return (int)launch_gemm_stats<Im2colA, true>(loader, w, a, b, y, part, stats, M, 9 * C, N,
-                                               static_cast<cudaStream_t>(stream));
+  sm90::Problem p{};
+  p.x = static_cast<const sm90::bf16*>(x);
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.y = static_cast<sm90::bf16*>(y);
+  p.part = static_cast<float*>(part);
+  p.M = (int)(NT * H * W);
+  p.K = 9 * C;
+  p.N = N;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  return (int)sm90::launch_wgmma_stats<true>(p, part_rows, w, stats,
+                                             static_cast<cudaStream_t>(stream));
 }
 
 const char* bdv_cuda_error_string(int code) {

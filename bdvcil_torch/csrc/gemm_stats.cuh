@@ -1,17 +1,18 @@
-// Tiled bf16 GEMM with a BatchNorm-statistics epilogue, shared by the 1x1
-// (conv1x1_stats.cu) and 3x3 (conv3x3_stats.cu) convolution kernels.
+// Tiled bf16 GEMM with a prologue and a BatchNorm-statistics epilogue: the
+// 1x1 conv1x1_affine_relu_stats (conv1x1_stats.cu). The GEMMs without a
+// prologue and the 3x3 run on the wgmma core of gemm_stats_sm90.cuh.
 //
-//   y  = A @ w               A (M, K) bf16, w (K, N) bf16, f32 accumulation,
-//                            y rounded to bf16
+//   y  = bf16(relu(x * a + b)) @ w    x (M, K) bf16, w (K, N) bf16, f32
+//                                     accumulation, y rounded to bf16
 //   s1 = sum_rows(y)         per output channel, f32, over the ROUNDED y
 //   s2 = sum_rows(y * y)
 //
-// A is never a tensor of its own: a loader (RowsA, Im2colA) starts the
-// cp.async copies of each BM x BK slice of A straight from the NHWC
-// activation. With kPrologue, each slice is rewritten in shared memory as
-// bf16(relu(x * a[k] + b[k])) before the tensor cores read it: the previous
-// BatchNorm's normalize and relu ride on the tile already loaded, instead of
-// taking a pass of their own over device memory.
+// A is never a tensor of its own: the loader (RowsA) starts the cp.async
+// copies of each BM x BK slice of A straight from the NHWC activation, and
+// each slice is rewritten in shared memory as bf16(relu(x * a[k] + b[k]))
+// before the tensor cores read it: the previous BatchNorm's normalize and
+// relu ride on the tile already loaded, instead of taking a pass of their own
+// over device memory.
 //
 // Each CTA computes a 128 x 64 tile of y with WMMA bf16 16x16x16 products
 // (mma.sync underneath), K streamed through a two-stage cp.async ring. TMA
@@ -106,56 +107,6 @@ struct RowsA {
   __device__ __forceinline__ int channel(int k0) const { return k0; }
 };
 
-// A = the implicit im2col matrix of a 3x3, stride-1, 'SAME' convolution of
-// NHWC x (NT, H, W, C): row m is output pixel m = (n, h, w), column
-// (dy * 3 + dx) * C + c is x[n, h + dy - 1, w + dx - 1, c], zero outside the
-// image. C % BK == 0, so each BK-slice lies inside one tap and is 2 * BK
-// contiguous bytes of x at one source pixel.
-struct Im2colA {
-  const bf16* x;
-  int64_t M;
-  int H, W, C;
-  int ph[A_CHUNKS], pw[A_CHUNKS];  // output (h, w) of each chunk's row
-
-  __device__ __forceinline__ void init(int64_t m0, int tid) {
-#pragma unroll
-    for (int it = 0; it < A_CHUNKS; ++it) {
-      const int64_t m = m0 + a_row(tid, it);
-      if (m < M) {
-        const int64_t q = m / W;
-        pw[it] = (int)(m - q * W);
-        ph[it] = (int)(q % H);
-      } else {  // past M: every tap falls outside the image
-        ph[it] = -4;
-        pw[it] = -4;
-      }
-    }
-  }
-
-  // mask: the chunks whose source pixel lies inside the image
-  __device__ __forceinline__ unsigned load(bf16* As, int k0, int64_t m0, int tid) const {
-    const int tap = k0 / C;
-    const int c0 = k0 - tap * C;
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-    const int cc = a_col(tid);
-    unsigned mask = 0;
-#pragma unroll
-    for (int it = 0; it < A_CHUNKS; ++it) {
-      const int r = a_row(tid, it);
-      const int h = ph[it] + dy;
-      const int w = pw[it] + dx;
-      const bool ok = (unsigned)h < (unsigned)H && (unsigned)w < (unsigned)W;
-      const int64_t src = ok ? (m0 + r + (int64_t)dy * W + dx) * C + c0 + cc : 0;
-      cp_async16(As + r * A_LD + cc, x + src, ok);
-      mask |= (unsigned)ok << it;
-    }
-    return mask;
-  }
-
-  __device__ __forceinline__ int channel(int k0) const { return k0 % C; }
-};
-
 // One BK x BN slice of w (K, N) into shared memory.
 __device__ __forceinline__ void load_b(const bf16* __restrict__ w, bf16* Bs, int n0, int k0, int N,
                                        int tid) {
@@ -169,7 +120,7 @@ __device__ __forceinline__ void load_b(const bf16* __restrict__ w, bf16* Bs, int
 }
 
 // x -> bf16(relu(x * a + b)) in place, on the chunks this thread copied and
-// only where they hold real data: the halo and the rows past M stay zero, as
+// only where they hold real data: the rows past M stay zero, as
 // the reference pads AFTER the prologue. __fmul_rn / __fadd_rn keep nvcc from
 // contracting to an FMA, so the value rounded to bf16 is the plain version's
 // (a product and a sum, each rounded to f32) bit for bit. The thread's own
@@ -201,7 +152,7 @@ __device__ __forceinline__ void affine_relu(bf16* As, int c0, unsigned mask,
   }
 }
 
-template <class Loader, bool kPrologue>
+template <class Loader>
 __global__ void __launch_bounds__(kThreads)
 gemm_stats_kernel(Loader loader, const bf16* __restrict__ w, const float* __restrict__ pa,
                   const float* __restrict__ pb, bf16* __restrict__ y, float* __restrict__ part,
@@ -243,8 +194,7 @@ gemm_stats_kernel(Loader loader, const bf16* __restrict__ w, const float* __rest
     } else {
       cp_async_wait<0>();
     }
-    if constexpr (kPrologue)
-      affine_relu(As + cur * A_STAGE, ld.channel(kt * BK), mask, pa, pb, tid);
+    affine_relu(As + cur * A_STAGE, ld.channel(kt * BK), mask, pa, pb, tid);
     __syncthreads();
     const bf16* a = As + cur * A_STAGE;
     const bf16* b = Bs + cur * B_STAGE;
@@ -326,19 +276,17 @@ __global__ void stats_finish_kernel(const float* __restrict__ part, float* __res
   stats[N + col] = b;
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // Launch the GEMM and the statistics finish on `stream`; the caller has
 // checked the shapes (K % BK == 0, N % BN == 0) and the alignment.
 // part: (2, ceil(M / BM), N) f32 scratch; stats: (2, N) f32 = [sum y; sum y^2].
-template <class Loader, bool kPrologue>
+template <class Loader>
 cudaError_t launch_gemm_stats(const Loader& loader, const void* w, const void* a, const void* b,
                               void* y, void* part, void* stats, long long M, int K, int N,
                               cudaStream_t stream) {
   const long long grid_m = (M + BM - 1) / BM;
   if (grid_m > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
   const dim3 grid(N / BN, (unsigned)grid_m);
-  gemm_stats_kernel<Loader, kPrologue><<<grid, kThreads, 0, stream>>>(
+  gemm_stats_kernel<Loader><<<grid, kThreads, 0, stream>>>(
       loader, static_cast<const bf16*>(w), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<bf16*>(y), static_cast<float*>(part),
       (int64_t)M, K, N);

@@ -19,7 +19,9 @@ On a CUDA tensor each stats op is its hand-written kernel:
 ``csrc/conv1x1_stats.cu`` for the two 1x1 GEMMs (the second with its
 prologue), ``csrc/conv3x3_stats.cu`` for the 3x3 implicit GEMM, which serves
 both of the JAX package's variant names ("taps", "im2col": one function, two
-ways of tiling the TPU's matrix unit). On a CPU tensor each is its ``_plain``
+ways of tiling the TPU's matrix unit). The first 1x1 and the 3x3 run on the
+persistent wgmma core of ``csrc/gemm_stats_sm90.cuh``, the second 1x1 on the
+WMMA kernel of ``csrc/gemm_stats.cuh``. On a CPU tensor each is its ``_plain``
 version; the plain 3x3 mirrors each variant's summation (nine f32 tap
 products accumulated in order, or one K=9C product).
 
@@ -41,12 +43,16 @@ import torch.nn.functional as F
 
 from .. import _device
 from . import _build
-from .conv1x1_bn import check_affine, gemm_stats_cuda, gemm_stats_plain
+from .conv1x1_bn import (check_affine, gemm_stats_cuda, gemm_stats_plain, sm_count,
+                         stats_scratch)
 
 CONV1 = "block_conv1x1_stats"
 CONV2 = "conv3x3_affine_relu_stats"
 CONV3 = "conv1x1_affine_relu_stats"
 VARIANTS = ("taps", "im2col")
+# the 3x3 kernel reads each channel slice of a 128-pixel tile as one TMA box of
+# 128 + 2 W + 2 rows of x, and a box has at most 256
+MAX_WIDTH_3X3 = 63
 
 
 class BlockParams(NamedTuple):
@@ -133,13 +139,12 @@ def conv3x3_affine_relu_stats_plain(x, a, b, w, variant: str = "taps"):
 def _conv3x3_lib() -> ctypes.CDLL:
     lib = _build.library("conv3x3_stats")
     if not getattr(lib, "_bdv_typed", False):
-        lib.bdv_conv3x3_affine_relu_stats.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+        lib.bdv_conv3x3_affine_relu_stats.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.bdv_conv3x3_affine_relu_stats.restype = ctypes.c_int
-        for fn in (lib.bdv_conv3x3_stats_block_k, lib.bdv_conv3x3_stats_block_n,
-                   lib.bdv_conv3x3_stats_block_m):
+        for fn in (lib.bdv_conv3x3_stats_block_k, lib.bdv_conv3x3_stats_block_n):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         lib._bdv_typed = True
@@ -164,19 +169,19 @@ def _conv3x3_cuda(x, a, b, w, variant):
     n = w.shape[-1]
     check_affine(CONV2, k, a, b, x.device)
     lib = _conv3x3_lib()
-    bm, bn, bk = (lib.bdv_conv3x3_stats_block_m(), lib.bdv_conv3x3_stats_block_n(),
-                  lib.bdv_conv3x3_stats_block_k())
+    bn, bk = lib.bdv_conv3x3_stats_block_n(), lib.bdv_conv3x3_stats_block_k()
     if k % bk or n % bn:
         raise ValueError(f"{CONV2}: needs Cin % {bk} == 0 and Cout % {bn} == 0, got "
                          f"Cin={k} Cout={n}")
-    m = nt * h * w_
+    if w_ > MAX_WIDTH_3X3:
+        raise ValueError(f"{CONV2}: needs W <= {MAX_WIDTH_3X3}, got W={w_}")
     y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, -(-m // bm), n), dtype=torch.float32, device=x.device)
-    stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    part_rows = sm_count(x.device)  # one partial per persistent CTA, one CTA per SM at most
+    part, stats = stats_scratch((2, part_rows, n), n, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.bdv_conv3x3_affine_relu_stats(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
-        stats.data_ptr(), nt, h, w_, k, n, stream,
+        part_rows, stats.data_ptr(), nt, h, w_, k, n, stream,
     )
     _build.check(lib, code, CONV2)
     _build.LAUNCHES[CONV2] += 1

@@ -9,7 +9,9 @@ computed on the ROUNDED bf16 output so they equal a reduction over the stored
 tensor. ``gemm_with_stats`` is the same function on a 2-D (M, K) operand.
 
 On a CUDA tensor the forward is the hand-written kernel of
-``csrc/conv1x1_stats.cu``; on a CPU tensor it is ``gemm_stats_plain``. The
+``csrc/conv1x1_stats.cu`` (the persistent wgmma core of
+``csrc/gemm_stats_sm90.cuh``; with a prologue, the WMMA kernel of
+``csrc/gemm_stats.cuh``); on a CPU tensor it is ``gemm_stats_plain``. The
 backward is plain PyTorch on both, as the JAX package leaves it to XLA: the
 cotangents of s1/s2 are folded into dy (``dy += gs1 + 2 * gs2 * y``), then
 the GEMM's own backward.
@@ -18,7 +20,8 @@ the GEMM's own backward.
 from __future__ import annotations
 
 import ctypes
-from functools import partial
+import math
+from functools import lru_cache, partial
 from typing import Optional, Tuple
 
 import torch
@@ -44,8 +47,9 @@ def gemm_stats_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.library("conv1x1_stats")
     if not getattr(lib, "_bdv_typed", False):
-        lib.bdv_conv1x1_with_stats.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        lib.bdv_conv1x1_with_stats.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.bdv_conv1x1_with_stats.restype = ctypes.c_int
         lib.bdv_conv1x1_affine_relu_stats.argtypes = [ctypes.c_void_p] * 7 + [
@@ -53,11 +57,28 @@ def _lib() -> ctypes.CDLL:
         ]
         lib.bdv_conv1x1_affine_relu_stats.restype = ctypes.c_int
         for fn in (lib.bdv_conv1x1_stats_block_m, lib.bdv_conv1x1_stats_block_n,
-                   lib.bdv_conv1x1_stats_block_k):
+                   lib.bdv_conv1x1_stats_block_k, lib.bdv_wgmma_stats_block_k):
             fn.argtypes = []
             fn.restype = ctypes.c_int
+        lib.bdv_wgmma_stats_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+        lib.bdv_wgmma_stats_plan.restype = ctypes.c_int
         lib._bdv_typed = True
     return lib
+
+
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: the wgmma kernels' persistent
+    grid has at most one CTA per SM, and their partials one row per CTA."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stats_scratch(part_shape, n: int, device):
+    """The partials scratch and the (2, N) statistics, in one f32 allocation."""
+    size = math.prod(part_shape)
+    buf = torch.empty(size + 2 * n, dtype=torch.float32, device=device)
+    return buf[:size].view(part_shape), buf[size:].view(2, n)
 
 
 def check_affine(name: str, k: int, a: torch.Tensor, b: torch.Tensor, device) -> None:
@@ -87,19 +108,23 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
     if a is not None:
         check_affine(name, k, a, b, x.device)
     lib = _lib()
-    bm, bn, bk = (lib.bdv_conv1x1_stats_block_m(), lib.bdv_conv1x1_stats_block_n(),
-                  lib.bdv_conv1x1_stats_block_k())
+    bn = lib.bdv_conv1x1_stats_block_n()
+    # the wgmma core (no prologue) steps K by 64; the prologue kernel by 32
+    bk = lib.bdv_wgmma_stats_block_k() if a is None else lib.bdv_conv1x1_stats_block_k()
     if k % bk or n % bn:
         raise ValueError(f"{name}: needs K % {bk} == 0 and N % {bn} == 0, got K={k} N={n}")
     m = x.numel() // k
     y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, -(-m // bm), n), dtype=torch.float32, device=x.device)
-    stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    if a is None:  # one partial per persistent CTA, at most one CTA per SM
+        part_rows = sm_count(x.device)
+    else:  # one partial per 128-row tile
+        part_rows = -(-m // lib.bdv_conv1x1_stats_block_m())
+    part, stats = stats_scratch((2, part_rows, n), n, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if a is None:
         code = lib.bdv_conv1x1_with_stats(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), stats.data_ptr(),
-            m, k, n, stream,
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), part_rows,
+            stats.data_ptr(), m, k, n, stream,
         )
     else:
         code = lib.bdv_conv1x1_affine_relu_stats(

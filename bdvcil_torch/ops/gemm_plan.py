@@ -1,0 +1,65 @@
+"""The tile plan of the sm90 GEMM-with-statistics kernels, and the ResNet-50
+shapes they serve.
+
+``csrc/gemm_stats_sm90.cuh`` (#3 ``conv1x1_with_stats``, #4
+``gemm_with_stats``, #6 the block's conv1 and #8 the 3x3) computes y = A @ w
+in 128-row tiles of ``block_n`` columns on a persistent grid of at most one
+CTA per SM; ``sm90::make_plan`` picks the width and the grid per shape, and
+``kernel_plan`` reads that choice back for reports and tests. Nothing here
+sizes a launch: the wrappers give the kernel one partial row per SM.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from .conv1x1_bn import _lib, sm_count
+
+BLOCK_M = 128
+
+
+class Plan(NamedTuple):
+    """128 x block_n tiles, tiles = m_tiles * n_tiles, on ``grid`` CTAs."""
+
+    block_n: int
+    m_tiles: int
+    n_tiles: int
+    tiles: int
+    grid: int
+
+
+def kernel_plan(m: int, n: int, device: torch.device) -> Plan:
+    """The plan the wgmma kernels make for an (M, ., N) product on ``device``."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.bdv_wgmma_stats_plan(m, n, sm_count(device), out),
+                 "bdv_wgmma_stats_plan")
+    return Plan(*out)
+
+
+def r50_1x1_shapes(nt: int = 128, size: int = 56) -> Counter:
+    """(M, K, N) of the bottleneck 1x1 convolutions of one TSM-ResNet-50
+    train forward in configuration A (conv1 at the block's input resolution,
+    conv3 after the stride), with their counts: 12 shapes, 32 launches at
+    16 clips x 8 frames of 224x224."""
+    shapes: Counter = Counter()
+    inplanes, planes = 64, 64
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            stride = 2 if stage > 0 and b == 0 else 1
+            shapes[(nt * size * size, inplanes, planes)] += 1
+            size //= stride
+            shapes[(nt * size * size, planes, 4 * planes)] += 1
+            inplanes = 4 * planes
+        planes *= 2
+    return shapes
+
+
+# (NT, H, W, Cin, Cout) of the 3x3 of each stride-1 ResNet-50 bottleneck width
+R50_3X3_SHAPES = ((128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+                  (128, 7, 7, 512, 512))

@@ -1,0 +1,143 @@
+"""Split the GEMM-with-statistics kernels' device time by CUDA kernel, on the card.
+
+Runs ``conv1x1_with_stats`` (#3, the kernel that also serves #4 and #6) at
+the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A,
+``conv3x3_affine_relu_stats`` (#8) and ``conv1x1_affine_relu_stats`` (#7,
+the block's conv3) at the four stride-1 bottleneck widths, each ``--reps``
+times under ``torch.profiler``. Prints, per shape, the device
+time per launch of every CUDA kernel the wrapper starts (the GEMM and the
+statistics finish), the wrapper's host time per call (``host``: the host
+clock over ``--reps`` calls issued back to back, the card running behind),
+and, from the build's ``nvcc -Xptxas -v`` logs, each kernel's registers,
+shared memory and spills.
+
+    python -m bdvcil_torch.profile_kernels [--reps 20]
+
+Writes ``chiprun_out/profile_kernels.json``. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import re
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .ops import _build
+from .ops import block_fused as bf
+from .ops import conv1x1_bn as conv
+from .ops import gemm_plan
+
+
+def ptxas_report(build_dir: pathlib.Path):
+    """Per source: for each compiled function, its registers, shared memory and
+    spill lines, as ``-Xptxas -v`` printed them."""
+    out = {}
+    for log in sorted(build_dir.glob("*.log")):
+        funcs, current = {}, None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+            if m:
+                current = m.group(1) or m.group(2)
+                funcs.setdefault(current, [])
+            elif current and re.search(r"registers|spill|smem|stack", line):
+                funcs[current].append(line.split("info    :")[-1].strip())
+        out[log.stem] = {k: v for k, v in funcs.items() if v}
+    return out
+
+
+def host_us(fn, reps: int) -> float:
+    """Host us per call of ``fn``, issued ``reps`` times without a sync (the
+    launch queue holds them, so the host does not wait for the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def kernel_split(fn, reps: int):
+    """Device us per call of each CUDA kernel that ``fn`` launches, and under
+    ``host`` the host us per call."""
+    for _ in range(3):
+        fn()
+    host = host_us(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"\w*_kernel\w*", e.name)
+            per[m.group(0) if m else e.name[:60]] += e.time_range.end - e.time_range.start
+    return {**{k: v / reps for k, v in per.items()}, "host": host}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--reps", type=int, default=20)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    rows = []
+    for (m, k, n), count in sorted(gemm_plan.r50_1x1_shapes().items()):
+        x = torch.randn((m, 1, 1, k), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
+        split = kernel_split(lambda: conv.conv1x1_with_stats_fwd(x, w), args.reps)
+        rows.append(dict(kernel="conv1x1_with_stats", shape=[m, k, n], per_forward=count,
+                         plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
+        del x, w
+    for nt, h, w_, c, n in gemm_plan.R50_3X3_SHAPES:
+        x = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
+        a = torch.rand((c,), generator=gen, device=dev) + 0.5
+        b = torch.rand((c,), generator=gen, device=dev) * 0.5 + 0.1
+        w = (torch.randn((3, 3, c, n), generator=gen, device=dev) / math.sqrt(9 * c)).to(bf16)
+        split = kernel_split(lambda: bf.conv3x3_affine_relu_stats(x, a, b, w), args.reps)
+        rows.append(dict(kernel="conv3x3_affine_relu_stats", shape=[nt, h, w_, c, n],
+                         plan=gemm_plan.kernel_plan(nt * h * w_, n, dev)._asdict(), us=split))
+        del x, a, b, w
+    for nt, h, w_, _, cm in gemm_plan.R50_3X3_SHAPES:  # #7: (Cm -> 4 Cm) at each width
+        x = torch.randn((nt, h, w_, cm), generator=gen, device=dev).to(bf16)
+        a = torch.rand((cm,), generator=gen, device=dev) + 0.5
+        b = torch.rand((cm,), generator=gen, device=dev) * 0.5 + 0.1
+        w = (torch.randn((cm, 4 * cm), generator=gen, device=dev) / math.sqrt(cm)).to(bf16)
+        split = kernel_split(lambda: bf.conv1x1_affine_relu_stats(x, a, b, w), args.reps)
+        rows.append(dict(kernel="conv1x1_affine_relu_stats", shape=[nt * h * w_, cm, 4 * cm],
+                         plan=None, us=split))
+        del x, a, b, w
+    for r in rows:
+        parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(r["us"].items()))
+        print(f"{r['kernel']} {r['shape']}: {parts}", flush=True)
+    report = ptxas_report(_build.build_all())
+    for src, funcs in report.items():
+        for fn, lines in funcs.items():
+            print(f"ptxas {src} {fn[:90]}: {' | '.join(lines)}", flush=True)
+    out = pathlib.Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "profile_kernels.json").write_text(json.dumps(
+        dict(card=card, sm_count=sms, reps=args.reps, rows=rows, ptxas=report), indent=1))
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,8 +26,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   1. build every kernel from bdvcil_torch/csrc (nvcc, sm_90a);
   2. kernels: each against its plain PyTorch version at every ResNet-50 shape
      of its path, forward and backward, with CUDA-event times of the kernel,
-     the plain version and, where one exists, the library call; the block
-     kernels' statistics on a second run, bit for bit;
+     the plain version and, where one exists, the library call and its bare
+     product (no statistics); the wgmma kernels' tile plan per shape; the
+     block kernels' statistics on a second run, bit for bit;
   3. reference: one small train step per configuration on the card against
      the same step on the CPU, where the port runs the plain versions;
   4. train A and B at full width: 3 task-0 steps (26 classes), growth to 31,
@@ -165,8 +166,8 @@ def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
             b_ms, b_by = bound_ms(nbytes, 0.0)
             rows.append(dict(kernel=name, shape=list(shape), per_path=per_fwd,
                              ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
-                             bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
-                             bytes=nbytes, flops=0))
+                             product_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                             bytes=nbytes, flops=0, tile=None))
         del h, idt, g_out, g_sh, out, sh, r_out, r_sh, g_in, r_g
 
     for (m, k, n), per_fwd in sorted(gemm_shapes.items()):
@@ -195,8 +196,10 @@ def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
         rows.append(dict(kernel=CONV, shape=[m, k, n], per_path=per_fwd,
                          ms=cuda_ms(lambda: conv.conv1x1_with_stats_fwd(x, w)),
                          plain_ms=cuda_ms(lambda: conv.gemm_stats_plain(x, w)),
-                         library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=float(err.max()), bytes=nbytes, flops=flops))
+                         library_ms=cuda_ms(library),
+                         product_ms=cuda_ms(lambda: torch.matmul(x2, w)), bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=float(err.max()),
+                         bytes=nbytes, flops=flops, tile=tile_of(m, n)))
         # the autograd backward on the card against the JAX rule (_bwd4) in f32
         # on the kernel's own y: dy = bf16(gy + gs1 + 2 gs2 y), then dy @ w.T
         # and x.T @ dy. (Autograd through the plain version is no reference
@@ -260,11 +263,27 @@ def assert_block_close(what, out, ref, terms):
     return dict(max_abs_err=err, outside_2e2=n_tight, numel=out.numel())
 
 
-def timed_row(kernel, shape, per_path, fn, plain, library, nbytes, flops, err):
+def timed_row(kernel, shape, per_path, fn, plain, library, nbytes, flops, err, product=None,
+              tile=None):
+    """One kernel row; ``product`` is the bare library product (no statistics),
+    ``tile`` the wgmma core's plan for the shape."""
     b_ms, b_by = bound_ms(nbytes, flops)
     return dict(kernel=kernel, shape=list(shape), per_path=per_path, ms=cuda_ms(fn),
                 plain_ms=cuda_ms(plain), library_ms=None if library is None else cuda_ms(library),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops)
+                product_ms=None if product is None else cuda_ms(product),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops,
+                tile=tile)
+
+
+def tile_of(m, n):
+    """The tile plan the wgmma kernels make for an (M, ., N) product on this
+    card, as the C side reports it."""
+    from bdvcil_torch.ops import gemm_plan
+
+    dev = torch.device("cuda", 0)
+    p = gemm_plan.kernel_plan(m, n, dev)
+    return dict(block=[gemm_plan.BLOCK_M, p.block_n], tiles=p.tiles, grid=p.grid,
+                waves=p.tiles / torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 def stats_of(y):
@@ -299,7 +318,8 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
         rows.append(timed_row(
             GEMM, (m, k, n), 1, lambda: conv.gemm_with_stats_fwd(x, w),
             lambda: conv.gemm_stats_plain(x, w), lambda: stats_of(torch.matmul(x, w)),
-            2 * (m * k + m * n + k * n) + 2 * 4 * n, 2 * m * k * n, err))
+            2 * (m * k + m * n + k * n) + 2 * 4 * n, 2 * m * k * n, err,
+            product=lambda: torch.matmul(x, w), tile=tile_of(m, n)))
         del x, w, gy, xi, wi, y, dy
 
     # #5 the plain shift, forward and reverse: bit-exact
@@ -332,21 +352,22 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
         cases = [
             (CONV1, (m, c, cm), lambda: bf.conv1x1_stats(x, w1),
              lambda: conv.gemm_stats_plain(x, w1),
-             lambda: stats_of(torch.matmul(x, w1)),
-             2 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm),
+             lambda: stats_of(torch.matmul(x, w1)), lambda: torch.matmul(x, w1),
+             2 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm, tile_of(m, cm)),
             (CONV3, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
              lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
-             lambda: stats_of(torch.matmul(y, w3)),
-             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c),
+             lambda: stats_of(torch.matmul(y, w3)), lambda: torch.matmul(y, w3),
+             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, None),
         ] + [
             (CONV2, (NT, hw, hw, cm, cm, variant),
              lambda v=variant: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
              lambda v=variant: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v),
              lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
-             2 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm)
+             lambda: F.conv2d(y_nchw, w2_lib, padding=1),
+             2 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm, tile_of(m, cm))
             for variant in ("taps", "im2col")
         ]
-        for name, shape, fn, plain, library, nbytes, flops in cases:
+        for name, shape, fn, plain, library, product, nbytes, flops, tile in cases:
             first = fn()
             err = assert_stats(f"{name} {shape}", first, plain())
             again = fn()  # determinism: the same statistics, bit for bit
@@ -354,7 +375,8 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
                 raise AssertionError(f"{name} {shape}: a second run differs")
             # the two variant names are one kernel: count its layer1 time once
             weight = per if shape[-1] != "im2col" else 0
-            rows.append(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err))
+            rows.append(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
+                                  product=product, tile=tile))
             del first, again
         del x, y, w1, w2, w3, w2_lib, y_nchw
         torch.cuda.empty_cache()
@@ -619,9 +641,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf)
     for r in rows:
+        tile = r["tile"]
         print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/path: {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']}",
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, product "
+              f"{r['product_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['ms'] / r['bound_ms']:.2f}x), max_abs_err {r['max_abs_err']}"
+              + ("" if tile is None else f", tile {tile['block'][0]}x{tile['block'][1]} "
+                 f"tiles {tile['tiles']} grid {tile['grid']} waves {tile['waves']:.2f}"),
               flush=True)
     torch.cuda.empty_cache()
 
@@ -657,6 +683,7 @@ def main(argv=None) -> int:
             ms=per_path("ms"), plain_ms=per_path("plain_ms"), bound_ms=per_path("bound_ms"),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None if mine[0]["library_ms"] is None else per_path("library_ms"),
+            product_ms=None if mine[0]["product_ms"] is None else per_path("product_ms"),
         ))
     wall_s = time.perf_counter() - wall0 + build_s
     print(f"chip_smoke wall time {wall_s:.1f} s (build included)", flush=True)
@@ -673,7 +700,10 @@ def main(argv=None) -> int:
                        "block forward for the block kernels; kernel_rows are per launch. "
                        "library_ms: torch.matmul + two f32 sums for the 1x1 GEMMs (no "
                        "prologue), F.conv2d (channels_last) + two sums for the 3x3 (no "
-                       "prologue), none for the shifts")
+                       "prologue), none for the shifts. product_ms: the bare torch.matmul or "
+                       "F.conv2d of the library yardstick, without its sums. tile: the wgmma "
+                       "core's plan (sm90::make_plan, read through ops/gemm_plan.py) for #3, "
+                       "#4, #6 and #8")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

@@ -22,6 +22,7 @@ import torch
 from bdvcil_torch.ops import _build
 from bdvcil_torch.ops import block_fused as port_bf
 from bdvcil_torch.ops import conv1x1_bn as port_conv
+from bdvcil_torch.ops import gemm_plan
 from bdvcil_torch.ops import tsm_shift as port_tsm
 
 pytestmark = pytest.mark.cuda
@@ -74,7 +75,7 @@ def test_fused_kernels_bit_exact(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("mkn", [(300, 64, 64), (6272, 512, 2048), (1000, 256, 128),
-                                 (128, 32, 64)])
+                                 (128, 64, 64)])
 def test_conv1x1_kernel_matches_plain(cuda, mkn):
     m, k, n = mkn
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -106,9 +107,16 @@ def test_conv1x1_kernel_statistics_are_deterministic(cuda):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 2, 2, 48), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # K % 32 != 0
+    with pytest.raises(ValueError):  # K % 64 != 0
         port_conv.conv1x1_with_stats_fwd(x, torch.zeros((48, 64), device=cuda,
                                                         dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # K % 64 != 0 (the wgmma core steps K by 64)
+        port_conv.conv1x1_with_stats_fwd(x[..., :32].contiguous(),
+                                         torch.zeros((32, 64), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # N % 64 != 0
+        port_conv.conv1x1_with_stats_fwd(torch.zeros((2, 2, 2, 64), device=cuda,
+                                                     dtype=torch.bfloat16),
+                                         torch.zeros((64, 96), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         port_conv.conv1x1_with_stats_fwd(x.float()[..., :32], torch.zeros((32, 64), device=cuda))
     with pytest.raises(ValueError):  # not contiguous
@@ -225,13 +233,21 @@ def test_fused_block_on_the_card_matches_its_plain_composition(cuda):
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     bf16 = torch.bfloat16
+    a64 = torch.ones((64,), device=cuda)
     y = torch.zeros((2, 4, 4, 48), device=cuda, dtype=bf16)
     a = torch.ones((48,), device=cuda)
-    with pytest.raises(ValueError):  # Cin % 32 != 0
+    with pytest.raises(ValueError):  # Cin % 64 != 0
         port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 48, 64), device=cuda,
                                                                dtype=bf16))
     y = y[..., :32].contiguous()
     a = a[:32].contiguous()
+    with pytest.raises(ValueError):  # Cin % 64 != 0 (the wgmma core steps K by 64)
+        port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 32, 64), device=cuda,
+                                                               dtype=bf16))
+    with pytest.raises(ValueError):  # W > 63: a window of 128 + 2 W + 2 rows is one TMA box
+        port_bf.conv3x3_affine_relu_stats(
+            torch.zeros((1, 2, 64, 64), device=cuda, dtype=bf16), a64, a64,
+            torch.zeros((3, 3, 64, 64), device=cuda, dtype=bf16))
     with pytest.raises(ValueError):  # Cout % 64 != 0
         port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 32, 48), device=cuda,
                                                                dtype=bf16))
@@ -247,3 +263,92 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_tsm.shift_fwd(torch.zeros((2, 2, 2, 16), device=cuda, dtype=torch.float16), 2)
     with pytest.raises(ValueError):  # N*T not a multiple of T
         port_tsm.shift_fwd(torch.zeros((3, 2, 2, 16), device=cuda), 2)
+
+
+# --- the persistent wgmma core (csrc/gemm_stats_sm90.cuh): #3, #4, #6 and #8 ---
+
+# the 12 1x1 shapes of a TSM-R50 train forward in configuration A, and ragged M
+WGMMA_1X1_SHAPES = sorted(gemm_plan.r50_1x1_shapes()) + [(300, 64, 64), (6272 + 37, 512, 2048)]
+
+
+@pytest.mark.parametrize("mkn", WGMMA_1X1_SHAPES)
+def test_wgmma_1x1_kernels_match_plain_at_r50_shapes(cuda, mkn):
+    """#3, #4 and #6 (one kernel, three wrappers) against the plain version."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    ref = port_conv.gemm_stats_plain(x, w)
+    _build.LAUNCHES.clear()
+    got = {
+        port_conv.KERNEL: port_conv.conv1x1_with_stats_fwd(x.reshape(m, 1, 1, k), w),
+        port_conv.GEMM_KERNEL: port_conv.gemm_with_stats_fwd(x, w),
+        port_bf.CONV1: port_bf.conv1x1_stats(x.reshape(m, 1, 1, k), w),
+    }
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {name: 1 for name in got}
+    for y, s1, s2 in got.values():
+        _check_stats((y.reshape(m, n), s1, s2), ref)
+
+
+@pytest.mark.parametrize("geometry", list(gemm_plan.R50_3X3_SHAPES[:1]) + [
+    (16, hw, hw, c, n) for _, hw, _, c, n in gemm_plan.R50_3X3_SHAPES[1:]] + [
+    (3, 7, 5, 64, 128), (2, 3, 11, 128, 64), (2, 5, 63, 64, 64)])
+def test_wgmma_conv3x3_matches_plain_at_r50_widths(cuda, geometry):
+    """#8 at the four stride-1 widths, at a ragged NT*H*W and at the widest
+    image it takes (W = 63), with b > 0 on every channel, so a halo of
+    relu(b) instead of zero would show."""
+    nt, h, w_, c, n = geometry
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((nt, h, w_, c), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.rand((c,), generator=g, device=cuda) + 0.5
+    b = torch.rand((c,), generator=g, device=cuda) * 0.5 + 0.1
+    w = (torch.randn((3, 3, c, n), generator=g, device=cuda) * (9 * c) ** -0.5).to(torch.bfloat16)
+    _build.LAUNCHES.clear()
+    got = port_bf.conv3x3_affine_relu_stats(x, a, b, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV2: 1}
+    _check_stats(got, port_bf.conv3x3_affine_relu_stats_plain(x, a, b, w))
+
+
+@pytest.mark.parametrize("bn", (256, 128, 64))
+def test_wgmma_statistics_repeat_bit_for_bit_per_tile_width(cuda, bn):
+    """Each tile instantiation, in both kernels: a second run gives the same y
+    and the same statistics, bit for bit (no float atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    m, k, nt, hw = 50_000, 256, 16, 56
+    assert gemm_plan.kernel_plan(m, bn, cuda).block_n == bn
+    assert gemm_plan.kernel_plan(nt * hw * hw, bn, cuda).block_n == bn
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, bn), generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    xi = torch.randn((nt, hw, hw, 64), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.rand((64,), generator=g, device=cuda) + 0.5
+    b = torch.rand((64,), generator=g, device=cuda)
+    w2 = (torch.randn((3, 3, 64, bn), generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    for fn in (lambda: port_conv.gemm_with_stats_fwd(x, w),
+               lambda: port_bf.conv3x3_affine_relu_stats(xi, a, b, w2)):
+        for u, v in zip(fn(), fn()):
+            assert torch.equal(u, v)
+
+
+def test_wgmma_plan_covers_every_shape(cuda):
+    """The C side's tile plan (which the wrappers do not mirror: they give the
+    kernel one partial row per SM) at every R50 shape of #3 and #8 and a few
+    ragged ones: a width that divides N, every tile once, at most one CTA per
+    SM; and the picker's trade of waves against width."""
+    sms = port_conv.sm_count(cuda)
+    mn = [(m, n) for m, _, n in WGMMA_1X1_SHAPES] + [
+        (nt * h * w_, n) for nt, h, w_, _, n in gemm_plan.R50_3X3_SHAPES] + [(1, 64), (129, 320)]
+    for m, n in mn:
+        p = gemm_plan.kernel_plan(m, n, cuda)
+        assert p.block_n in (64, 128, 256) and p.n_tiles * p.block_n == n
+        assert p.m_tiles == -(-m // gemm_plan.BLOCK_M) and p.tiles == p.m_tiles * p.n_tiles
+        assert p.grid == min(p.tiles, sms)
+    if sms == 132:  # an H100 SXM
+        # layer3 3x3 (M = 25088, N = 256): 196 tiles of 128x256 take 2 rounds,
+        # 392 of 128x128 take 3, and 2 * (256 + 32) > 3 * (128 + 32)
+        assert gemm_plan.kernel_plan(25088, 256, cuda).block_n == 128
+        assert gemm_plan.kernel_plan(401408, 256, cuda).block_n == 256
+        # layer4 (M = 6272, N = 512): 98 tiles of 256 tie 392 of 64; the tie goes wide
+        p = gemm_plan.kernel_plan(6272, 512, cuda)
+        assert (p.block_n, p.tiles, p.grid) == (256, 98, 98)

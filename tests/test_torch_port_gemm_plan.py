@@ -1,0 +1,37 @@
+"""The ResNet-50 shapes of the sm90 GEMM-with-statistics kernels
+(``ops/gemm_plan.py``), against the kernels' shape rule.
+
+The kernels (``csrc/gemm_stats_sm90.cuh``) run only on the card, and so does
+their tile plan (``tests/test_torch_port_cuda.py`` checks it there). Here:
+the shapes the profiles and the card tests use are those of a configuration-A
+train forward, and every one of them fits the rule the wrappers enforce
+(K or Cin % 64 == 0, N % 64 == 0; for the 3x3, W <= 63).
+"""
+
+import pytest
+
+from bdvcil_torch.ops import block_fused, gemm_plan
+
+BLOCK_K = 64  # the wgmma kernels' K step: K (the 3x3's Cin) % 64 == 0
+MIN_BLOCK_N = 64  # the narrowest tile: N % 64 == 0
+
+
+def test_r50_1x1_shapes_are_the_config_a_forward():
+    shapes = gemm_plan.r50_1x1_shapes()
+    assert len(shapes) == 12 and sum(shapes.values()) == 32
+    assert shapes[(128 * 56 * 56, 64, 256)] == 3
+    assert shapes[(128 * 14 * 14, 256, 1024)] == 6
+
+
+@pytest.mark.parametrize("mkn", sorted(gemm_plan.r50_1x1_shapes()))
+def test_every_r50_shape_maps_to_an_instantiation(mkn):
+    m, k, n = mkn
+    assert m > 0 and k % BLOCK_K == 0 and n % MIN_BLOCK_N == 0
+
+
+@pytest.mark.parametrize("geometry", gemm_plan.R50_3X3_SHAPES)
+def test_every_r50_3x3_width_fits_the_kernel(geometry):
+    nt, h, w, c, n = geometry
+    assert c % BLOCK_K == 0 and n % MIN_BLOCK_N == 0
+    assert w <= block_fused.MAX_WIDTH_3X3
+    assert nt * h * w % gemm_plan.BLOCK_M == 0  # the R50 tiles are full; ragged M is a card test
