@@ -15,34 +15,43 @@
 //
 // Bound: at the ResNet-50 shapes (K, N from 64 to 2048) the product is
 // compute-bound for the wide layers and byte-bound for the 64-channel ones.
-// conv1x1_with_stats (#3, also #4 gemm_with_stats and #6 the block's conv1)
-// runs on the persistent wgmma core of gemm_stats_sm90.cuh: x and w come by
-// TMA into a multi-stage mbarrier ring, y and the statistics come out of the
-// registers, and the statistics finish sums one partial per CTA instead of
-// one per 128-row tile. The prologue variant (#7) is still the WMMA kernel of
-// gemm_stats.cuh with the RowsA loader.
+// All four run on the persistent wgmma core of gemm_stats_sm90.cuh: x and w
+// come by TMA into a multi-stage mbarrier ring, y and the statistics come out
+// of the registers, and the statistics finish sums one partial per CTA. The
+// prologue variant (#7) applies bf16(relu(x * a + b)) to each A tile in the
+// ring stage, in the consumer warpgroups, after the TMA has landed it: the
+// previous BatchNorm's normalize rides on the tile already loaded, instead of
+// taking a pass of its own over device memory.
 
-#include "gemm_stats.cuh"
 #include "gemm_stats_sm90.cuh"
 
 namespace {
 
 using sm90::aligned16;
+using sm90::bf16;
 
-int check_args(const void* x, const void* w, const void* y, long long M, int K, int N, int bk) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % bk != 0 || N % BN != 0) return (int)cudaErrorInvalidValue;
+int check_args(const void* x, const void* w, const void* y, long long M, int K, int N) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % sm90::BK != 0 || N % 64 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (M > (1ll << 31) - sm90::BM) return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(y)) return (int)cudaErrorMisalignedAddress;
   return 0;
+}
+
+sm90::Problem problem(const void* x, void* y, void* part, long long M, int K, int N) {
+  sm90::Problem p{};
+  p.x = static_cast<const bf16*>(x);
+  p.y = static_cast<bf16*>(y);
+  p.part = static_cast<float*>(part);
+  p.M = (int)M;
+  p.K = K;
+  p.N = N;
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
-
-// the prologue kernel's (#7) tiles: part is (2, ceil(M / BM), N)
-int bdv_conv1x1_stats_block_m() { return BM; }
-int bdv_conv1x1_stats_block_n() { return BN; }
-int bdv_conv1x1_stats_block_k() { return BK; }
 
 // the wgmma core's K step, and the plan it makes for (M, N) on `sms` SMs (of
 // this kernel and of the 3x3's): out = {block_n, m_tiles, n_tiles, tiles, grid}
@@ -55,35 +64,29 @@ int bdv_wgmma_stats_plan(long long M, int N, int sms, int* out) {
   return 0;
 }
 
-// x (M, K), w (K, N), y (M, N): bf16, row-major, contiguous; K % 64 == 0.
-// part: (2, part_rows, N) f32 scratch, one row per persistent CTA; the grid
-// has at most part_rows CTAs (pass the device's SM count).
+// x (M, K), w (K, N), y (M, N): bf16, row-major, contiguous; K % 64 == 0,
+// N % 64 == 0. part: (2, part_rows, N) f32 scratch, one row per persistent
+// CTA; the grid has at most part_rows CTAs (pass the device's SM count).
 // stats: (2, N) f32 = [sum y; sum y^2].
 int bdv_conv1x1_with_stats(const void* x, const void* w, void* y, void* part, int part_rows,
                            void* stats, long long M, int K, int N, void* stream) {
-  if (int bad = check_args(x, w, y, M, K, N, sm90::BK)) return bad;
-  if (M > (1ll << 31) - sm90::BM) return (int)cudaErrorInvalidValue;
-  sm90::Problem p{};
-  p.x = static_cast<const bf16*>(x);
-  p.y = static_cast<bf16*>(y);
-  p.part = static_cast<float*>(part);
-  p.M = (int)M;
-  p.K = K;
-  p.N = N;
-  return (int)sm90::launch_wgmma_stats<false>(p, part_rows, w, stats,
-                                              static_cast<cudaStream_t>(stream));
+  if (int bad = check_args(x, w, y, M, K, N)) return bad;
+  return (int)sm90::launch_wgmma_stats<sm90::ALoad::kRows>(
+      problem(x, y, part, M, K, N), part_rows, w, stats, static_cast<cudaStream_t>(stream));
 }
 
-// The same with the prologue x -> bf16(relu(x * a + b)); a, b: (K,) f32;
-// K % 32 == 0; part: (2, ceil(M / 128), N).
+// The same with the prologue x -> bf16(relu(x * a + b)); a, b: (K,) f32,
+// 16-byte aligned.
 int bdv_conv1x1_affine_relu_stats(const void* x, const void* w, const void* a, const void* b,
-                                  void* y, void* part, void* stats, long long M, int K, int N,
-                                  void* stream) {
-  if (int bad = check_args(x, w, y, M, K, N, BK)) return bad;
+                                  void* y, void* part, int part_rows, void* stats, long long M,
+                                  int K, int N, void* stream) {
+  if (int bad = check_args(x, w, y, M, K, N)) return bad;
   if (!aligned16(a) || !aligned16(b)) return (int)cudaErrorMisalignedAddress;
-  const RowsA loader{static_cast<const bf16*>(x), (int64_t)M, K};
-  return (int)launch_gemm_stats<RowsA>(loader, w, a, b, y, part, stats, M, K, N,
-                                             static_cast<cudaStream_t>(stream));
+  sm90::Problem p = problem(x, y, part, M, K, N);
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  return (int)sm90::launch_wgmma_stats<sm90::ALoad::kRowsAffine>(
+      p, part_rows, w, stats, static_cast<cudaStream_t>(stream));
 }
 
 const char* bdv_cuda_error_string(int code) {

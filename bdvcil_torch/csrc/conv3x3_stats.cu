@@ -69,8 +69,8 @@ int bdv_conv3x3_affine_relu_stats(const void* x, const void* w, const void* a, c
   p.H = H;
   p.W = W;
   p.C = C;
-  return (int)sm90::launch_wgmma_stats<true>(p, part_rows, w, stats,
-                                             static_cast<cudaStream_t>(stream));
+  return (int)sm90::launch_wgmma_stats<sm90::ALoad::kIm2col>(p, part_rows, w, stats,
+                                                             static_cast<cudaStream_t>(stream));
 }
 
 const char* bdv_cuda_error_string(int code) {

@@ -1,7 +1,9 @@
 // Persistent warp-specialized bf16 GEMM with a BatchNorm-statistics epilogue
 // for Hopper (sm_90a): the core of conv1x1_with_stats (conv1x1_stats.cu,
-// A = the rows of x) and conv3x3_affine_relu_stats (conv3x3_stats.cu, A = the
-// implicit 3x3 im2col of bf16(relu(x * a + b))).
+// A = the rows of x), conv1x1_affine_relu_stats (conv1x1_stats.cu, A = the
+// rows of bf16(relu(x * a + b))) and conv3x3_affine_relu_stats
+// (conv3x3_stats.cu, A = the implicit 3x3 im2col of bf16(relu(x * a + b))).
+// The three ways of loading A (ALoad) are one kernel template.
 //
 //   y  = A @ w               A (M, K) bf16, w (K, N) bf16, f32 accumulation,
 //                            y rounded to bf16
@@ -42,6 +44,14 @@
 //   warpgroup ran it; the register-A form of wgmma would take the consumers'
 //   registers from the accumulators.) __fmul_rn / __fadd_rn keep the product
 //   and the sum separately rounded, as the plain version computes them.
+// * The 1x1 with a prologue loads A as the plain 1x1 does, one TMA box per
+//   stage. Once the stage has landed, each consumer warpgroup rewrites its
+//   own 64 rows of it in place as bf16(relu(x * a + b)) (the 3x3's
+//   arithmetic; a and b straight from global memory, 8 + 8 floats a thread
+//   and k-step, read before the wait), fences the generic writes against the
+//   async proxy and syncs its 128 threads before its wgmma reads them. No
+//   barrier across warpgroups: each reads only its own rows. Rows past M
+//   keep the TMA's zero fill, so they add nothing to the statistics.
 // * wgmma.mma_async m64nBNk16 (bf16 in, f32 accumulate), w read MN-major
 //   (its (K, N) row-major layout as it lies in memory). setmaxnreg moves
 //   registers from the producer to the consumers.
@@ -51,8 +61,9 @@
 //   rows), across the warp's 8 row groups by a shuffle reduce-scatter, then
 //   across the 8 consumer warps through shared memory in warp order, and
 //   added into the CTA's partial row blockIdx.x of `part` in its static tile
-//   order. A's rows past M are zero (the TMA zero-fill; the 3x3's halo
-//   rule), so their y rows are zero and add nothing; they are not stored. A
+//   order. A's rows past M are zero (the TMA zero-fill, which the prologues
+//   leave alone; the 3x3's halo rule), so their y rows are zero and add
+//   nothing; they are not stored. A
 //   second small kernel sums the gridDim.x partials per column in CTA order.
 //   No float atomics anywhere: the statistics repeat bit for bit.
 
@@ -77,13 +88,19 @@ constexpr int kTileOverhead = 32;              // make_plan's cost model
 constexpr int A_BYTES = BM * BK * 2;           // 16 KB per stage
 constexpr int B_BOX_BYTES = 64 * BK * 2;       // one 64-column TMA box of w
 
+// How the kernel gets A: the rows of x (1x1), the rows of x with the prologue
+// bf16(relu(x * a + b)) applied in the ring stage (1x1), or the implicit 3x3
+// im2col of the prologue's output, built from a window of x.
+enum class ALoad { kRows, kRowsAffine, kIm2col };
+
 // Shared memory, in byte offsets from a 1024-byte aligned base. The ring
 // holds w's slices, and for the 1x1 A's; the 3x3 builds each A tile in
 // `abuf` from a window of x that its prologue has been applied to (`win`,
 // two buffers). Then the statistics' cross-warp sums, the barriers and, for
 // the 3x3, a and b.
-template <int BN, bool kIm2col>
+template <int BN, ALoad kLoad>
 struct Layout {
+  static constexpr bool kIm2col = kLoad == ALoad::kIm2col;
   static constexpr int kStages =
       kIm2col ? (BN == 256 ? 3 : (BN == 128 ? 4 : 6)) : (BN == 256 ? 4 : (BN == 128 ? 5 : 6));
   static constexpr int B_BYTES = BK * BN * 2;
@@ -101,10 +118,11 @@ struct Layout {
   }
 };
 
-// The problem as the kernel sees it. For the 1x1 only M, K, N are read.
+// The problem as the kernel sees it. The 1x1 reads M, K, N (and a, b with
+// the prologue), the 3x3 all of it.
 struct Problem {
   const bf16* x;   // im2col: x (NT, H, W, C)
-  const float* a;  // im2col: the prologue's (C,) scale and shift
+  const float* a;  // the prologue's scale and shift: (K,) for the 1x1, (C,) for the 3x3
   const float* b;
   bf16* y;
   float* part;
@@ -284,6 +302,73 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[R], int lane) {
   }
 }
 
+// ---- the prologue x -> bf16(relu(x * a + b)) -------------------------------------
+
+// a[c .. c + 7] and b[c .. c + 7] (16-byte aligned; shared or global memory)
+__device__ __forceinline__ void load_affine(const float* a, const float* b, int c,
+                                            float (&av)[8], float (&bv)[8]) {
+#pragma unroll
+  for (int q = 0; q < 8; q += 4) {
+    const float4 a4 = *reinterpret_cast<const float4*>(a + c + q);
+    const float4 b4 = *reinterpret_cast<const float4*>(b + c + q);
+    av[q] = a4.x; av[q + 1] = a4.y; av[q + 2] = a4.z; av[q + 3] = a4.w;
+    bv[q] = b4.x; bv[q + 1] = b4.y; bv[q + 2] = b4.z; bv[q + 3] = b4.w;
+  }
+}
+
+// The 16-byte chunk at row j, chunk c (8 channels) of a buffer of 128-byte
+// rows in the 128-byte swizzle (1024-byte aligned): slot c ^ (j & 7) of row j
+__device__ __forceinline__ uint4* swizzled(unsigned char* buf, int j, int c) {
+  return reinterpret_cast<uint4*>(buf + j * 128 + ((c ^ (j & 7)) << 4));
+}
+
+// The prologue on one chunk of 8 bf16 channels (scale av, shift bv)
+__device__ __forceinline__ uint4 affine_relu_chunk(uint4 v, const float (&av)[8],
+                                                   const float (&bv)[8]) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    // a bf16 pair -> two f32 (a bf16 is the upper half of its f32)
+    const float lo = __fadd_rn(__fmul_rn(__uint_as_float(w[q] << 16), av[2 * q]), bv[2 * q]);
+    const float hi =
+        __fadd_rn(__fmul_rn(__uint_as_float(w[q] & 0xFFFF0000u), av[2 * q + 1]), bv[2 * q + 1]);
+    // one rounding of the pair to bf16, then relu that keeps NaN (rounding
+    // is monotonic and keeps the sign, so relu commutes with it)
+    const __nv_bfloat162 o = __hmax2_nan(__floats2bfloat162_rn(lo, hi), __float2bfloat162_rn(0.f));
+    w[q] = *reinterpret_cast<const uint32_t*>(&o);
+  }
+  return v;
+}
+
+// The 1x1's prologue, in place, on the warpgroup's 64 rows of a ring stage
+// (rows row0 .. row0 + 63 of x): thread t takes chunk t % 8 of rows t / 8 +
+// 16 it, all four loads first. Rows past M keep the TMA's zero fill.
+__device__ __forceinline__ void tile_prologue(unsigned char* a_s, int t, int row0, int M,
+                                              const float (&av)[8], const float (&bv)[8]) {
+  uint4 v[4];
+#pragma unroll
+  for (int it = 0; it < 4; ++it) v[it] = *swizzled(a_s, t / 8 + 16 * it, t % 8);
+#pragma unroll
+  for (int it = 0; it < 4; ++it)
+    if (row0 + t / 8 + 16 * it < M)
+      *swizzled(a_s, t / 8 + 16 * it, t % 8) = affine_relu_chunk(v[it], av, bv);
+}
+
+// The 3x3's prologue, once per window, in place on the window's rows that
+// hold pixels of x (row j is row row0 + j of x as an (M, C) matrix; rows
+// outside x keep the zero fill, as the reference pads after the prologue):
+// thread ct (of the 256 consumer threads) takes chunk ct % 8 of rows
+// ct / 8 + 32 q.
+__device__ __forceinline__ void window_prologue(unsigned char* win, int rows, int row0, int ct,
+                                                int M, const float (&av)[8],
+                                                const float (&bv)[8]) {
+  for (int j = ct / 8; j < rows; j += 32) {
+    if (static_cast<unsigned>(row0 + j) >= static_cast<unsigned>(M)) continue;
+    uint4* q4 = swizzled(win, j, ct % 8);
+    *q4 = affine_relu_chunk(*q4, av, bv);
+  }
+}
+
 // ---- the 3x3's A ---------------------------------------------------------------
 
 // (h << 16) | w of output pixel m = (n, h, w), or -1 past M
@@ -299,43 +384,6 @@ __device__ __forceinline__ bool inside(int hw, int dy, int dx, const Problem& p)
   const int w = (hw & 0xFFFF) + dx;
   return hw >= 0 && static_cast<unsigned>(h) < static_cast<unsigned>(p.H) &&
          static_cast<unsigned>(w) < static_cast<unsigned>(p.W);
-}
-
-// The prologue x -> bf16(relu(x * a + b)), once per window: in place on the
-// window's rows that hold pixels of x (rows outside x stay zero), channels
-// c0 .. c0 + 63. Thread ct (of the 256 consumer threads) takes chunk ct % 8 of
-// rows ct / 8 + 32 q.
-__device__ __forceinline__ void window_prologue(unsigned char* win, int rows, int row0, int c0,
-                                                const float* ab, int ct, const Problem& p) {
-  const int chunk = ct % 8;
-  const int c = c0 + chunk * 8;
-  float av[8], bv[8];
-#pragma unroll
-  for (int q = 0; q < 8; q += 4) {
-    const float4 a4 = *reinterpret_cast<const float4*>(ab + c + q);
-    const float4 b4 = *reinterpret_cast<const float4*>(ab + p.C + c + q);
-    av[q] = a4.x; av[q + 1] = a4.y; av[q + 2] = a4.z; av[q + 3] = a4.w;
-    bv[q] = b4.x; bv[q + 1] = b4.y; bv[q + 2] = b4.z; bv[q + 3] = b4.w;
-  }
-  for (int j = ct / 8; j < rows; j += 32) {
-    if (static_cast<unsigned>(row0 + j) >= static_cast<unsigned>(p.M)) continue;
-    uint4* q4 = reinterpret_cast<uint4*>(win + j * 128 + ((chunk ^ (j & 7)) << 4));
-    uint4 v = *q4;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      // a bf16 pair -> two f32 (a bf16 is the upper half of its f32)
-      const float lo = __fadd_rn(__fmul_rn(__uint_as_float(w[q] << 16), av[2 * q]), bv[2 * q]);
-      const float hi =
-          __fadd_rn(__fmul_rn(__uint_as_float(w[q] & 0xFFFF0000u), av[2 * q + 1]), bv[2 * q + 1]);
-      // one rounding of the pair to bf16, then relu that keeps NaN (rounding
-      // is monotonic and keeps the sign, so relu commutes with it)
-      const __nv_bfloat162 o =
-          __hmax2_nan(__floats2bfloat162_rn(lo, hi), __float2bfloat162_rn(0.f));
-      w[q] = *reinterpret_cast<const uint32_t*>(&o);
-    }
-    *q4 = v;
-  }
 }
 
 // One tap's A rows from the window, into `a_s`: row r of the tile is window
@@ -362,11 +410,12 @@ __device__ __forceinline__ void copy_tap(unsigned char* a_s, const unsigned char
 
 // ---- the kernel ----------------------------------------------------------------
 
-template <int BN, bool kIm2col>
+template <int BN, ALoad kLoad>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_w, const Problem p) {
-  using Lay = Layout<BN, kIm2col>;
+  using Lay = Layout<BN, kLoad>;
+  constexpr bool kIm2col = Lay::kIm2col;
   constexpr int S = Lay::kStages;
   const Lay L(p.W, p.C);
   constexpr int kProducerRegs = 40;
@@ -495,8 +544,10 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         uint32_t a_addr;
         if constexpr (kIm2col) {
           if (tap == 0) {  // a new window: its prologue, by both warpgroups
+            float av[8], bv[8];
+            load_affine(ab, ab + p.C, cs * BK + 8 * (ct % 8), av, bv);
             mbar_wait(&wfull[wb], wph);
-            window_prologue(window(wb), L.win_rows, mt * BM - p.W - 1, cs * BK, ab, ct, p);
+            window_prologue(window(wb), L.win_rows, mt * BM - p.W - 1, ct, p.M, av, bv);
             consumer_barrier();
           }
           // A in one of two buffers: the products of k-step kt - 2 that read
@@ -515,10 +566,20 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
             ++cs;
           }
           a_addr = smem_u32(a_s) + wg * 64 * 128;
+          mbar_wait(&full[s], ph);
+        } else if constexpr (kLoad == ALoad::kRowsAffine) {
+          unsigned char* a_s = stage_a(s) + wg * 64 * 128;
+          float av[8], bv[8];
+          load_affine(p.a, p.b, kt * BK + 8 * (t % 8), av, bv);
+          mbar_wait(&full[s], ph);
+          tile_prologue(a_s, t, mt * BM + 64 * wg, p.M, av, bv);
+          fence_proxy_async();
+          warpgroup_barrier(wg);  // the warpgroup's rows are in place
+          a_addr = smem_u32(a_s);
         } else {
           a_addr = smem_u32(stage_a(s)) + wg * 64 * 128;
+          mbar_wait(&full[s], ph);
         }
-        mbar_wait(&full[s], ph);
         const uint32_t b_addr = smem_u32(stage_b(s));
         fence_acc(acc);
         wgmma_fence();
@@ -709,13 +770,13 @@ inline bool encode_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool kIm2col>
+template <int BN, ALoad kLoad>
 cudaError_t launch_bn(const CUtensorMap& tm_a, const CUtensorMap& tm_w, const Problem& p, int grid,
                       cudaStream_t stream) {
   constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may have on sm_90
   constexpr int kMaxDevices = 64;
-  auto kernel = wgmma_stats_kernel<BN, kIm2col>;
-  const int smem = 1024 + Layout<BN, kIm2col>(p.W, p.C).total;  // + alignment slack
+  auto kernel = wgmma_stats_kernel<BN, kLoad>;
+  const int smem = 1024 + Layout<BN, kLoad>(p.W, p.C).total;  // + alignment slack
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // allow the kernel the most shared memory once per device, not per launch
   static bool allowed[kMaxDevices] = {};
@@ -734,13 +795,14 @@ cudaError_t launch_bn(const CUtensorMap& tm_a, const CUtensorMap& tm_w, const Pr
 
 // Launch the GEMM and the statistics finish on `stream`. The caller has checked
 // K % BK == 0, N % 64 == 0, the alignment and (im2col) C % BK == 0, and filled
-// p's pointers and sizes. part: (2, part_rows, N) f32 scratch; the persistent
-// grid is make_plan(M, N, part_rows).grid <= part_rows CTAs, so part_rows is
-// the grid's cap (the device's SM count, one CTA per SM). stats: (2, N) f32 =
-// [sum y; sum y^2].
-template <bool kIm2col>
+// p's pointers and sizes (with a prologue, a and b). part: (2, part_rows, N)
+// f32 scratch; the persistent grid is make_plan(M, N, part_rows).grid <=
+// part_rows CTAs, so part_rows is the grid's cap (the device's SM count, one
+// CTA per SM). stats: (2, N) f32 = [sum y; sum y^2].
+template <ALoad kLoad>
 cudaError_t launch_wgmma_stats(Problem p, int part_rows, const void* w, void* stats,
                                cudaStream_t stream) {
+  constexpr bool kIm2col = kLoad == ALoad::kIm2col;
   if (part_rows <= 0) return cudaErrorInvalidValue;
   const Plan plan = make_plan(p.M, p.N, part_rows);
   if (plan.block_n == 0) return cudaErrorInvalidValue;
@@ -755,9 +817,9 @@ cudaError_t launch_wgmma_stats(Problem p, int part_rows, const void* w, void* st
   if (!encode_2d(&tm_a, p.x, kIm2col ? p.C : p.K, p.M, a_rows)) return cudaErrorInvalidValue;
   cudaError_t err;
   switch (plan.block_n) {
-    case 256: err = launch_bn<256, kIm2col>(tm_a, tm_w, p, plan.grid, stream); break;
-    case 128: err = launch_bn<128, kIm2col>(tm_a, tm_w, p, plan.grid, stream); break;
-    default: err = launch_bn<64, kIm2col>(tm_a, tm_w, p, plan.grid, stream); break;
+    case 256: err = launch_bn<256, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;
+    case 128: err = launch_bn<128, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;
+    default: err = launch_bn<64, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;
   }
   if (err != cudaSuccess) return err;
   partials_finish_kernel<<<(p.N + 31) / 32, 256, 0, stream>>>(p.part, static_cast<float*>(stats),

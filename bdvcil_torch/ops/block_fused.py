@@ -19,11 +19,11 @@ On a CUDA tensor each stats op is its hand-written kernel:
 ``csrc/conv1x1_stats.cu`` for the two 1x1 GEMMs (the second with its
 prologue), ``csrc/conv3x3_stats.cu`` for the 3x3 implicit GEMM, which serves
 both of the JAX package's variant names ("taps", "im2col": one function, two
-ways of tiling the TPU's matrix unit). The first 1x1 and the 3x3 run on the
-persistent wgmma core of ``csrc/gemm_stats_sm90.cuh``, the second 1x1 on the
-WMMA kernel of ``csrc/gemm_stats.cuh``. On a CPU tensor each is its ``_plain``
-version; the plain 3x3 mirrors each variant's summation (nine f32 tap
-products accumulated in order, or one K=9C product).
+ways of tiling the TPU's matrix unit). All three run on the persistent wgmma
+core of ``csrc/gemm_stats_sm90.cuh``, which applies the prologue to the A
+tile in shared memory. On a CPU tensor each is its ``_plain`` version; the
+plain 3x3 mirrors each variant's summation (nine f32 tap products
+accumulated in order, or one K=9C product).
 
 Forward-only, as the JAX ops are (they have no VJP): the ops raise if an input
 requires grad rather than letting autograd reach the plain versions.

@@ -9,12 +9,11 @@ computed on the ROUNDED bf16 output so they equal a reduction over the stored
 tensor. ``gemm_with_stats`` is the same function on a 2-D (M, K) operand.
 
 On a CUDA tensor the forward is the hand-written kernel of
-``csrc/conv1x1_stats.cu`` (the persistent wgmma core of
-``csrc/gemm_stats_sm90.cuh``; with a prologue, the WMMA kernel of
-``csrc/gemm_stats.cuh``); on a CPU tensor it is ``gemm_stats_plain``. The
-backward is plain PyTorch on both, as the JAX package leaves it to XLA: the
-cotangents of s1/s2 are folded into dy (``dy += gs1 + 2 * gs2 * y``), then
-the GEMM's own backward.
+``csrc/conv1x1_stats.cu``, on the persistent wgmma core of
+``csrc/gemm_stats_sm90.cuh`` with or without the block's prologue; on a CPU
+tensor it is ``gemm_stats_plain``. The backward is plain PyTorch on both, as
+the JAX package leaves it to XLA: the cotangents of s1/s2 are folded into dy
+(``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward.
 """
 
 from __future__ import annotations
@@ -31,6 +30,8 @@ from . import _build
 KERNEL = "conv1x1_with_stats"
 GEMM_KERNEL = "gemm_with_stats"
 EPS = 1e-5
+# the narrowest tile of the wgmma core's plan (sm90::make_plan): N % 64 == 0
+MIN_BLOCK_N = 64
 
 
 def gemm_stats_plain(
@@ -52,14 +53,13 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.bdv_conv1x1_with_stats.restype = ctypes.c_int
-        lib.bdv_conv1x1_affine_relu_stats.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        lib.bdv_conv1x1_affine_relu_stats.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.bdv_conv1x1_affine_relu_stats.restype = ctypes.c_int
-        for fn in (lib.bdv_conv1x1_stats_block_m, lib.bdv_conv1x1_stats_block_n,
-                   lib.bdv_conv1x1_stats_block_k, lib.bdv_wgmma_stats_block_k):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
+        lib.bdv_wgmma_stats_block_k.argtypes = []
+        lib.bdv_wgmma_stats_block_k.restype = ctypes.c_int
         lib.bdv_wgmma_stats_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p]
         lib.bdv_wgmma_stats_plan.restype = ctypes.c_int
@@ -108,17 +108,13 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
     if a is not None:
         check_affine(name, k, a, b, x.device)
     lib = _lib()
-    bn = lib.bdv_conv1x1_stats_block_n()
-    # the wgmma core (no prologue) steps K by 64; the prologue kernel by 32
-    bk = lib.bdv_wgmma_stats_block_k() if a is None else lib.bdv_conv1x1_stats_block_k()
-    if k % bk or n % bn:
-        raise ValueError(f"{name}: needs K % {bk} == 0 and N % {bn} == 0, got K={k} N={n}")
+    bk = lib.bdv_wgmma_stats_block_k()  # the wgmma core steps K by 64
+    if k % bk or n % MIN_BLOCK_N:
+        raise ValueError(f"{name}: needs K % {bk} == 0 and N % {MIN_BLOCK_N} == 0, got "
+                         f"K={k} N={n}")
     m = x.numel() // k
     y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    if a is None:  # one partial per persistent CTA, at most one CTA per SM
-        part_rows = sm_count(x.device)
-    else:  # one partial per 128-row tile
-        part_rows = -(-m // lib.bdv_conv1x1_stats_block_m())
+    part_rows = sm_count(x.device)  # one partial per persistent CTA, at most one CTA per SM
     part, stats = stats_scratch((2, part_rows, n), n, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if a is None:
@@ -129,7 +125,7 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
     else:
         code = lib.bdv_conv1x1_affine_relu_stats(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-            part.data_ptr(), stats.data_ptr(), m, k, n, stream,
+            part.data_ptr(), part_rows, stats.data_ptr(), m, k, n, stream,
         )
     _build.check(lib, code, name)
     _build.LAUNCHES[name] += 1

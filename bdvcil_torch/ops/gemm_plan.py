@@ -2,11 +2,12 @@
 shapes they serve.
 
 ``csrc/gemm_stats_sm90.cuh`` (#3 ``conv1x1_with_stats``, #4
-``gemm_with_stats``, #6 the block's conv1 and #8 the 3x3) computes y = A @ w
-in 128-row tiles of ``block_n`` columns on a persistent grid of at most one
-CTA per SM; ``sm90::make_plan`` picks the width and the grid per shape, and
-``kernel_plan`` reads that choice back for reports and tests. Nothing here
-sizes a launch: the wrappers give the kernel one partial row per SM.
+``gemm_with_stats``, #6 the block's conv1, #7 its conv3 and #8 the 3x3)
+computes y = A @ w in 128-row tiles of ``block_n`` columns on a persistent
+grid of at most one CTA per SM; ``sm90::make_plan`` picks the width and the
+grid per shape, and ``kernel_plan`` reads that choice back for reports and
+tests. Nothing here sizes a launch: the wrappers give the kernel one partial
+row per SM.
 """
 
 from __future__ import annotations
@@ -63,3 +64,5 @@ def r50_1x1_shapes(nt: int = 128, size: int = 56) -> Counter:
 # (NT, H, W, Cin, Cout) of the 3x3 of each stride-1 ResNet-50 bottleneck width
 R50_3X3_SHAPES = ((128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
                   (128, 7, 7, 512, 512))
+# (M, K, N) of the conv3 (Cm -> 4 Cm, with the prologue) of the same bottlenecks
+R50_1X1_AFFINE_SHAPES = tuple((nt * h * w, cm, 4 * cm) for nt, h, w, cm, _ in R50_3X3_SHAPES)

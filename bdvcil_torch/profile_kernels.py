@@ -115,14 +115,14 @@ def main(argv=None) -> int:
         rows.append(dict(kernel="conv3x3_affine_relu_stats", shape=[nt, h, w_, c, n],
                          plan=gemm_plan.kernel_plan(nt * h * w_, n, dev)._asdict(), us=split))
         del x, a, b, w
-    for nt, h, w_, _, cm in gemm_plan.R50_3X3_SHAPES:  # #7: (Cm -> 4 Cm) at each width
-        x = torch.randn((nt, h, w_, cm), generator=gen, device=dev).to(bf16)
-        a = torch.rand((cm,), generator=gen, device=dev) + 0.5
-        b = torch.rand((cm,), generator=gen, device=dev) * 0.5 + 0.1
-        w = (torch.randn((cm, 4 * cm), generator=gen, device=dev) / math.sqrt(cm)).to(bf16)
+    for m, k, n in gemm_plan.R50_1X1_AFFINE_SHAPES:  # #7, the block's conv3, at each width
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        a = torch.rand((k,), generator=gen, device=dev) + 0.5
+        b = torch.rand((k,), generator=gen, device=dev) * 0.5 + 0.1
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
         split = kernel_split(lambda: bf.conv1x1_affine_relu_stats(x, a, b, w), args.reps)
-        rows.append(dict(kernel="conv1x1_affine_relu_stats", shape=[nt * h * w_, cm, 4 * cm],
-                         plan=None, us=split))
+        rows.append(dict(kernel="conv1x1_affine_relu_stats", shape=[m, k, n],
+                         plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
         del x, a, b, w
     for r in rows:
         parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(r["us"].items()))

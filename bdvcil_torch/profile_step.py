@@ -36,8 +36,7 @@ from .runtime import TrainState, make_train_step
 
 # first match wins; kernel names are the device-side names in the trace
 CATEGORIES = [
-    ("port: conv1x1_with_stats",
-     r"gemm_stats_kernel|stats_finish_kernel|wgmma_stats_kernel|partials_finish_kernel"),
+    ("port: conv1x1_with_stats", r"wgmma_stats_kernel|partials_finish_kernel"),
     ("port: fused_residual_relu_shift", r"fused_fwd_kernel|fused_bwd_kernel|shift_kernel"),
     ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|implicit|winograd|nchwToNhwc|nhwcToNchw"),
     ("gemm (cuBLAS)", r"gemm|cutlass|xmma|Kernel2|ampere|sm90"),

@@ -28,7 +28,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      of its path, forward and backward, with CUDA-event times of the kernel,
      the plain version and, where one exists, the library call and its bare
      product (no statistics); the wgmma kernels' tile plan per shape; the
-     block kernels' statistics on a second run, bit for bit;
+     block kernels' statistics on a second run, bit for bit; the block's
+     conv3 (#7) also at a ragged M with b > 0;
   3. reference: one small train step per configuration on the card against
      the same step on the CPU, where the port runs the plain versions;
   4. train A and B at full width: 3 task-0 steps (26 classes), growth to 31,
@@ -74,15 +75,22 @@ FWD, BWD, CONV = ("fused_residual_relu_shift_fwd", "fused_residual_relu_shift_bw
 GEMM, SHIFT = "gemm_with_stats", "temporal_shift"
 CONV1, CONV2, CONV3 = ("block_conv1x1_stats", "conv3x3_affine_relu_stats",
                        "conv1x1_affine_relu_stats")
+# per kernel: its source, the TPU kernel it replaces, and what its library
+# yardstick computes (None: no one PyTorch call computes the same function)
+MATMUL_SUMS = "torch.matmul + two f32 sums"
 KERNEL_META = {
-    FWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:131"),
-    BWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:140"),
-    CONV: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/conv1x1_bn.py:164"),
-    GEMM: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37"),
-    SHIFT: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:235"),
-    CONV1: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/block_fused.py:96"),
-    CONV3: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/block_fused.py:73"),
-    CONV2: ("bdvcil_torch/csrc/conv3x3_stats.cu", "bdvcil_tpu/ops/block_fused.py:110"),
+    FWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:131", None),
+    BWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:140", None),
+    CONV: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/conv1x1_bn.py:164", MATMUL_SUMS),
+    GEMM: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37", MATMUL_SUMS),
+    SHIFT: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:235", None),
+    CONV1: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/block_fused.py:96",
+            MATMUL_SUMS),
+    CONV3: ("bdvcil_torch/csrc/conv1x1_stats.cu", "bdvcil_tpu/ops/block_fused.py:73",
+            MATMUL_SUMS + " without the prologue: less work than the kernel"),
+    CONV2: ("bdvcil_torch/csrc/conv3x3_stats.cu", "bdvcil_tpu/ops/block_fused.py:110",
+            "F.conv2d (channels_last) + two f32 sums without the prologue: less work than "
+            "the kernel"),
 }
 # the 1x1 shapes of tools/bench_gemm_stats.py (M = 16 clips x 8 frames x H x W)
 GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 512, 128),
@@ -357,7 +365,7 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
             (CONV3, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
              lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
              lambda: stats_of(torch.matmul(y, w3)), lambda: torch.matmul(y, w3),
-             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, None),
+             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, tile_of(m, c)),
         ] + [
             (CONV2, (NT, hw, hw, cm, cm, variant),
              lambda v=variant: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
@@ -380,6 +388,21 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
             del first, again
         del x, y, w1, w2, w3, w2_lib, y_nchw
         torch.cuda.empty_cache()
+
+    # #7 at a ragged M (rows past M in the last tile), b > 0 on every channel:
+    # a prologue applied to the TMA's zero fill would add relu(b) to the sums
+    for m, k, n in ((NT * 7 * 7 + 37, 512, 2048), (300, 64, 256)):
+        y = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        a = torch.rand((k,), generator=gen, device=dev) + 0.5
+        b = torch.rand((k,), generator=gen, device=dev) * 0.5 + 0.1
+        w3 = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
+        first = bf.conv1x1_affine_relu_stats(y, a, b, w3)
+        assert_stats(f"{CONV3} ragged {(m, k, n)}", first,
+                     bf.conv1x1_affine_relu_stats_plain(y, a, b, w3))
+        if not all(torch.equal(u, v) for u, v in zip(first, bf.conv1x1_affine_relu_stats(
+                y, a, b, w3))):
+            raise AssertionError(f"{CONV3} ragged {(m, k, n)}: a second run differs")
+        del y, a, b, w3, first
     return rows
 
 
@@ -643,7 +666,8 @@ def main(argv=None) -> int:
     for r in rows:
         tile = r["tile"]
         print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/path: {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, product "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
+              f"({KERNEL_META[r['kernel']][2]}), product "
               f"{r['product_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{r['ms'] / r['bound_ms']:.2f}x), max_abs_err {r['max_abs_err']}"
               + ("" if tile is None else f", tile {tile['block'][0]}x{tile['block'][1]} "
@@ -670,7 +694,7 @@ def main(argv=None) -> int:
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **block["launches"],
                 **gemm_launches, **shift_launches}
     kernels = []
-    for kname, (source, replaces) in KERNEL_META.items():
+    for kname, (source, replaces, library_call) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname]
         per_path = lambda key: sum(r[key] * r["per_path"] for r in mine)  # noqa: E731
         t_bytes = sum(r["bytes"] * r["per_path"] for r in mine) / PEAK_HBM_BYTES * 1e3
@@ -683,6 +707,7 @@ def main(argv=None) -> int:
             ms=per_path("ms"), plain_ms=per_path("plain_ms"), bound_ms=per_path("bound_ms"),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None if mine[0]["library_ms"] is None else per_path("library_ms"),
+            library_call=library_call,
             product_ms=None if mine[0]["product_ms"] is None else per_path("product_ms"),
         ))
     wall_s = time.perf_counter() - wall0 + build_s
@@ -698,12 +723,11 @@ def main(argv=None) -> int:
                        "forward for #1-#3 (backward for _bwd), one call per shape for "
                        "gemm_with_stats and temporal_shift (forward and reverse), one layer1 "
                        "block forward for the block kernels; kernel_rows are per launch. "
-                       "library_ms: torch.matmul + two f32 sums for the 1x1 GEMMs (no "
-                       "prologue), F.conv2d (channels_last) + two sums for the 3x3 (no "
-                       "prologue), none for the shifts. product_ms: the bare torch.matmul or "
-                       "F.conv2d of the library yardstick, without its sums. tile: the wgmma "
-                       "core's plan (sm90::make_plan, read through ops/gemm_plan.py) for #3, "
-                       "#4, #6 and #8")
+                       "library_ms: the call that library_call names; for #7 and #8 it leaves "
+                       "out the prologue, so it does less work than the kernel. product_ms: "
+                       "the bare torch.matmul or F.conv2d of the library yardstick, without "
+                       "its sums. tile: the wgmma core's plan (sm90::make_plan, read through "
+                       "ops/gemm_plan.py) for #3, #4, #6, #7 and #8")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

@@ -251,6 +251,12 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # Cout % 64 != 0
         port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 32, 48), device=cuda,
                                                                dtype=bf16))
+    with pytest.raises(ValueError):  # K % 64 != 0
+        port_bf.conv1x1_affine_relu_stats(y, a, a, torch.zeros((32, 64), device=cuda, dtype=bf16))
+    with pytest.raises(ValueError):  # N % 64 != 0
+        port_bf.conv1x1_affine_relu_stats(
+            torch.zeros((2, 4, 4, 64), device=cuda, dtype=bf16), a64, a64,
+            torch.zeros((64, 96), device=cuda, dtype=bf16))
     with pytest.raises(TypeError):  # f32 activations
         port_bf.conv1x1_affine_relu_stats(y.float(), a, a, torch.zeros((32, 64), device=cuda))
     with pytest.raises(ValueError):  # a on the wrong device
@@ -265,7 +271,7 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_tsm.shift_fwd(torch.zeros((3, 2, 2, 16), device=cuda), 2)
 
 
-# --- the persistent wgmma core (csrc/gemm_stats_sm90.cuh): #3, #4, #6 and #8 ---
+# --- the persistent wgmma core (csrc/gemm_stats_sm90.cuh): #3, #4, #6, #7 and #8 ---
 
 # the 12 1x1 shapes of a TSM-R50 train forward in configuration A, and ragged M
 WGMMA_1X1_SHAPES = sorted(gemm_plan.r50_1x1_shapes()) + [(300, 64, 64), (6272 + 37, 512, 2048)]
@@ -311,10 +317,31 @@ def test_wgmma_conv3x3_matches_plain_at_r50_widths(cuda, geometry):
     _check_stats(got, port_bf.conv3x3_affine_relu_stats_plain(x, a, b, w))
 
 
+@pytest.mark.parametrize("mkn", list(gemm_plan.R50_1X1_AFFINE_SHAPES) + [
+    (300, 64, 256), (6272 + 37, 512, 2048), (3 * 5 * 7, 128, 512)])
+def test_wgmma_conv1x1_affine_matches_plain_at_r50_widths(cuda, mkn):
+    """#7 (the block's conv3: the prologue applied to the TMA's A tile) at
+    the four stride-1 widths and at ragged M, with b > 0 on every channel, so
+    a prologue applied to the zero-filled rows past M would show in the
+    statistics."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.rand((k,), generator=g, device=cuda) + 0.5
+    b = torch.rand((k,), generator=g, device=cuda) * 0.5 + 0.1
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    _build.LAUNCHES.clear()
+    got = port_bf.conv1x1_affine_relu_stats(x, a, b, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV3: 1}
+    _check_stats(got, port_bf.conv1x1_affine_relu_stats_plain(x, a, b, w))
+
+
 @pytest.mark.parametrize("bn", (256, 128, 64))
 def test_wgmma_statistics_repeat_bit_for_bit_per_tile_width(cuda, bn):
-    """Each tile instantiation, in both kernels: a second run gives the same y
-    and the same statistics, bit for bit (no float atomics)."""
+    """Each tile instantiation, in each way of loading A (rows, rows with the
+    prologue, the 3x3's window): a second run gives the same y and the same
+    statistics, bit for bit (no float atomics)."""
     g = torch.Generator(device=cuda).manual_seed(9)
     m, k, nt, hw = 50_000, 256, 16, 56
     assert gemm_plan.kernel_plan(m, bn, cuda).block_n == bn
@@ -325,7 +352,10 @@ def test_wgmma_statistics_repeat_bit_for_bit_per_tile_width(cuda, bn):
     a = torch.rand((64,), generator=g, device=cuda) + 0.5
     b = torch.rand((64,), generator=g, device=cuda)
     w2 = (torch.randn((3, 3, 64, bn), generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    a_k = torch.rand((k,), generator=g, device=cuda) + 0.5
+    b_k = torch.rand((k,), generator=g, device=cuda)
     for fn in (lambda: port_conv.gemm_with_stats_fwd(x, w),
+               lambda: port_bf.conv1x1_affine_relu_stats(x, a_k, b_k, w),
                lambda: port_bf.conv3x3_affine_relu_stats(xi, a, b, w2)):
         for u, v in zip(fn(), fn()):
             assert torch.equal(u, v)
@@ -333,11 +363,11 @@ def test_wgmma_statistics_repeat_bit_for_bit_per_tile_width(cuda, bn):
 
 def test_wgmma_plan_covers_every_shape(cuda):
     """The C side's tile plan (which the wrappers do not mirror: they give the
-    kernel one partial row per SM) at every R50 shape of #3 and #8 and a few
-    ragged ones: a width that divides N, every tile once, at most one CTA per
-    SM; and the picker's trade of waves against width."""
+    kernel one partial row per SM) at every R50 shape of #3, #7 and #8 and a
+    few ragged ones: a width that divides N, every tile once, at most one CTA
+    per SM; and the picker's trade of waves against width."""
     sms = port_conv.sm_count(cuda)
-    mn = [(m, n) for m, _, n in WGMMA_1X1_SHAPES] + [
+    mn = [(m, n) for m, _, n in WGMMA_1X1_SHAPES + list(gemm_plan.R50_1X1_AFFINE_SHAPES)] + [
         (nt * h * w_, n) for nt, h, w_, _, n in gemm_plan.R50_3X3_SHAPES] + [(1, 64), (129, 320)]
     for m, n in mn:
         p = gemm_plan.kernel_plan(m, n, cuda)

@@ -4,8 +4,9 @@
 The kernels (``csrc/gemm_stats_sm90.cuh``) run only on the card, and so does
 their tile plan (``tests/test_torch_port_cuda.py`` checks it there). Here:
 the shapes the profiles and the card tests use are those of a configuration-A
-train forward, and every one of them fits the rule the wrappers enforce
-(K or Cin % 64 == 0, N % 64 == 0; for the 3x3, W <= 63).
+train forward and of the stride-1 bottlenecks, and every one of them fits the
+rule the wrappers enforce (K or Cin % 64 == 0, N % 64 == 0; for the 3x3,
+W <= 63).
 """
 
 import pytest
@@ -35,3 +36,12 @@ def test_every_r50_3x3_width_fits_the_kernel(geometry):
     assert c % BLOCK_K == 0 and n % MIN_BLOCK_N == 0
     assert w <= block_fused.MAX_WIDTH_3X3
     assert nt * h * w % gemm_plan.BLOCK_M == 0  # the R50 tiles are full; ragged M is a card test
+
+
+@pytest.mark.parametrize("mkn", gemm_plan.R50_1X1_AFFINE_SHAPES)
+def test_every_r50_conv1x1_affine_width_fits_the_kernel(mkn):
+    """#7, the block's conv3 (Cm -> 4 Cm), on the wgmma core: K % 64 == 0 and
+    N % 64 == 0."""
+    m, k, n = mkn
+    assert n == 4 * k and k % BLOCK_K == 0 and n % MIN_BLOCK_N == 0
+    assert m % gemm_plan.BLOCK_M == 0  # the R50 tiles are full; ragged M is a card test
