@@ -9,12 +9,16 @@ Layout:
   ops      temporal shift and the fused block epilogue, the 1x1-conv GEMM
            with a BatchNorm-statistics epilogue, the whole-block fused
            bottleneck forward; each hand-written CUDA kernel (``csrc/``)
-           beside its plain PyTorch version
+           beside its plain PyTorch version; the input path's eager ops
+           (augment, rand_augment_dev)
+  data     the device half of the fast input path (input functions, wire
+           layout, plane-resize taps) and synthetic wire batches
   models   ResNet-TSM backbone, flax-semantics BatchNorm, incremental heads,
            recognizer, builder, and the JAX <-> torch weight converter
-  losses   LSC/NCA, cross-entropy, soft-target CE, feature-KD
+  losses   LSC/NCA, cross-entropy, soft-target CE, ActorCutMix smoothing, feature-KD
   optim    the labeled 6-group SGD with torch-order updates and optax clip
-  runtime  train state and the ``base``-method CIL train step
+  runtime  train state, the CIL train step (base, icarl, icarl_video_mix;
+           optional input function) and its K-step form
   bench_block_fused  the block-fused bottleneck against the plain schedule
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``

@@ -5,6 +5,12 @@
                           temperature eta, margin, positive-excluded
                           denominator, hinge clamp
   * ``soft_target_ce``  — iCaRL CE on soft targets
+  * ``acm_smooth_targets``, ``acm_smooth_ce``
+                        — ActorCutMix label smoothing with
+                          lambda = 1 - (1 - fg_ratio)^alpha; the reference
+                          module returns +mean(sum y*log_softmax) (a sign
+                          bug): ``buggy_sign=True`` gives that literal
+                          behaviour, the default the negated iCaRL loss
   * ``feature_kd_loss`` — MSE feature distillation over tagged intermediates
                           with per-module weights and per-task scale,
                           optional exemplar-only masking
@@ -71,6 +77,39 @@ def soft_target_ce(
     """-mean over batch of sum_c y_c log_softmax(s)_c."""
     logp = torch.log_softmax(cls_score, dim=-1)
     return weighted_mean(-torch.sum(soft_targets * logp, dim=-1), weights)
+
+
+def acm_smooth_targets(
+    labels: torch.Tensor,
+    background_labels: torch.Tensor,
+    foreground_ratio: torch.Tensor,
+    num_classes: int,
+    alpha: float = 4.0,
+) -> torch.Tensor:
+    """lambda-mixed one-hot targets (B, classes): the action label weighted by
+    lambda = 1 - (1 - fg_ratio)^alpha, the background label by 1 - lambda.
+    A background label of -1 is read as 0 (fg_ratio is 1 there)."""
+    action = torch.nn.functional.one_hot(labels.long(), num_classes).float()
+    bg_labels = torch.where(background_labels == -1, 0, background_labels).long()
+    bg = torch.nn.functional.one_hot(bg_labels, num_classes).float()
+    lam = (1.0 - (1.0 - foreground_ratio.float()) ** alpha)[:, None]
+    return action * lam + (1.0 - lam) * bg
+
+
+def acm_smooth_ce(
+    cls_score: torch.Tensor,
+    labels: torch.Tensor,
+    background_labels: torch.Tensor,
+    foreground_ratio: torch.Tensor,
+    num_classes: int,
+    alpha: float = 4.0,
+    buggy_sign: bool = False,
+) -> torch.Tensor:
+    """CE on ``acm_smooth_targets``; ``buggy_sign`` keeps the reference
+    module's missing minus."""
+    y = acm_smooth_targets(labels, background_labels, foreground_ratio, num_classes, alpha)
+    loss = torch.mean(torch.sum(y * torch.log_softmax(cls_score, dim=-1), dim=-1))
+    return loss if buggy_sign else -loss
 
 
 def feature_kd_loss(

@@ -9,4 +9,11 @@ PyTorch version.
                conv3x3_affine_relu_stats, conv1x1_affine_relu_stats (kernels),
                fused_bottleneck_fwd, plain_bottleneck_fwd
   _build       nvcc build, ctypes loading, launch counts, CPU/CUDA dispatch
+
+The input path's ops hold no hand-written kernel; eager PyTorch on the
+batch's device:
+
+  augment           YUV420 decode, plane resize, normalize/flip/BGMix,
+                    ActorCutMix compositing, tube-CutMix, eval-wire crops
+  rand_augment_dev  the 15 RandAugment ops, grouped by op per round
 """

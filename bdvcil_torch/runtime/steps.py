@@ -1,26 +1,39 @@
-"""The CIL train step (port of the ``base`` branch of
-``bdvcil_tpu/runtime/steps.py``).
+"""The CIL train step (port of ``bdvcil_tpu/runtime/steps.py``).
 
-  * 'base' — loss_cls (CE or LSC/NCA) + per-module feature-KD MSE between the
-    current model's taps (train mode) and the previous model's (eval mode,
-    no gradient), from task 1 on.
+  * 'base'            — loss_cls (CE or LSC/NCA) + per-module feature-KD MSE
+                        between the current model's taps (train mode) and the
+                        previous model's (eval mode, no gradient), from task 1 on
+  * 'icarl'           — CE on soft targets: one-hot for new classes, the
+                        previous model's softmax for old-class samples;
+                        ActorCutMix lambda smoothing when the batch carries
+                        foreground_ratio
+  * 'icarl_video_mix' — tube-CutMix of the batch, then the iCaRL loss
 
-The step runs eagerly: forward, backward, then the labeled SGD update in
-place. ``icarl``, ``icarl_video_mix``, ``input_fn`` and the multi-dispatch
-variant are not ported yet.
+The step runs eagerly: the input function (when given), forward, backward,
+then the labeled SGD update in place. ``make_multi_train_step`` runs K steps
+per call.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..losses import cross_entropy, feature_kd_loss, lsc_nca_loss
+from ..losses import (
+    acm_smooth_targets,
+    cross_entropy,
+    feature_kd_loss,
+    lsc_nca_loss,
+    soft_target_ce,
+)
 from ..models.builder import ModelSpec
 from ..models.heads import head_param_path
+from ..ops.augment import draw_tubemix, tubemix
 from .train_state import TrainState
+
+METHODS = ("base", "icarl", "icarl_video_mix")
 
 
 def _squeeze_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -50,32 +63,37 @@ def make_train_step(
     task_idx: int = 0,
     prev_num_classes: int = 0,
     kd_config: Optional[Dict[str, Any]] = None,
+    video_mix: Optional[Dict[str, float]] = None,
+    input_fn: Optional[Callable] = None,
 ) -> Callable:
     """The train step for one task.
 
-    kd_config (task > 0): {'module_names', 'module_weights', 'scale_factor',
-    'exemplar_only'}.
+    kd_config ('base', task > 0): {'module_names', 'module_weights',
+    'scale_factor', 'exemplar_only'}. video_mix ('icarl_video_mix'):
+    {'alpha', 'prob'} of tube-CutMix.
 
     Returned step signature:
         step(state, prev_model, imgs, labels, extra, generator) -> (state, metrics)
-    imgs: (B, M, H, W, C); labels (B,) or (B, 1); extra: dict of optional
-    tensors ('sample_weight') — pass {} when unused; prev_model may be None
-    when KD is off; generator drives dropout and lives on the batch's device.
-    The state's module is updated in place. Metrics are device tensors.
+    imgs: (B, M, H, W, C), or with ``input_fn`` the wire batch that
+    ``input_fn(imgs)`` turns into it first (``data/device_pipeline.py``);
+    labels (B,) or (B, 1); extra: dict of optional tensors ('sample_weight',
+    and for 'icarl' with ActorCutMix 'foreground_ratio', 'background_label')
+    — pass {} when unused; prev_model may be None at task 0 or when KD is
+    off; generator (on the batch's device) drives dropout and, for
+    'icarl_video_mix', the tube-CutMix draws (taken first). The state's
+    module is updated in place. Metrics are device tensors.
     """
-    if method != "base":
-        raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP A.2)")
-    use_kd = kd_config is not None and task_idx > 0
+    if method not in METHODS:
+        # the JAX trainer maps 'oracle' and 'finetune' to 'base' before it
+        # builds a step; that mapping comes with the trainer
+        raise NotImplementedError(f"method {method!r} is not a step method {METHODS}; the "
+                                  f"CIL trainer's methods come with ROADMAP A.6")
+    if method == "icarl_video_mix" and video_mix is None:
+        raise ValueError("method 'icarl_video_mix' needs video_mix={'alpha', 'prob'}")
+    use_kd = method == "base" and kd_config is not None and task_idx > 0
+    use_prev_targets = method != "base" and task_idx > 0
 
-    def step(state: TrainState, prev_model, imgs, labels, extra, generator=None):
-        module = state.module
-        if head_param_path(module).num_classes != num_classes:
-            raise ValueError(f"the module's head has {head_param_path(module).num_classes} "
-                             f"classes, the step was built for {num_classes}")
-        labels = _squeeze_labels(labels)
-        sample_weights = extra.get("sample_weight")
-        module.zero_grad(set_to_none=True)
-
+    def base_loss(module, prev_model, imgs, labels, sample_weights, generator):
         out = module(imgs, train=True, generator=generator)
         cls_score = out["cls_score"][:, 0, :]
         loss_cls = _loss_cls(spec, cls_score, labels, module, sample_weights)
@@ -100,11 +118,89 @@ def make_train_step(
             total = total + kd["kd_loss"]
         else:
             metrics["kd_loss"] = torch.zeros((), device=total.device)
+        return total, metrics
+
+    def icarl_loss(module, prev_model, imgs, labels, extra, sample_weights, generator):
+        targets = torch.nn.functional.one_hot(labels.long(), num_classes).float()
+        if method == "icarl" and "foreground_ratio" in extra:
+            targets = acm_smooth_targets(labels, _squeeze_labels(extra["background_label"]),
+                                         extra["foreground_ratio"].float(), num_classes,
+                                         alpha=4.0)
+        if method == "icarl_video_mix":
+            b, _, h, w, _ = imgs.shape
+            draws = draw_tubemix(generator, b, h, w, video_mix["alpha"], video_mix["prob"],
+                                 device=imgs.device)  # on the generator's device if given
+            imgs, targets = tubemix(imgs, targets, **draws)
+        out = module(imgs, train=True, generator=generator)
+        # average_clips='score' in iCaRL: the raw score mean over clips
+        cls_score = out["cls_score"].mean(dim=1)
+        if use_prev_targets:
+            with torch.no_grad():
+                prev_scores = prev_model(imgs, train=False)["cls_score"].mean(dim=1)
+                prev_probs = torch.softmax(prev_scores, dim=-1)
+            is_old = (labels < prev_num_classes)[:, None]
+            targets = torch.where(is_old, prev_probs, targets)
+        loss = soft_target_ce(cls_score, targets, sample_weights)
+        return loss, {"loss_cls": loss, "kd_loss": torch.zeros((), device=loss.device)}
+
+    def step(state: TrainState, prev_model, imgs, labels, extra, generator=None):
+        module = state.module
+        if head_param_path(module).num_classes != num_classes:
+            raise ValueError(f"the module's head has {head_param_path(module).num_classes} "
+                             f"classes, the step was built for {num_classes}")
+        if input_fn is not None:
+            with torch.no_grad():
+                imgs = input_fn(imgs)
+        labels = _squeeze_labels(labels)
+        sample_weights = extra.get("sample_weight")
+        module.zero_grad(set_to_none=True)
+        if method == "base":
+            total, metrics = base_loss(module, prev_model, imgs, labels, sample_weights,
+                                       generator)
+        else:
+            total, metrics = icarl_loss(module, prev_model, imgs, labels, extra,
+                                        sample_weights, generator)
         total.backward()
         new_opt_state = tx.step(module, state.opt_state)
         metrics["loss"] = total
         metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(module=module, opt_state=new_opt_state, step=state.step + 1), metrics
 
+    step.needs_prev = use_kd or use_prev_targets
     return step
 
+
+def _slot(tree, k: int):
+    if isinstance(tree, dict):
+        return {key: v[k] for key, v in tree.items()}
+    return tree[k]
+
+
+def make_multi_train_step(step_kwargs: Dict[str, Any], steps_per_dispatch: int) -> Callable:
+    """K train steps per call, the counterpart of the JAX ``lax.scan``
+    super-step. Eager PyTorch has no dispatch to save, so this is a loop over
+    the single step, with its contract:
+
+        step(state, prev_model, imgs, labels, extra, generators) -> (state, metrics)
+
+    every tensor in ``imgs`` (a tensor or a wire dict), ``labels`` and
+    ``extra`` carries a leading ``steps_per_dispatch`` axis, one slot per
+    inner step; ``generators`` is a sequence of K generators, one per inner
+    step (or None). ``metrics`` are the last inner step's.
+    ``step_kwargs`` are :func:`make_train_step`'s keyword arguments.
+    """
+    if steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+    inner = make_train_step(**step_kwargs)
+
+    def multi(state, prev_model, imgs, labels, extra, generators: Optional[Sequence] = None):
+        if generators is not None and len(generators) != steps_per_dispatch:
+            raise ValueError(f"{len(generators)} generators for {steps_per_dispatch} steps")
+        metrics = {}
+        for k in range(steps_per_dispatch):
+            state, metrics = inner(state, prev_model, _slot(imgs, k), labels[k], _slot(extra, k),
+                                   None if generators is None else generators[k])
+        return state, metrics
+
+    multi.needs_prev = inner.needs_prev
+    return multi

@@ -11,6 +11,11 @@ hand-written kernels (the defaults reach none):
   B  shift_mode='fused_block'                        -> fused_residual_relu_shift
                                                         forward and backward
 
+The main path is fed by the device half of the fast input path: a yuv420
+wire batch (uint8 planes, RandAugment draws, BGMix and flip masks) goes
+through ``make_fast_input_fn`` (YCbCr -> RGB, RandAugment, normalize, flip,
+background blend; eager PyTorch, no hand-written kernel) inside the step.
+
 The other entry points, each with its own kernels:
 
   block  fused_bottleneck_fwd at TSM-R50 layer1 width (16 clips x 8 frames,
@@ -35,7 +40,20 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   4. train A and B at full width: 3 task-0 steps (26 classes), growth to 31,
      3 task-1 KD steps; launch counts, finite losses, moved parameters and
      updated running statistics; step times;
-  5. the block, gemm and shift paths, each with its launch counts set to 0
+  5. input: make_fast_input_fn on each wire format (rgb, yuv420, planes at
+     UCF101's stored 320x240) and make_fast_acm_input_fn on yuv420, at 16 x 8
+     x 224², under torch.cuda.set_sync_debug_mode("error"): the card against
+     the CPU on the first 4 clips, the uint8 stage bit for bit, the bf16
+     output within one bf16 ulp; the wire batch's H2D ms and bytes from
+     pinned memory, the input function's ms per batch;
+  6. train A fed by the input path: make_train_step(input_fn=make_fast_input_fn(
+     alpha=0.5, with_randaug=True, dtype=bf16, wire_format="yuv420")), 3
+     task-0 steps, growth, 3 task-1 KD steps with the checks of phase 4 and
+     #3's 192 launches; the input function's share of the step; then one
+     make_multi_train_step call with K = 2;
+  7. iCaRL: one small task-1 step of 'icarl' (ActorCutMix smoothing) and of
+     'icarl_video_mix' (tube-CutMix) on the card against the CPU;
+  8. the block, gemm and shift paths, each with its launch counts set to 0
      before and read after: outputs against the plain compositions, the
      block against the library-convolution block, chained ms per block.
 
@@ -99,6 +117,7 @@ GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 
 # the stride-1 bottlenecks of ResNet-50: (H = W, C, Cm); the first is layer1
 BLOCKS = [(56, 256, 64), (28, 512, 128), (14, 1024, 256), (7, 2048, 512)]
 BLOCK_ITERS = 20
+UCF_STORED = (320, 240)  # UCF101's stored frames (bench.py:305): the planes wire
 
 
 def r50_shapes():
@@ -536,12 +555,26 @@ def reference_phase(dev, seed):
     return out
 
 
-def train_phase(name, dev, seed, smi):
+def pinned_wire_batch(wire_format, seed, acm=False):
+    """A synthetic wire batch of 16 clips x 8 frames at 224², pinned; the
+    planes wire at UCF101's stored 320 x 240 (bench.py:305); RandAugment on
+    3/4 of the clips (bench.py:572), BGMix on the others."""
+    from bdvcil_torch.data import device_pipeline as dp
+    from bdvcil_torch.data.synthetic import wire_batch
+
+    return dp.pin_batch(wire_batch(wire_format, BATCH, SEGMENTS, SIZE, seed=seed,
+                                   stored=UCF_STORED, acm=acm))
+
+
+def train_phase(name, dev, seed, smi, fed=False):
+    """3 task-0 steps, growth, 3 task-1 KD steps at full width; with ``fed``
+    the steps take the yuv420 wire batch through the main input function."""
     from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.data import device_pipeline as dp
     from bdvcil_torch.models import build_model, init_model_params, update_fc
     from bdvcil_torch.ops import _build
     from bdvcil_torch.optim import build_optimizer
-    from bdvcil_torch.runtime import TrainState, make_train_step
+    from bdvcil_torch.runtime import TrainState, make_multi_train_step, make_train_step
 
     backbone = presets.SWITCHES[name]
     nc0 = presets.HMDB51_BASE_CLASSES
@@ -550,7 +583,13 @@ def train_phase(name, dev, seed, smi):
                        device=dev)
     model = init_model_params(spec, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    imgs = torch.randn((BATCH, SEGMENTS, SIZE, SIZE, 3), generator=gen, device=dev)
+    if fed:  # the main path's input function (bench.py:554-598 on the yuv420 wire)
+        input_fn = dp.make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
+                                         wire_format="yuv420")
+        imgs = dp.batch_to_device(pinned_wire_batch("yuv420", seed), dev)
+    else:
+        input_fn = None
+        imgs = torch.randn((BATCH, SEGMENTS, SIZE, SIZE, 3), generator=gen, device=dev)
     labels0 = torch.randint(0, nc0, (BATCH,), generator=gen, device=dev)
     labels1 = torch.randint(0, nc1, (BATCH,), generator=gen, device=dev)
     drop = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -559,7 +598,7 @@ def train_phase(name, dev, seed, smi):
 
     tx = build_optimizer(model, presets.OPTIMIZER, presets.LR_SCHEDULER, steps_per_epoch=100)
     state = TrainState.create(model, tx)
-    step0 = make_train_step(spec, tx, nc0)
+    step0 = make_train_step(spec, tx, nc0, input_fn=input_fn)
     torch.cuda.reset_peak_memory_stats(dev)
     _build.LAUNCHES.clear()
     records = []
@@ -587,8 +626,9 @@ def train_phase(name, dev, seed, smi):
                           steps_per_epoch=100, grad_clip=presets.GRAD_CLIP)
     state = TrainState.create(state.module, tx1)
     kd = presets.kd_config(nc1, nc1 - nc0)
-    step1 = make_train_step(spec, tx1, nc1, task_idx=1,
-                            prev_num_classes=nc0, kd_config=kd)
+    step_kw = dict(spec=spec, tx=tx1, num_classes=nc1, task_idx=1, prev_num_classes=nc0,
+                   kd_config=kd, input_fn=input_fn)
+    step1 = make_train_step(**step_kw)
     for _ in range(3):
         run("task1", step1, prev, labels1)
     launches = dict(_build.LAUNCHES)
@@ -607,17 +647,142 @@ def train_phase(name, dev, seed, smi):
     t0 = statistics.median(r["ms"] for r in records[1:3])
     t1 = statistics.median(r["ms"] for r in records[4:6])
     result = dict(
-        config=name, backbone=backbone, launches=launches, steps=records,
+        config=name, backbone=backbone, fed=fed, launches=launches, steps=records,
         task0_step_ms=t0, task1_step_ms=t1,
         task0_clips_per_s=BATCH / (t0 / 1e3), task1_clips_per_s=BATCH / (t1 / 1e3),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
     )
-    print(f"train {name} {backbone}: task-0 step {t0:.2f} ms ({result['task0_clips_per_s']:.2f} "
+    tag = f"train {name}{' fed by make_fast_input_fn(yuv420)' if fed else ''} {backbone}"
+    print(f"{tag}: task-0 step {t0:.2f} ms ({result['task0_clips_per_s']:.2f} "
           f"clips/s), task-1 KD step {t1:.2f} ms ({result['task1_clips_per_s']:.2f} clips/s), "
           f"peak {result['peak_mem_gib']:.1f} GiB, launches {launches} [{smi}]", flush=True)
+    if fed:
+        with torch.no_grad():
+            in_ms = cuda_ms(lambda: input_fn(imgs), reps=5)
+        # K = 2 inner steps in one call, each slot its own copy of the batch
+        multi = make_multi_train_step(step_kw, 2)
+        stacked = {k: torch.stack([v, v]) for k, v in imgs.items()}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, m = multi(state, prev, stacked, torch.stack([labels1, labels1]), {}, [drop, drop])
+        torch.cuda.synchronize()
+        multi_ms = (time.perf_counter() - start) * 1e3
+        if state.step != 5 or not all(math.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"multi-step K=2: step {state.step}, metrics {m}")
+        result.update(input_fn_ms=in_ms, input_share_task0=in_ms / t0, input_share_task1=in_ms / t1,
+                      multi_k2_ms=multi_ms, multi_k2_loss=float(m["loss"]))
+        print(f"{tag}: input function {in_ms:.3f} ms per batch, {100 * in_ms / t0:.1f}% of the "
+              f"task-0 step, {100 * in_ms / t1:.1f}% of the task-1 step; make_multi_train_step "
+              f"K=2 one call {multi_ms:.2f} ms, loss {float(m['loss']):.4f} [{smi}]", flush=True)
     del state, prev, model
     torch.cuda.empty_cache()
     return result
+
+
+def input_phase(dev, seed, smi):
+    """Each input function on the card against the CPU (the first 4 clips),
+    with no device-to-host sync; H2D and per-batch times."""
+    from bdvcil_torch.data import device_pipeline as dp
+
+    # the same masks and RandAugment draws for every wire format
+    cases = [(f"make_fast_input_fn {fmt}", fmt, False) for fmt in dp.WIRE_FORMATS]
+    cases.append(("make_fast_acm_input_fn yuv420", "yuv420", True))
+    out = {}
+    for name, fmt, acm in cases:
+        host = pinned_wire_batch(fmt, seed, acm)
+        if acm:
+            fn = dp.make_fast_acm_input_fn(dtype=torch.bfloat16, wire_format=fmt)
+        else:
+            fn = dp.make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
+                                       wire_format=fmt)
+        nbytes = sum(v.numel() * v.element_size() for k, v in host.items()
+                     if k not in dp.HOST_KEYS)
+        dp.batch_to_device(host, dev)  # warm-up: the allocator's first blocks
+        torch.cuda.synchronize()
+        h2d = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            batch = dp.batch_to_device(host, dev)
+            end.record()
+            end.synchronize()
+            h2d.append(start.elapsed_time(end))
+        with torch.no_grad():
+            torch.cuda.set_sync_debug_mode("error")  # any hidden sync raises
+            try:
+                got, got_u8 = fn(batch), fn.uint8_stage(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            cpu = {k: v[:4] for k, v in host.items()}
+            ref, ref_u8 = fn(cpu), fn.uint8_stage(cpu)
+            pairs = (zip(got_u8, ref_u8) if isinstance(got_u8, tuple) else [(got_u8, ref_u8)])
+            for g, r in pairs:
+                if g is not None and not torch.equal(g[:4].cpu(), r):
+                    raise AssertionError(f"input {name}: the uint8 stage differs from the CPU's")
+            g = got[:4].float().cpu()
+            err = (g - ref.float()).abs()
+            if got.shape != (BATCH, SEGMENTS, SIZE, SIZE, 3) or got.dtype != torch.bfloat16:
+                raise AssertionError(f"input {name}: {tuple(got.shape)} {got.dtype}")
+            if not bool(torch.isfinite(got.float()).all()) or not bool(
+                    (err <= bf16_ulp(ref.float())).all()):
+                raise AssertionError(f"input {name}: off the CPU by more than one bf16 ulp "
+                                     f"(max {float(err.max())})")
+            ms = cuda_ms(lambda: fn(batch), reps=5)
+            # its parts: the wire decoded to RGB, then RandAugment (and for
+            # ACM the composite), then the float stage
+            decode_ms = cuda_ms(lambda: dp.decode_wire(batch, "imgs", fmt), reps=5)
+            u8_ms = cuda_ms(lambda: fn.uint8_stage(batch), reps=5)
+        out[name] = dict(wire_bytes=nbytes, h2d_ms=statistics.median(h2d), input_fn_ms=ms,
+                         decode_imgs_ms=decode_ms, uint8_stage_ms=u8_ms,
+                         max_abs_err_vs_cpu=float(err.max()), differing_vs_cpu=int((err > 0).sum()),
+                         randaug_clips=int(host["apply_randaug"].sum()))
+        print(f"input {name}: wire {nbytes / 1e6:.2f} MB, H2D {out[name]['h2d_ms']:.3f} ms "
+              f"(pinned), input function {ms:.3f} ms per batch (16 x 8 x 224², bf16 out; "
+              f"uint8 stage {u8_ms:.3f}, of it the clips' decode {decode_ms:.3f}), "
+              f"card vs CPU on 4 clips: uint8 stage equal, bf16 max abs err {float(err.max())}, "
+              f"no device sync [{smi}]", flush=True)
+        del host, batch, got, got_u8
+    torch.cuda.empty_cache()
+    return out
+
+
+def icarl_reference_phase(dev, seed):
+    """One small task-1 step of each iCaRL method on the card against the CPU:
+    'icarl' with ActorCutMix smoothing, 'icarl_video_mix' with tube-CutMix
+    (draws from a CPU generator, the same on both sides); soft targets from
+    the previous model for the old classes (label < 3)."""
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch import optim, runtime
+    from bdvcil_torch.models import builder
+
+    cfg = presets.hmdb51_r50_cfg(5, SEGMENTS, dropout_ratio=0.0, **presets.SWITCHES["A"])
+    x = torch.randn((2, SEGMENTS, 64, 64, 3), generator=torch.Generator().manual_seed(seed))
+    y = torch.tensor([1, 3])
+    acm = dict(foreground_ratio=torch.tensor([0.3, 0.9]), background_label=torch.tensor([[2], [-1]]))
+    out = {}
+    for method, extra, video_mix in (("icarl", acm, None),
+                                     ("icarl_video_mix", {}, dict(alpha=1.0, prob=1.0))):
+        losses = {}
+        for where in ("cpu", dev):
+            spec = builder.build_model(cfg, dtype=torch.bfloat16, device=where)
+            model = builder.init_model_params(spec, seed)
+            prev = copy.deepcopy(model)
+            tx = optim.build_optimizer(model, presets.OPTIMIZER)
+            step = runtime.make_train_step(spec, tx, 5, method=method, task_idx=1,
+                                           prev_num_classes=3, video_mix=video_mix)
+            _, m = step(runtime.TrainState.create(model, tx), prev, x.to(where), y.to(where),
+                        {k: v.to(where) for k, v in extra.items()},
+                        torch.Generator().manual_seed(seed))
+            losses[str(torch.device(where).type)] = float(m["loss"])
+        rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        if not math.isfinite(losses["cuda"]) or rel > 3e-2:
+            raise AssertionError(f"{method}: card loss {losses['cuda']} vs CPU {losses['cpu']} "
+                                 f"(rel {rel})")
+        out[method] = dict(losses, rel_diff=rel)
+        print(f"reference {method} (task 1, config A): loss card {losses['cuda']} cpu "
+              f"{losses['cpu']} rel {rel}", flush=True)
+    return out
 
 
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
@@ -685,14 +850,22 @@ def main(argv=None) -> int:
         if got != want:
             raise AssertionError(f"config {name}: kernel launches {got}, expected {want}")
 
+    inputs = input_phase(dev, args.seed, smi)
+    fed = train_phase("A", dev, args.seed, smi, fed=True)
+    got = {k: v for k, v in fed["launches"].items() if v}
+    if got != expected_launches("A", gemms=sum(gemm_shapes.values())):
+        raise AssertionError(f"config A fed by the input path: kernel launches {got}")
+    icarl = icarl_reference_phase(dev, args.seed)
+
     block = block_path(dev, args.seed, smi)
     gemm_launches = gemm_path(dev, gen)
     shift_launches = shift_path(dev, gen, shift_shapes)
     print(f"gemm path launches {gemm_launches}, shift path launches {shift_launches}",
           flush=True)
 
-    launches = {**trains["A"]["launches"], **trains["B"]["launches"], **block["launches"],
-                **gemm_launches, **shift_launches}
+    # the main path is config A fed by the input path: its run gives #3's count
+    launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
+                **block["launches"], **gemm_launches, **shift_launches}
     kernels = []
     for kname, (source, replaces, library_call) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -717,10 +890,12 @@ def main(argv=None) -> int:
     outdir.mkdir(exist_ok=True)
     detail = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
-                  train=trains, block=block, kernels=kernels,
+                  train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
+                  kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): a task-0 train "
-                       "forward for #1-#3 (backward for _bwd), one call per shape for "
+                       "forward for #1-#3 (backward for _bwd; #3's launches from config A fed by "
+                       "the input path), one call per shape for "
                        "gemm_with_stats and temporal_shift (forward and reverse), one layer1 "
                        "block forward for the block kernels; kernel_rows are per launch. "
                        "library_ms: the call that library_call names; for #7 and #8 it leaves "

@@ -91,7 +91,7 @@ def test_unported_options_raise():
         build_optimizer(model, dict(type="SGD", lr=0.1), accumulate_steps=2)
     tx = build_optimizer(model, dict(type="SGD", lr=0.1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(spec, tx, 3, method="icarl")
+        make_train_step(spec, tx, 3, method="finetune")
 
 
 def _run_smoke(cwd):

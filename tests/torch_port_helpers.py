@@ -6,6 +6,8 @@ package's variables go to the port through ``models/convert.py``.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import numpy as np
 import torch
@@ -74,3 +76,50 @@ def model_cfg(depth: int, shift_mode: str, conv1x1_mode: str, num_classes: int,
 
 def to_torch(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def jax_randaug_draws(keys, n: int, h: int, w: int):
+    """The per-clip RandAugment draws the JAX package derives from raw uint32
+    keys (bdvcil_tpu/ops/rand_augment_dev.py:459-465), as numpy arrays:
+    op_indices (B, n) int64, flip_sign (B,) bool, x0, y0 (B,) f32."""
+    return [np.array(a) for a in _jax_draws(jax.numpy.asarray(keys), n, h, w)]
+
+
+@functools.partial(jax.jit, static_argnames=("n", "h", "w"))
+def _jax_draws(keys, n, h, w):
+    def clip_params(key):
+        k_ops, k_sign, k_x, k_y = jax.random.split(key, 4)
+        op_indices = jax.random.randint(k_ops, (n,), 0, 15)
+        flip_sign = jax.random.uniform(k_sign) > 0.5
+        x0 = jax.random.uniform(k_x, (), minval=0.0, maxval=float(w))
+        y0 = jax.random.uniform(k_y, (), minval=0.0, maxval=float(h))
+        return op_indices.astype(jax.numpy.int32), flip_sign, x0, y0
+
+    return jax.vmap(clip_params)(keys)
+
+
+def jax_tubemix_draws(key, b: int, h: int, w: int, alpha: float, prob: float):
+    """The draws JAX's tubemix makes from ``key`` (bdvcil_tpu/ops/augment.py:
+    198-203, 170-179), in the form the port's ``tubemix`` takes them."""
+    from bdvcil_tpu.ops.augment import rand_bbox
+
+    k_apply, k_perm, k_beta, k_box = jax.random.split(key, 4)
+    apply = jax.random.uniform(k_apply) > 1.0 - prob
+    perm = jax.random.permutation(k_perm, b)
+    lam0 = jax.random.beta(k_beta, alpha, alpha)
+    box = rand_bbox(k_box, h, w, lam0)
+    return dict(apply=torch.tensor(bool(apply)), perm=torch.from_numpy(np.array(perm)),
+                box=torch.tensor([int(v) for v in box]))
+
+
+def grow_like_jax(model, jtree, nc0: int, nc1: int):
+    """The port's update_fc to ``nc1`` classes, then the grown rows copied from
+    the JAX variables ``jtree`` (numpy leaves), so both sides hold the same head."""
+    from bdvcil_torch.models import update_fc
+
+    update_fc(model, nc1, torch.Generator().manual_seed(0))
+    ref = from_jax_variables(jtree)
+    with torch.no_grad():
+        for name, p in model.cls_head.named_parameters():
+            if p.shape[0] == nc1:
+                p[nc0:] = ref[f"cls_head.{name}"][nc0:]
