@@ -11,14 +11,19 @@ Layout:
            bottleneck forward; each hand-written CUDA kernel (``csrc/``)
            beside its plain PyTorch version; the input path's eager ops
            (augment, rand_augment_dev)
-  data     the device half of the fast input path (input functions, wire
-           layout, plane-resize taps) and synthetic wire batches
+  data     the fast input path: the loaders and the native JPEG decoder
+           binding (host half), the input functions and wire layout
+           (device half), SampleFrames, a synthetic JPEG corpus writer and
+           synthetic wire batches
   models   ResNet-TSM backbone, flax-semantics BatchNorm, incremental heads,
            recognizer, builder, and the JAX <-> torch weight converter
   losses   LSC/NCA, cross-entropy, soft-target CE, ActorCutMix smoothing, feature-KD
   optim    the labeled 6-group SGD with torch-order updates and optax clip
   runtime  train state, the CIL train step (base, icarl, icarl_video_mix;
-           optional input function) and its K-step form
+           optional input function) and its K-step form, the epoch loop
+           (train_epochs, prefetch_to_device), checkpoints and snapshots
+  utils    the throughput meter
+  bench_train        end-to-end train throughput from JPEG frames on disk
   bench_block_fused  the block-fused bottleneck against the plain schedule
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``

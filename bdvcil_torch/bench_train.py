@@ -1,0 +1,240 @@
+"""End-to-end training throughput of the port on one card: JPEG rawframes on
+disk -> the native decode pool -> the yuv420 wire -> pinned host memory and
+an asynchronous copy -> the input function inside the step -> TSM-R50 at 16
+clips x 8 frames x 224², bf16, LSC head, labeled SGD, K steps per call (the
+main path of ``bench.py:530-660``).
+
+The corpus is ``data/corpus.py``'s UCF101-shaped one (64 videos of 16
+frames, 320 x 240, backgrounds by temporal median), written once under
+``--corpus``. ``FastBGMixLoader`` (wire 'auto', RandAugment on 3/4 of the
+clips, BGMix on the rest) feeds ``make_multi_train_step`` through the train
+loop's prefetch thread (``runtime/loops.py``: pinned staging, side-stream
+copy, event). After ``--warmup`` calls, ``--windows`` windows of ``--steps``
+steps each are timed on the host clock, each ending in a synchronize; the
+value is the median window's clips/s.
+
+Printed, as one JSON line: the metric, its value and unit, the
+configuration, K, the window rates, wall times and producer waits (seconds
+the step loop waited for input), ``device_clips_per_sec`` (the same step on
+one staged chunk that stays on the card: the rate without the host),
+``host_decode_frames_per_sec`` (the decode pool alone at the bench's
+geometry), the host's CPU count, the loader's source, and the card's name
+and power limit.
+
+    python -m bdvcil_torch.bench_train --config A [--k 8] [--source jpeg|synthetic]
+
+``--source jpeg`` (the default) raises when the native decoder cannot be
+built; ``--source synthetic`` measures on in-memory wire batches instead and
+says so. ``--device cpu`` with small shapes rehearses it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from . import config_templates as presets
+from ._device import resolve_device
+from .data import corpus, native
+from .data.device_pipeline import make_fast_input_fn
+from .data.loaders import FastBGMixLoader
+from .data.synthetic import SyntheticWireLoader
+from .models import build_model, init_model_params
+from .optim import build_optimizer
+from .runtime import TrainState, make_multi_train_step, make_train_step
+from .runtime.loops import (
+    copy_to_device,
+    prefetch_to_device,
+    side_stream,
+    split_batch,
+    stage_batches,
+    step_generator,
+    wait_copied,
+)
+from .utils import Throughput
+
+METRIC = "e2e_train_clips_per_sec_tsm_r50_8x224"
+NUM_CLASSES = 51  # bench.py's head
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the card, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def host_cpus() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # not Linux
+        return os.cpu_count() or 1
+
+
+def make_loader(args):
+    """(loader, video_infos): the JPEG corpus through ``FastBGMixLoader``, or
+    (the in-memory synthetic loader, None)."""
+    if args.source == "synthetic":
+        return SyntheticWireLoader(args.videos, args.batch, args.segments, args.size, seed=0), None
+    if not native.available():
+        raise RuntimeError(f"native decoder unavailable: {native.build_error()} "
+                           f"(--source synthetic measures without it)")
+    infos, bg_files = corpus.write_corpus(args.corpus, args.videos, args.frames, seed=0,
+                                          num_classes=NUM_CLASSES)
+    loader = FastBGMixLoader(infos, bg_files, batch_size=args.batch, num_segments=args.segments,
+                             crop_size=args.size, randaug_prob=0.75, seed=0, drop_last=True,
+                             prefetch=2, num_workers=1, wire_format="auto")
+    return loader, infos
+
+
+def host_decode_rate(infos, size: int, frames: int) -> float:
+    """Frames/s of the decode pool alone, cold: the decoded-plane cache
+    cleared, then every frame of up to 8 videos decoded, short-side resized
+    and cropped to ``size`` on up to 8 threads. (``bench.py:666-675`` decodes
+    one video's frames 8 times, which the plane cache then serves.)"""
+    paths = [os.path.join(info["frame_dir"], corpus.FILENAME_TMPL.format(t))
+             for info in infos[:8] for t in range(1, frames + 1)]
+    native.decode_cache_clear()
+    t0 = time.perf_counter()
+    native.decode_resize_crop_batch(paths, int(round(size / 0.875)), size, size,
+                                    num_threads=min(8, host_cpus()))
+    return len(paths) / (time.perf_counter() - t0)
+
+
+def run(args) -> dict:
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    loader, infos = make_loader(args)
+    cfg = presets.hmdb51_r50_cfg(NUM_CLASSES, args.segments, **presets.SWITCHES[args.config])
+    cfg["backbone"]["depth"] = args.depth
+    cfg["cls_head"]["in_channels"] = 2048 if args.depth >= 50 else 512
+    spec = build_model(cfg, dtype=torch.bfloat16, device=device)
+    model = init_model_params(spec, 0)
+    tx = build_optimizer(model, presets.OPTIMIZER, steps_per_epoch=100)
+    input_fn = make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
+                                  wire_format=loader.wire_format)
+    k = args.k
+    step_kwargs = dict(spec=spec, tx=tx, num_classes=NUM_CLASSES, method="base",
+                       input_fn=input_fn)
+    step = make_multi_train_step(step_kwargs, k) if k > 1 else make_train_step(**step_kwargs)
+    state = TrainState.create(model, tx)
+    stream = side_stream(device)
+
+    def prepare(items):
+        return copy_to_device(stage_batches(items, cuda, stack=k > 1), device, stream)
+
+    def chunks(src):  # whole chunks only; they may span epochs
+        while True:
+            items = list(itertools.islice(src, k))
+            if len(items) < k:
+                return
+            yield items
+
+    per_window = -(-args.steps // k)  # calls per window
+    calls = args.warmup + args.windows * per_window + 1
+    epochs = -(-calls * k // len(loader)) + 1
+    meter = Throughput()
+    stream_it = prefetch_to_device(chunks(iter(loader.iter_epochs(0, epochs))), size=2,
+                                   put_fn=prepare, meter=meter)
+    done = 0  # steps so far: the step generators' index
+
+    def call(staged):
+        nonlocal state, done
+        imgs, labels, extra = split_batch(wait_copied(*staged, device))
+        gens = [step_generator(0, done + j, device) for j in range(k)]
+        state, metrics = step(state, None, imgs, labels, extra, gens if k > 1 else gens[0])
+        done += k
+        return metrics
+
+    t0 = time.perf_counter()
+    for _ in range(args.warmup):
+        call(next(stream_it))
+    sync()
+    warm_s = time.perf_counter() - t0
+    rates, walls, waits, losses = [], [], [], []
+    for _ in range(args.windows):
+        wait0 = meter.wait_s
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            metrics = call(next(stream_it))
+        sync()
+        walls.append(time.perf_counter() - t0)
+        waits.append(meter.wait_s - wait0)
+        rates.append(per_window * k * args.batch / walls[-1])
+        losses.append(float(metrics["loss"]))
+
+    # the step alone: one staged chunk kept on the card, called again and again
+    staged = next(stream_it)
+    stream_it.close()
+    call(staged)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(args.device_calls):
+        call(staged)
+    sync()
+    device_rate = args.device_calls * k * args.batch / (time.perf_counter() - t0)
+
+    result = {
+        "metric": METRIC,
+        "value": statistics.median(rates),
+        "unit": "clips/s",
+        "config": args.config,
+        "backbone": presets.SWITCHES[args.config],
+        "k": k,
+        "window_rates": rates,
+        "window_min": min(rates),
+        "window_wall_s": walls,
+        "window_producer_wait_s": waits,
+        "producer_wait_s": sum(waits),
+        "warm_s": warm_s,
+        "device_clips_per_sec": device_rate,
+        "host_decode_frames_per_sec": (None if infos is None
+                                       else host_decode_rate(infos, args.size, args.frames)),
+        "host_cpus": host_cpus(),
+        "source": "synthetic" if infos is None else "jpeg",
+        "wire_format": loader.wire_format,
+        "losses": losses,
+        "shape": dict(batch=args.batch, segments=args.segments, size=args.size,
+                      depth=args.depth, videos=args.videos),
+        "device": torch.cuda.get_device_name(device) if cuda else str(device),
+        "card": card_line() if cuda else None,
+    }
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss in the windows: {losses}")
+    return result
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", choices=sorted(presets.SWITCHES), default="A")
+    parser.add_argument("--k", type=int, default=8, help="steps per call")
+    parser.add_argument("--source", choices=("jpeg", "synthetic"), default="jpeg")
+    parser.add_argument("--device", default=None, help="default: the card")
+    parser.add_argument("--corpus", default="work_dirs/bench_train_corpus")
+    parser.add_argument("--videos", type=int, default=64)
+    parser.add_argument("--frames", type=int, default=16, help="frames per video")
+    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--segments", type=int, default=8)
+    parser.add_argument("--size", type=int, default=224)
+    parser.add_argument("--depth", type=int, default=50)
+    parser.add_argument("--warmup", type=int, default=3, help="calls before the windows")
+    parser.add_argument("--windows", type=int, default=5)
+    parser.add_argument("--steps", type=int, default=40, help="steps per window")
+    parser.add_argument("--device-calls", type=int, default=3)
+    args = parser.parse_args(argv)
+    print(json.dumps(run(args)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

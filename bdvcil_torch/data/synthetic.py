@@ -1,5 +1,6 @@
 """Synthetic wire batches in the layout of ``device_pipeline`` (numpy, from a
-seed), for the tests, ``chip_smoke.py`` and rehearsals without a corpus.
+seed), for the tests, ``chip_smoke.py`` and rehearsals without a corpus, and
+``SyntheticWireLoader``, a loader of them.
 
 Pixels are smooth-ish clips (a per-clip base colour plus bounded noise, so
 AutoContrast and Equalize have real work). The 'planes' wire ships stored
@@ -89,6 +90,15 @@ def wire_batch(wire_format: str, b: int, t: int, size: int, seed: int = 0,
         out.update(_stream(rng, "scene", wire_format, (b, t), size, stored))
     elif with_bg:
         out.update(_stream(rng, "bg", wire_format, (b,), size, stored))
+    out.update(wire_masks(b, t, size, seed, with_bg, acm))
+    return out
+
+
+def wire_masks(b: int, t: int, size: int, seed: int = 0, with_bg: bool = True,
+               acm: bool = False) -> Dict[str, np.ndarray]:
+    """The keys of ``wire_batch`` other than the pixels: masks, labels (and
+    the ActorCutMix fields), the RandAugment draws."""
+    out: Dict[str, np.ndarray] = {}
     rng = np.random.default_rng([seed, 1])  # masks and labels: the same for every wire format
     if acm:
         apply_acm = rng.random(b) < 0.5
@@ -109,3 +119,47 @@ def wire_batch(wire_format: str, b: int, t: int, size: int, seed: int = 0,
     draws = draw_randaug(torch.Generator().manual_seed(seed), b, 2, size, size)
     out.update({k: v.numpy() for k, v in draws.items()})
     return out
+
+
+class SyntheticWireLoader:
+    """An in-memory loader with the fast train loaders' interface
+    (``__len__``, ``set_epoch``, ``__iter__``, ``iter_epochs``,
+    ``wire_format``) of BGMix wire batches, each a pure function of (seed,
+    epoch, batch index). It stands in for ``loaders.FastBGMixLoader`` where
+    the native decoder cannot be built. Making pixels costs more than the
+    step on the card, so the pixels cycle through ``POOL`` batches made once;
+    the masks, labels and RandAugment draws are drawn anew for every batch
+    (``wire_masks``), so the device does the same work as on decoded
+    frames."""
+
+    POOL = 4
+
+    def __init__(self, num_videos: int, batch_size: int, num_segments: int = 8,
+                 crop_size: int = 224, seed: int = 0, wire_format: str = "yuv420"):
+        self.num_videos, self.batch_size = num_videos, batch_size
+        self.num_segments, self.crop_size = num_segments, crop_size
+        self.seed, self.wire_format = seed, wire_format
+        self.epoch = 0
+        masks = set(wire_masks(1, 1, crop_size))
+        self._pixels = [
+            {k: v for k, v in wire_batch(wire_format, batch_size, num_segments, crop_size,
+                                         seed=seed * self.POOL + j).items() if k not in masks}
+            for j in range(self.POOL)]
+
+    def __len__(self) -> int:
+        return self.num_videos // self.batch_size
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _batch(self, epoch: int, i: int) -> Dict[str, np.ndarray]:
+        seed = int(np.random.SeedSequence([self.seed, epoch, i]).generate_state(1)[0])
+        return {**self._pixels[(epoch * len(self) + i) % self.POOL],
+                **wire_masks(self.batch_size, self.num_segments, self.crop_size, seed)}
+
+    def __iter__(self):
+        return (self._batch(self.epoch, i) for i in range(len(self)))
+
+    def iter_epochs(self, first_epoch: int, num_epochs: int):
+        return (self._batch(e, i) for e in range(first_epoch, first_epoch + num_epochs)
+                for i in range(len(self)))

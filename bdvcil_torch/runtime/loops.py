@@ -1,0 +1,300 @@
+"""The epoch loop of training (the port of ``prefetch_to_device`` and
+``train_epochs``, ``bdvcil_tpu/runtime/loops.py:33-332``).
+
+Input reaches the card off the critical path. A prefetch thread takes the
+loader's batches (K of them at a time for the K-step form), copies them into
+one pinned buffer per key and per item (``stage_batches``; torch copies
+release the GIL while the decode pool runs, where ``np.stack`` would hold
+it), issues one asynchronous copy per key on a side stream and records an
+event (``copy_to_device``). The consumer makes the compute stream wait on
+that event and marks each tensor as used there (``record_stream``), so the
+allocator keeps its memory until the step's kernels are done
+(``wait_copied``). ``HOST_KEYS`` (RandAugment's draws and mask) stay on the
+host. On the CPU the same path runs without pinning, streams or events.
+
+Random draws in a step (dropout, tube-CutMix) come from a generator made from
+(run seed, step) (``step_generator``): a resumed run needs only its seed and
+step count, and K steps in one dispatch draw exactly what K single steps do.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..data.device_pipeline import HOST_KEYS
+from ..utils import Throughput
+
+logger = logging.getLogger("bdvcil.runtime")
+
+EXTRA_KEYS = ("foreground_ratio", "background_label", "sample_weight")
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step ``step`` of a run seeded ``seed``, on ``device``."""
+    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    return g
+
+
+def stage_batches(batches: Sequence[Mapping], pin: bool, stack: bool) -> Dict[str, torch.Tensor]:
+    """Loader batches (dicts of arrays) as host tensors: with ``stack`` the K
+    batches as one (K, ...) tensor per key, else the one batch. Every key
+    but ``HOST_KEYS`` goes into a new pinned buffer when ``pin``; the copies
+    are torch copies, which release the GIL."""
+    out = {}
+    for key in batches[0]:
+        parts = [torch.as_tensor(b[key]) for b in batches]
+        if len({p.shape for p in parts}) != 1:
+            raise ValueError(
+                f"a chunk of {len(parts)} batches has {key!r} of shapes "
+                f"{sorted({tuple(p.shape) for p in parts})}: the K-step form needs uniform "
+                f"batches (loader drop_last=True or pad_to_batch)")
+        if key in HOST_KEYS or not pin:
+            out[key] = torch.stack(parts) if stack else parts[0]
+            continue
+        shape = (len(parts), *parts[0].shape) if stack else parts[0].shape
+        buf = torch.empty(shape, dtype=parts[0].dtype, pin_memory=True)
+        for i, p in enumerate(parts):
+            (buf[i] if stack else buf).copy_(p)
+        out[key] = buf
+    return out
+
+
+def copy_to_device(tree: Mapping[str, torch.Tensor], device: torch.device,
+                   stream: Optional["torch.cuda.Stream"]):
+    """Every key but ``HOST_KEYS`` on ``device``: asynchronous copies on
+    ``stream`` and an event recorded after them, or plain copies (event None)
+    without a stream. The caller may drop the pinned sources at once:
+    PyTorch's pinned-memory allocator records each asynchronous copy and
+    hands the buffer out again only after it has finished."""
+    if stream is None:
+        return {k: v if k in HOST_KEYS else v.to(device) for k, v in tree.items()}, None
+    with torch.cuda.stream(stream):
+        out = {k: v if k in HOST_KEYS else v.to(device, non_blocking=True)
+               for k, v in tree.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+    return out, event
+
+
+def wait_copied(tree: Mapping[str, torch.Tensor], event, device: torch.device):
+    """The consumer's side of ``copy_to_device``: the current stream waits on
+    the copies' event, and each copied tensor is marked as used on it."""
+    if event is None:
+        return dict(tree)
+    current = torch.cuda.current_stream(device)
+    current.wait_event(event)
+    for v in tree.values():
+        if v.is_cuda:
+            v.record_stream(current)
+    return dict(tree)
+
+
+def side_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:
+    """The copy stream for ``device`` (None off the card)."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def prefetch_to_device(iterable, size: int = 2, put_fn: Optional[Callable] = None,
+                       meter: Optional[Throughput] = None):
+    """Iterate ``iterable`` through a background thread that applies
+    ``put_fn`` ahead of the consumer, at most ``size`` items ahead. Order is
+    kept; an exception in the thread is raised in the consumer; a consumer
+    that stops early stops the thread (and closes ``iterable``). ``put_fn``
+    defaults to passing items as they are. The seconds the consumer waits for
+    an item are added to ``meter`` (``Throughput.add_wait``)."""
+    put_fn = put_fn or (lambda item: item)
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
+    sentinel = object()
+    stop = threading.Event()
+    err: List[BaseException] = []
+
+    def offer(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not offer(put_fn(item)):
+                    return
+        except BaseException as e:  # noqa: BLE001 -- raised again in the consumer
+            err.append(e)
+        finally:
+            close = getattr(iterable, "close", None)
+            if stop.is_set() and close is not None:
+                close()
+            offer(sentinel)
+
+    th = threading.Thread(target=worker, daemon=True, name="bdvc-device-prefetch")
+    th.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            while True:
+                try:  # timed: signal handlers still run between waits
+                    item = q.get(timeout=0.25)
+                    break
+                except queue.Empty:
+                    continue
+            if meter is not None:
+                meter.add_wait(time.perf_counter() - t0)
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+
+
+def split_batch(tree: Mapping[str, Any]):
+    """(imgs, labels, extra) of a batch: a wire batch's pixel and mask keys
+    (``data/device_pipeline.py``) or a plain ``imgs``, the labels, and the
+    optional ``EXTRA_KEYS``."""
+    if "imgs_u8" in tree or "imgs_y" in tree:
+        imgs = {k: v for k, v in tree.items() if k != "label" and k not in EXTRA_KEYS}
+    else:
+        imgs = tree["imgs"]
+    return imgs, tree["label"], {k: tree[k] for k in EXTRA_KEYS if k in tree}
+
+
+def _valid_rows(batch: Mapping[str, Any]) -> int:
+    if "sample_weight" in batch:
+        return int(np.asarray(batch["sample_weight"]).sum())
+    return int(np.shape(batch["label"])[0])
+
+
+def train_epochs(
+    step_fn: Callable,
+    state,
+    prev_model,
+    loader,
+    num_epochs: int,
+    seed: int,
+    device=None,
+    metric_logger=None,
+    log_every_n_steps: int = 10,
+    phase: str = "inc_step",
+    task_idx: int = 0,
+    epoch_hook: Optional[Callable] = None,
+    start_epoch: int = 0,
+    snapshot_hook: Optional[Callable] = None,
+    multi_step_fn: Optional[Callable] = None,
+    steps_per_dispatch: int = 1,
+    meter: Optional[Throughput] = None,
+) -> Tuple[Any, Dict[str, float]]:
+    """Run ``step_fn`` over epochs ``start_epoch .. num_epochs - 1`` of
+    ``loader``; return (state, last_metrics).
+
+    ``epoch_hook(epoch, state)`` runs after every epoch;
+    ``snapshot_hook(epoch, state, seed)`` after it: with ``start_epoch``
+    that gives a bit-exact resume (``runtime/checkpoint.py``). Step ``s`` of
+    the run (counted from epoch 0, ``len(loader)`` steps an epoch) draws from
+    ``step_generator(seed, s, device)``.
+
+    With ``steps_per_dispatch`` K > 1 and ``multi_step_fn``
+    (``make_multi_train_step``), K consecutive batches of an epoch go to the
+    card as one staged chunk and one call; chunks never cross an epoch, and
+    an epoch's remainder goes through ``step_fn``. A loader with
+    ``iter_epochs`` feeds all epochs through one producer stream.
+
+    Metrics are read on the host one log interval late, so logging never
+    stalls the card; ``meter`` (else a new ``Throughput(warmup=2)``) counts
+    clips (valid rows only) and the seconds spent waiting for input.
+    Runs on the card unless ``device`` says otherwise.
+    """
+    device = resolve_device(device)
+    stream = side_stream(device)
+    pin = device.type == "cuda"
+    meter = meter if meter is not None else Throughput(warmup=2)
+    step = start_epoch * len(loader) if start_epoch else 0
+    last_metrics: Dict[str, float] = {}
+    pending_metrics = None  # read one log interval later
+    use_multi = steps_per_dispatch > 1 and multi_step_fn is not None
+    batches_per_epoch = len(loader)
+
+    def prepare(item):
+        """Host side of one dispatch, in the prefetch thread."""
+        batches = item if isinstance(item, list) else [item]
+        host = stage_batches(batches, pin, stack=isinstance(item, list))
+        tree, event = copy_to_device(host, device, stream)
+        kind = "multi" if isinstance(item, list) else "single"
+        return kind, tree, event, sum(_valid_rows(b) for b in batches)
+
+    def grouped(src):
+        """K-chunks that never cross an epoch; remainders pass as single batches."""
+        chunk: List = []
+        for pos, b in enumerate(src, 1):
+            chunk.append(b)
+            if len(chunk) == steps_per_dispatch:
+                yield chunk
+                chunk = []
+            if pos % batches_per_epoch == 0 and chunk:
+                yield from chunk
+                chunk = []
+        yield from chunk
+
+    def items_per_epoch():
+        if not use_multi:
+            return batches_per_epoch
+        return batches_per_epoch // steps_per_dispatch + batches_per_epoch % steps_per_dispatch
+
+    span_stream = None
+    if hasattr(loader, "iter_epochs") and num_epochs - start_epoch > 1:
+        src = loader.iter_epochs(start_epoch, num_epochs - start_epoch)
+        span_stream = iter(prefetch_to_device(grouped(src) if use_multi else src, size=2,
+                                              put_fn=prepare, meter=meter))
+
+    for epoch in range(start_epoch, num_epochs):
+        loader.set_epoch(epoch)
+        epoch_iter = (
+            itertools.islice(span_stream, items_per_epoch()) if span_stream is not None
+            else prefetch_to_device(grouped(iter(loader)) if use_multi else loader, size=2,
+                                    put_fn=prepare, meter=meter))
+        for kind, tree, event, n_valid in epoch_iter:
+            imgs, labels, extra = split_batch(wait_copied(tree, event, device))
+            if kind == "multi":
+                gens = [step_generator(seed, step + k, device) for k in range(steps_per_dispatch)]
+                state, metrics = multi_step_fn(state, prev_model, imgs, labels, extra, gens)
+                consumed = steps_per_dispatch
+            else:
+                state, metrics = step_fn(state, prev_model, imgs, labels, extra,
+                                         step_generator(seed, step, device))
+                consumed = 1
+            meter.tick(n_valid)
+            prev_step, step = step, step + consumed
+            if step // log_every_n_steps > prev_step // log_every_n_steps:
+                if pending_metrics is not None:
+                    last_metrics = {k: float(v) for k, v in pending_metrics.items()}
+                    payload = {f"[{phase}_Task_{task_idx}]{k}": v for k, v in last_metrics.items()}
+                    payload["clips_per_sec"] = meter.rate
+                    if metric_logger is not None:
+                        metric_logger.log(payload, step=step)
+                    logger.info("task %d %s epoch %d step %d loss=%.4f kd=%.4f clips/s=%.1f",
+                                task_idx, phase, epoch, step,
+                                last_metrics.get("loss", float("nan")),
+                                last_metrics.get("kd_loss", 0.0), meter.rate)
+                pending_metrics = metrics
+        if epoch_hook is not None:
+            epoch_hook(epoch, state)
+        if snapshot_hook is not None:
+            snapshot_hook(epoch, state, seed)
+    if pending_metrics is not None:
+        last_metrics = {k: float(v) for k, v in pending_metrics.items()}
+    return state, last_metrics

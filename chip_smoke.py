@@ -11,10 +11,12 @@ hand-written kernels (the defaults reach none):
   B  shift_mode='fused_block'                        -> fused_residual_relu_shift
                                                         forward and backward
 
-The main path is fed by the device half of the fast input path: a yuv420
-wire batch (uint8 planes, RandAugment draws, BGMix and flip masks) goes
-through ``make_fast_input_fn`` (YCbCr -> RGB, RandAugment, normalize, flip,
-background blend; eager PyTorch, no hand-written kernel) inside the step.
+The main path is fed by the fast input path: JPEG rawframes decoded by the
+native pool into a yuv420 wire batch (uint8 planes, RandAugment draws, BGMix
+and flip masks), staged through pinned memory to the card, and
+``make_fast_input_fn`` (YCbCr -> RGB, RandAugment, normalize, flip,
+background blend; eager PyTorch, no hand-written kernel) inside the step,
+driven by ``train_epochs`` with K = 8 steps a call (phase 9).
 
 The other entry points, each with its own kernels:
 
@@ -55,7 +57,20 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      'icarl_video_mix' (tube-CutMix) on the card against the CPU;
   8. the block, gemm and shift paths, each with its launch counts set to 0
      before and read after: outputs against the plain compositions, the
-     block against the library-convolution block, chained ms per block.
+     block against the library-convolution block, chained ms per block;
+  9. loop, the main path end to end: the native decoder and JPEG writer built
+     (``loader: native decoder built`` or ``... unavailable: <first error
+     line>``), a corpus of 128 UCF101-shaped videos written under
+     chiprun_out/ (removed after), the loader's first batch through the input
+     function on the card against the CPU (uint8 stage, bit for bit), then
+     ``train_epochs`` for 2 epochs of config A fed by ``FastBGMixLoader`` on
+     the yuv420 wire with K = 8: #3's launches equal 32 a step times the
+     steps, finite losses, moved parameters, e2e clips/s, producer wait; then
+     3 epochs straight against 1 epoch, a snapshot, a rebuilt state and 2
+     more, bit for bit under deterministic algorithms (an op without a
+     deterministic CUDA form is named, and the resume is held to the spread
+     of two straight runs). Without the decoder the loop and the resume run
+     on in-memory synthetic wire batches, and say so.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -72,6 +87,7 @@ import collections
 import copy
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -118,6 +134,8 @@ GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 
 BLOCKS = [(56, 256, 64), (28, 512, 128), (14, 1024, 256), (7, 2048, 512)]
 BLOCK_ITERS = 20
 UCF_STORED = (320, 240)  # UCF101's stored frames (bench.py:305): the planes wire
+# the loop phase: a corpus of 128 videos (8 steps an epoch), K = 8, bench.py's 51 classes
+LOOP_VIDEOS, LOOP_EPOCHS, LOOP_K, LOOP_CLASSES = 128, 2, 8, 51
 
 
 def r50_shapes():
@@ -785,6 +803,194 @@ def icarl_reference_phase(dev, seed):
     return out
 
 
+def _host_tree(state):
+    """(module state_dict, momentum, optimizer count, step) on the host."""
+    return ({k: v.detach().cpu().clone() for k, v in state.module.state_dict().items()},
+            {k: v.detach().cpu().clone() for k, v in state.opt_state["momentum"].items()},
+            state.opt_state["count"], state.step)
+
+
+def _tree_diff(a, b):
+    """(names of leaves that differ, largest |a - b| over all leaves)."""
+    names, worst = [], 0.0
+    for part_a, part_b in zip(a[:2], b[:2]):
+        for k, v in part_a.items():
+            if not torch.equal(v, part_b[k]):
+                names.append(k)
+                worst = max(worst, float((v.float() - part_b[k].float()).abs().max()))
+    return names + [f"{what} {x} != {y}" for what, x, y in
+                    (("count", a[2], b[2]), ("step", a[3], b[3])) if x != y], worst
+
+
+def loop_phase(dev, seed, smi, conv_per_step):
+    """Phase 9: the native decoder, a JPEG corpus, train_epochs over it in
+    configuration A at full width, and the snapshot resume, bit for bit."""
+    import shutil
+    import warnings
+
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.data import corpus, native
+    from bdvcil_torch.data import device_pipeline as dp
+    from bdvcil_torch.data.loaders import FastBGMixLoader
+    from bdvcil_torch.data.synthetic import SyntheticWireLoader
+    from bdvcil_torch.models import build_model, init_model_params
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.optim import build_optimizer
+    from bdvcil_torch.runtime import TrainState, checkpoint, loops, make_multi_train_step
+    from bdvcil_torch.runtime import make_train_step
+    from bdvcil_torch.utils import Throughput
+
+    t0 = time.perf_counter()
+    built = native.available()  # builds the decoder and the JPEG writer
+    out = dict(decoder_built=built, decoder_build_s=time.perf_counter() - t0,
+               build_error=native.build_error(), host_cpus=len(os.sched_getaffinity(0)))
+    print("loader: native decoder built" if built
+          else f"loader: native decoder unavailable: {native.build_error()}", flush=True)
+    root = pathlib.Path("chiprun_out/loop_corpus")
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        if built:
+            t0 = time.perf_counter()
+            infos, bg_files = corpus.write_corpus(root, LOOP_VIDEOS, seed=seed,
+                                                  num_classes=LOOP_CLASSES)
+            out["corpus_s"] = time.perf_counter() - t0
+            loader = FastBGMixLoader(infos, bg_files, batch_size=BATCH, num_segments=SEGMENTS,
+                                     crop_size=SIZE, randaug_prob=0.75, seed=seed,
+                                     wire_format="auto")
+            source = "jpeg"
+        else:
+            print("loader: the loop runs on in-memory synthetic wire batches "
+                  "(data/synthetic.wire_batch), not on JPEG frames", flush=True)
+            loader = SyntheticWireLoader(LOOP_VIDEOS, BATCH, SEGMENTS, SIZE, seed=seed)
+            source = "synthetic"
+        out.update(loader_source=source, wire_format=loader.wire_format, videos=LOOP_VIDEOS,
+                   steps_per_epoch=len(loader), k=LOOP_K)
+        fn = dp.make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
+                                   wire_format=loader.wire_format)
+
+        # the loader's first batch through the input function: card against CPU
+        it = iter(loader)
+        first = next(it)
+        it.close()
+        with torch.no_grad():
+            got = fn.uint8_stage(dp.batch_to_device(dp.pin_batch(first), dev))
+            ref = fn.uint8_stage(dp.batch_to_device({k: v[:4] for k, v in first.items()}, "cpu"))
+        for g, r in zip(got, ref):
+            if not torch.equal(g[:4].cpu(), r):
+                raise AssertionError("loop: the loader's first batch, uint8 stage, differs "
+                                     "between the card and the CPU")
+        del got, ref
+
+        cfg = presets.hmdb51_r50_cfg(LOOP_CLASSES, SEGMENTS, **presets.SWITCHES["A"])
+
+        def build(init_seed):
+            spec = build_model(cfg, dtype=torch.bfloat16, device=dev)
+            model = init_model_params(spec, init_seed)
+            tx = build_optimizer(model, presets.OPTIMIZER, presets.LR_SCHEDULER,
+                                 steps_per_epoch=len(loader))
+            kw = dict(spec=spec, tx=tx, num_classes=LOOP_CLASSES, input_fn=fn)
+            return (TrainState.create(model, tx), make_train_step(**kw),
+                    make_multi_train_step(kw, LOOP_K))
+
+        def run(built_state, num_epochs, start_epoch=0, **kw):
+            state, single, multi = built_state
+            return loops.train_epochs(single, state, None, loader, num_epochs, seed, device=dev,
+                                      start_epoch=start_epoch, multi_step_fn=multi,
+                                      steps_per_dispatch=LOOP_K, log_every_n_steps=LOOP_K, **kw)
+
+        # train_epochs, 2 epochs, with the launch counts set to 0 just before
+        state = build(seed)
+        watch = ["backbone.conv1.weight", "backbone.layer4.2.conv3.weight", "cls_head.eta"]
+        before = {k: state[0].module.state_dict()[k].detach().clone() for k in watch}
+        meter, ends = Throughput(warmup=1), []
+
+        def epoch_end(epoch, _):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        trained, last = run(state, LOOP_EPOCHS, epoch_hook=epoch_end, meter=meter)
+        launches = dict(_build.LAUNCHES)
+        wall = ends[-1] - t0
+        steps = LOOP_EPOCHS * len(loader)
+        if launches != {CONV: conv_per_step * steps}:
+            raise AssertionError(f"loop: kernel launches {launches}, expected "
+                                 f"{conv_per_step} x {steps} steps of {CONV}")
+        if trained.step != steps or not all(math.isfinite(v) for v in last.values()):
+            raise AssertionError(f"loop: step {trained.step}, last metrics {last}")
+        after = trained.module.state_dict()
+        still = [k for k in watch if torch.equal(after[k], before[k])]
+        if still:
+            raise AssertionError(f"loop: parameters did not move: {still}")
+        clips = steps * BATCH
+        out.update(launches=launches, steps=steps, last_metrics=last, wall_s=wall,
+                   e2e_clips_per_s=clips / wall,
+                   e2e_clips_per_s_last_epoch=len(loader) * BATCH / (ends[-1] - ends[-2]),
+                   producer_wait_s=meter.wait_s, decode_frames_per_step=BATCH * (SEGMENTS + 1))
+        print(f"loop A: train_epochs, {LOOP_EPOCHS} epochs x {len(loader)} steps (K={LOOP_K}) "
+              f"from {source} ({loader.wire_format} wire): e2e {out['e2e_clips_per_s']:.2f} "
+              f"clips/s over the run, {out['e2e_clips_per_s_last_epoch']:.2f} in the last epoch; "
+              f"producer wait {meter.wait_s:.3f} s of {wall:.2f} s; host CPUs "
+              f"{out['host_cpus']}; #3 launches {launches[CONV]} = {conv_per_step} x {steps}; "
+              f"loss {last['loss']:.4f} [{smi}]", flush=True)
+        del state, trained, after, before
+
+        # resume: 3 epochs straight against 1 + snapshot + rebuild + 2, bit for bit
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        snap = root / "mid_task_snapshot_inc_step.pt"
+        meta = dict(task=0, phase="inc_step", num_classes=LOOP_CLASSES, run_token="chip_smoke")
+
+        def hook(epoch, st, run_seed):
+            checkpoint.save_train_snapshot(snap, st, run_seed, dict(meta, epoch=epoch))
+
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight = _host_tree(run(build(seed), 3)[0])
+            run(build(seed), 1, snapshot_hook=hook)
+            snap_meta = checkpoint.peek_train_snapshot_meta(snap)
+            if not checkpoint.snapshot_matches(snap_meta, 0, "inc_step", LOOP_CLASSES,
+                                               "chip_smoke"):
+                raise AssertionError(f"loop: snapshot meta {snap_meta}")
+            fresh, single, multi = build(seed + 1)  # other weights: the load sets them all
+            restored, run_seed, _ = checkpoint.load_train_snapshot(snap, fresh)
+            resumed = _host_tree(run((restored, single, multi), 3,
+                                     start_epoch=snap_meta["epoch"] + 1)[0])
+        ops = sorted({str(w.message).split("\n")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+        differ, err = _tree_diff(resumed, straight)
+        out.update(resume_s=time.perf_counter() - t0, resume_nondeterministic_ops=ops,
+                   resume_leaves=len(straight[0]) + len(straight[1]), resume_differ=differ[:10],
+                   resume_max_abs_diff=err)
+        if ops:  # name the op, and hold the resume to two straight runs' spread
+            _, spread = _tree_diff(_host_tree(run(build(seed), 3)[0]), straight)
+            out["straight_spread"] = spread
+            print(f"loop resume: ops without a deterministic CUDA form: {ops}; resumed max abs "
+                  f"diff {err} against a spread of {spread} between two straight runs",
+                  flush=True)
+            if err > spread:
+                raise AssertionError(f"loop resume: {err} outside the straight runs' spread "
+                                     f"{spread}")
+        elif differ:
+            raise AssertionError(f"loop resume: {len(differ)} leaves differ from the straight "
+                                 f"run, e.g. {differ[:5]} (max abs diff {err})")
+        else:
+            print(f"loop resume: 3 epochs straight == 1 epoch, snapshot, rebuild, load, 2 "
+                  f"epochs: bit for bit over {out['resume_leaves']} parameter, buffer and "
+                  f"momentum leaves, optimizer count and step "
+                  f"({out['resume_s']:.1f} s, deterministic algorithms)", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[1:]
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -801,6 +1007,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU only", file=sys.stderr)
         return 1
+    # cuBLAS's workspace for the loop phase's deterministic resume (set before
+    # the first cuBLAS call; the size is PyTorch's default on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from bdvcil_torch.ops import _build
     from bdvcil_torch.ops import block_fused as bf
     from bdvcil_torch.ops import conv1x1_bn as conv
@@ -862,10 +1071,11 @@ def main(argv=None) -> int:
     shift_launches = shift_path(dev, gen, shift_shapes)
     print(f"gemm path launches {gemm_launches}, shift path launches {shift_launches}",
           flush=True)
+    loop = loop_phase(dev, args.seed, smi, sum(gemm_shapes.values()))
 
-    # the main path is config A fed by the input path: its run gives #3's count
+    # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
-                **block["launches"], **gemm_launches, **shift_launches}
+                **block["launches"], **gemm_launches, **shift_launches, **loop["launches"]}
     kernels = []
     for kname, (source, replaces, library_call) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -891,11 +1101,11 @@ def main(argv=None) -> int:
     detail = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
-                  kernels=kernels,
+                  loop=loop, loader_source=loop["loader_source"], kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): a task-0 train "
-                       "forward for #1-#3 (backward for _bwd; #3's launches from config A fed by "
-                       "the input path), one call per shape for "
+                       "forward for #1-#3 (backward for _bwd; #3's launches from the loop "
+                       "phase's train_epochs run), one call per shape for "
                        "gemm_with_stats and temporal_shift (forward and reverse), one layer1 "
                        "block forward for the block kernels; kernel_rows are per launch. "
                        "library_ms: the call that library_call names; for #7 and #8 it leaves "
