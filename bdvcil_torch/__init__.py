@@ -11,20 +11,31 @@ Layout:
            bottleneck forward; each hand-written CUDA kernel (``csrc/``)
            beside its plain PyTorch version; the input path's eager ops
            (augment, rand_augment_dev)
-  data     the fast input path: the loaders and the native JPEG decoder
-           binding (host half), the input functions and wire layout
-           (device half), SampleFrames, a synthetic JPEG corpus writer and
-           synthetic wire batches
+  data     the fast input path: the train and eval loaders and the native
+           JPEG decoder binding (host half), the input functions and wire
+           layout (device half); the slow host pipeline (annotations,
+           datasets, transforms, rand_augment, host_loader); SampleFrames, a
+           synthetic JPEG corpus writer and synthetic wire batches
   models   ResNet-TSM backbone, flax-semantics BatchNorm, incremental heads,
-           recognizer, builder, and the JAX <-> torch weight converter
+           recognizer, builder, the JAX <-> torch weight converter, and the
+           ImageNet backbone weights from local files (pretrained)
   losses   LSC/NCA, cross-entropy, soft-target CE, ActorCutMix smoothing, feature-KD
-  optim    the labeled 6-group SGD with torch-order updates and optax clip
+  optim    the labeled 6-group SGD with torch-order updates, optax clip and
+           MultiSteps gradient accumulation
   runtime  train state, the CIL train step (base, icarl, icarl_video_mix;
-           optional input function) and its K-step form, the epoch loop
-           (train_epochs, prefetch_to_device), checkpoints and snapshots
-  utils    the throughput meter
+           optional input function) and its K-step form, the eval step and
+           its K-step form, the epoch loop (train_epochs, prefetch_to_device),
+           run_inference, checkpoints and snapshots
+  cil      herding, the per-task data module and the CIL trainer (task loop,
+           exemplars, CBF, NME, cil_testing, resume)
+  cil_tools  the command-line tools: train_cil (the others wait, ROADMAP A.7)
+  config, config_templates, registry, protocol
+           python-file configs, the experiment grid (make_cil_config and
+           the main path's settings), type registries, vCLIMB class orders
+  utils    meters, the result table, loggers
   bench_train        end-to-end train throughput from JPEG frames on disk
   bench_block_fused  the block-fused bottleneck against the plain schedule
+  profile_kernels, profile_step  device-time profiles of the kernels and the step
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``
 with time folded into the batch. Inside the model they are NCHW tensors in

@@ -6,6 +6,7 @@ Each function and class has the same name and contract as its counterpart
 there:
 
   resolve_wire_format        device_pipeline.py:63
+  fast_pipeline_mismatch     :102 (the trainer's gate of the fast path)
   resized_dims               :223
   plan_train_geometry        :230 (and _fixed_crop_offsets :494)
   plan_bg_crop               :284
@@ -18,6 +19,8 @@ there:
   transform_acm_boxes        :1219
   _rasterized_union_area     :1241
   FastACMLoader              :1251-1626
+  FastEvalLoader             :595-810 (the eval batches: centre crop,
+                             TenCrop, and the full-frame yuv420 wire)
 
 A batch is a pure function of (seed, epoch, index): each row draws from its
 own numpy generator, consumed exactly as the JAX loaders consume it, so every
@@ -77,6 +80,127 @@ def resolve_wire_format(wire_format: str, crop_size: int) -> str:
     if wire_format not in ("rgb", "yuv420", "planes"):
         raise ValueError(f"unknown wire_format {wire_format!r}")
     return wire_format
+
+
+def fast_pipeline_mismatch(pipeline, *, num_segments: int, randaug_prob: float):
+    """Why the fast input path cannot reproduce ``pipeline`` exactly, or
+    None when it can.
+
+    The fast path implements exactly the canonical reference train chain
+    (config_templates._pipelines; reference config :124-163):
+    SampleFrames(1x1xT) -> RawFrameDecode -> Resize(-1, S) ->
+    RandAugment(n=2, m=10, prob=randAug_prob) -> MultiScaleCrop(13 fixed
+    crops, gap 1) -> Resize(square, keep_ratio=False) -> Normalize(RGB) ->
+    FormatShape(NHWC)/Collect/ToTensor. A pipeline containing anything else
+    (Flip, ColorJitter, different RandAugment hyperparameters, ...) must
+    fall back to the host pipeline rather than silently train on a
+    different augmentation distribution — the trainer logs the returned
+    reason and declines the fast path."""
+    supported = {
+        "SampleFrames",
+        "RawFrameDecode",
+        "Resize",
+        "RandAugment",
+        "MultiScaleCrop",
+        "Normalize",
+        "FormatShape",
+        "Collect",
+        "ToTensor",
+    }
+    # Omitted per-op params must be filled with the HOST op's defaults (the
+    # behavior the fast path has to reproduce), never with the fast path's
+    # own expectation — op.get('prob', randaug_prob) would wave through a
+    # pipeline the host runs at prob=0.5 while the fast path runs it at the
+    # config's randAug_prob.
+    sig = []  # semantic op sequence, order-checked against the canonical chain
+    msc_size = fixed_resize = None
+    for op in pipeline:
+        t = op.get("type")
+        if t not in supported:
+            return f"pipeline op {t!r} is not implemented by the fast path"
+        if t == "SampleFrames":
+            if op.get("clip_len", 1) != 1 or op.get("frame_interval", 1) != 1:
+                return "fast path only implements SampleFrames(clip_len=1, frame_interval=1)"
+            # host default num_clips=1 (data/sampling.py)
+            if int(op.get("num_clips", 1)) != int(num_segments):
+                return "SampleFrames num_clips differs from the model's num_segments"
+            if op.get("test_mode", False):
+                return "test-mode SampleFrames in a train pipeline"
+        elif t == "Resize":
+            scale = op.get("scale")
+            if op.get("keep_ratio", True):
+                if not (isinstance(scale, (tuple, list)) and scale[0] == -1):
+                    return f"keep-ratio Resize with scale {scale!r} (only (-1, S) supported)"
+            else:
+                if not (isinstance(scale, (tuple, list)) and scale[0] == scale[1]):
+                    return f"fixed Resize with non-square scale {scale!r}"
+                fixed_resize = int(scale[0])
+        elif t == "RandAugment":
+            if int(op.get("n", 2)) != 2 or int(op.get("m", 10)) != 10:
+                return "RandAugment n/m differ from the fast path's (2, 10)"
+            # host default prob=0.5 (data/rand_augment.py); when the config
+            # disables the loader's RandAugment entirely (randaug_prob < 0)
+            # the presence check below gives the clearer reason
+            if randaug_prob >= 0 and abs(
+                float(op.get("prob", 0.5)) - float(randaug_prob)
+            ) > 1e-9:
+                return "RandAugment prob differs from config randAug_prob"
+        elif t == "MultiScaleCrop":
+            if op.get("random_crop", False):
+                return "MultiScaleCrop(random_crop=True) is not implemented"
+            if int(op.get("max_wh_scale_gap", 1)) != 1:
+                return "MultiScaleCrop max_wh_scale_gap != 1 is not implemented"
+            # host default num_fixed_crops=5 (data/transforms.py)
+            if int(op.get("num_fixed_crops", 5)) != 13:
+                return "MultiScaleCrop num_fixed_crops != 13 is not implemented"
+            size = op.get("input_size")
+            if isinstance(size, (tuple, list)):
+                # a non-square input_size changes the host crop-box shape —
+                # collapsing it to size[0] would wave a (224, 256) MSC
+                # through the exactness gate
+                if len(size) != 2 or int(size[0]) != int(size[1]):
+                    return (f"MultiScaleCrop non-square input_size {tuple(size)!r} "
+                            "is not implemented by the fast path")
+                size = size[0]
+            msc_size = size
+        elif t == "Normalize":
+            if op.get("to_bgr", False):
+                return "Normalize(to_bgr=True) is not implemented"
+        elif t == "FormatShape":
+            # the fast path emits NHWC; the recognizer accepts NHWC and NCHW
+            # identically (models/recognizer.py), so the reference configs'
+            # NCHW is fine — only exotic layouts decline
+            if op.get("input_format", "NHWC") not in ("NHWC", "NCHW"):
+                return f"FormatShape {op.get('input_format')!r} (fast path emits NHWC)"
+        if t == "Resize":
+            sig.append("Resize(-1,S)" if op.get("keep_ratio", True) else "Resize(square)")
+        elif t not in ("Collect", "ToTensor"):  # metadata-only ops
+            sig.append(t)
+    # exact chain: the fast path implements the canonical sequence as ONE
+    # fused recipe, so the ops must all be present and in canonical order —
+    # a reordered / partial pipeline (e.g. RandAugment after the crop, or a
+    # missing Normalize) computes different pixels on the host
+    canonical = ["SampleFrames", "RawFrameDecode", "Resize(-1,S)", "RandAugment",
+                 "MultiScaleCrop", "Resize(square)", "Normalize", "FormatShape"]
+    if randaug_prob < 0:
+        canonical.remove("RandAugment")
+        if "RandAugment" in sig:
+            return "pipeline has RandAugment but config randAug_prob < 0"
+    elif "RandAugment" not in sig:
+        # the loader would apply RandAugment (config randAug_prob >= 0) that
+        # the configured host pipeline does not contain
+        return "config randAug_prob >= 0 but the pipeline has no RandAugment op"
+    if sig != canonical:
+        return f"pipeline op sequence {sig} != canonical fast-path chain {canonical}"
+    # the fast path draws MSC crop boxes sized from the FINAL square size
+    # (decode-to-output), which is only equivalent when the host's MSC
+    # input_size equals the fixed Resize scale (true of every reference
+    # config; a 224-crop-then-256-upscale pipeline is a different crop-box
+    # distribution)
+    if int(msc_size) != int(fixed_resize):
+        return (f"MultiScaleCrop input_size {msc_size} != fixed Resize scale "
+                f"{fixed_resize} (fast path decodes straight to the output square)")
+    return None
 
 
 def randaug_draws_from_keys(keys: np.ndarray, n: int, h: int, w: int) -> Dict[str, np.ndarray]:
@@ -805,3 +929,152 @@ class FastACMLoader(_EpochSpanMixin):
                "apply_randaug": ~apply_acm, "actor_flip": actor_flip, "scene_flip": scene_flip,
                "label": labels, "foreground_ratio": fg_ratio, "background_label": bg_labels}
         return self._with_draws(out, randaug_keys, weights)
+
+
+class FastEvalLoader:
+    """Deterministic uint8 eval batches from the native decoder, in dataset
+    order (the port of ``bdvcil_tpu/data/device_pipeline.py:595``).
+
+    The test-mode chain SampleFrames -> decode -> Resize(-1, S) ->
+    CenterCrop(c) | TenCrop(c) runs on the host into uint8; the eval step
+    normalizes (and adds TenCrop's flips) on the device. Wire formats:
+
+      'rgb'          {'imgs': (B, T, c, c, 3) u8, or (B, T, 5, c, c, 3) for
+                     TenCrop, 'label': (B, 1)}
+      'yuv420_full'  each frame resized once into padded planes, imgs_y (B, T,
+                     ph, pw), imgs_c (B, T, ph/2, pw/2, 2), and the crop
+                     offsets crop_yx_<c> (B, K, 2) (y, x), K = 1 or 5; the
+                     crops, flips and YCbCr -> RGB run on the device
+                     (``ops.augment.eval_yuv_full_crops``)
+      'auto'         'yuv420_full' for TenCrop, else 'rgb' (the JAX choice)
+
+    Raises when the native decoder is unavailable, as JAX's does: the caller
+    takes the host pipeline then. One process by default (ROADMAP A.7).
+    """
+
+    def __init__(self, video_infos: Sequence[dict], batch_size: int, num_segments: int = 8,
+                 crop_size: int = 224, short_side: int = 256,
+                 filename_tmpl: str = "img_{:05}.jpg", start_index: int = 1,
+                 num_threads: int = 0, prefetch: int = 2, num_workers: int = 1,
+                 tencrop: bool = False, process_index: int = None, process_count: int = None,
+                 wire_format: str = "rgb"):
+        _require_native()
+        if wire_format == "auto":
+            wire_format = "yuv420_full" if (tencrop and native.has_yuv420_full()) else "rgb"
+        if wire_format not in ("rgb", "yuv420_full"):
+            raise ValueError(f"unknown eval wire_format {wire_format!r}")
+        self.wire_format = wire_format
+        self._dims: Dict[str, tuple] = {}
+        self._pad_w = self._pad_h = 0
+        self.video_infos = list(video_infos)
+        self.batch_size = batch_size  # the global batch
+        self.process_count = max(1, process_count or 1)
+        self.process_index = process_index or 0
+        if self.process_count > 1 and batch_size % self.process_count:
+            raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                             f"process_count {self.process_count}")
+        self.num_segments = num_segments
+        self.crop_size = crop_size
+        self.short_side = short_side
+        self.filename_tmpl = filename_tmpl
+        self.start_index = start_index
+        self.num_threads = (num_threads if num_threads > 0
+                            else native.default_threads(share=max(1, int(num_workers))))
+        self.prefetch = prefetch
+        self.num_workers = max(1, int(num_workers))
+        self.tencrop = tencrop
+        self.sampler = SampleFrames(clip_len=1, frame_interval=1, num_clips=num_segments,
+                                    test_mode=True)
+
+    def set_epoch(self, epoch: int) -> None:
+        pass  # deterministic
+
+    def __len__(self) -> int:
+        return -(-len(self.video_infos) // self.batch_size)
+
+    @property
+    def num_valid(self) -> int:
+        """The dataset-order rows that are real (multi-process batches pad)."""
+        return len(self.video_infos)
+
+    def _video_geometry(self, frame_dir: str) -> Tuple[int, int]:
+        """(rw, rh), the short-side resized dims, at least the crop on both
+        axes, as the decoder's TenCrop clamps them."""
+        w, h = self._dims[frame_dir]
+        rw, rh = resized_dims(w, h, self.short_side)
+        return max(rw, self.crop_size), max(rh, self.crop_size)
+
+    def _crop_offsets(self, rw: int, rh: int) -> np.ndarray:
+        """(K, 2) int32 (y, x) luma offsets: the 5 FiveCrop positions or the centre."""
+        crop = self.crop_size
+        if self.tencrop:
+            ws, hs = (rw - crop) // 4, (rh - crop) // 4
+            return np.array([(0, 0), (0, 4 * ws), (4 * hs, 0), (4 * hs, 4 * ws),
+                             (2 * hs, 2 * ws)], np.int32)
+        return np.array([((rh - crop) // 2, (rw - crop) // 2)], np.int32)
+
+    def _prepare_yuv_full(self) -> None:
+        """Fix the padded plane dims from the whole corpus (one header probe
+        per video) before the workers start, so every batch has one shape."""
+        if self.wire_format != "yuv420_full" or self._pad_w:
+            return
+        todo = [(info["frame_dir"],
+                 osp.join(info["frame_dir"], self.filename_tmpl.format(self.start_index)))
+                for info in self.video_infos if info["frame_dir"] not in self._dims]
+        if todo:
+            dims = native.probe_dims_batch([p for _, p in todo], num_threads=self.num_threads)
+            for (key, _), (w, h) in zip(todo, dims):
+                self._dims[key] = (int(w), int(h))
+        geo = np.array([self._video_geometry(info["frame_dir"]) for info in self.video_infos],
+                       np.int64).reshape(-1, 2)
+        self._pad_w = -(-int(geo[:, 0].max()) // 16) * 16
+        self._pad_h = -(-int(geo[:, 1].max()) // 16) * 16
+
+    def _make_batch(self, indices) -> Dict[str, np.ndarray]:
+        t, crop = self.num_segments, self.crop_size
+        frame_paths: List[str] = []
+        labels = np.empty((len(indices), 1), np.int64)
+        rows = []
+        for row, idx in enumerate(indices):
+            info = self.video_infos[int(idx)]
+            rows.append(info)
+            labels[row, 0] = info["label"]
+            for fi in self.sampler.sample(info["total_frames"]) + self.start_index:
+                frame_paths.append(osp.join(info["frame_dir"], self.filename_tmpl.format(int(fi))))
+        b = len(indices)
+        if self.wire_format == "yuv420_full":
+            geos = [self._video_geometry(info["frame_dir"]) for info in rows]
+            dims = np.repeat(np.array(geos, np.int32), t, axis=0)
+            y, c = native.decode_yuv420_full_batch(frame_paths, dims, self._pad_w, self._pad_h,
+                                                   num_threads=self.num_threads)
+            return {
+                "imgs_y": y.reshape(b, t, self._pad_h, self._pad_w),
+                "imgs_c": c.reshape(b, t, self._pad_h // 2, self._pad_w // 2, 2),
+                # the crop size rides in the key, as in the JAX wire
+                f"crop_yx_{crop}": np.stack([self._crop_offsets(rw, rh) for rw, rh in geos]),
+                "label": labels,
+            }
+        if self.tencrop:
+            imgs = native.decode_tencrop_batch(frame_paths, short_side=self.short_side,
+                                               crop=crop, num_threads=self.num_threads)
+            return {"imgs": imgs.reshape(b, t, 5, crop, crop, 3), "label": labels}
+        imgs = native.decode_resize_crop_batch(frame_paths, short_side=self.short_side,
+                                               out_h=crop, out_w=crop, crops=None,
+                                               num_threads=self.num_threads)
+        return {"imgs": imgs.reshape(b, t, crop, crop, 3), "label": labels}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        self._prepare_yuv_full()
+        n = len(self.video_infos)
+        if self.process_count > 1:
+            # pad the global order to whole batches (run_inference trims by
+            # num_valid) and take this process's rows of each
+            total = -(-n // self.batch_size) * self.batch_size
+            idx = np.concatenate([np.arange(n), np.full(total - n, n - 1, np.int64)])
+            per = self.batch_size // self.process_count
+            lo = self.process_index * per
+            batches = [b[lo:lo + per] for b in idx.reshape(-1, self.batch_size)]
+        else:
+            batches = [np.arange(n)[i:i + self.batch_size] for i in range(0, n, self.batch_size)]
+        yield from _parallel_ordered_iter(batches, self._make_batch, self.num_workers,
+                                          self.prefetch)

@@ -53,6 +53,11 @@ _DECODER_API = {
     "bdvc_decode_yuv420_batch": (ctypes.c_int, [_c_str_p, ctypes.c_int, _c_int_p, _c_int_p,
                                                 ctypes.c_int, _c_int_p, _c_int_p, _c_u8_p,
                                                 _c_u8_p, ctypes.c_int]),
+    "bdvc_decode_tencrop_batch": (ctypes.c_int, [_c_str_p, ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_int, _c_u8_p, ctypes.c_int]),
+    "bdvc_decode_yuv420_full_batch": (ctypes.c_int, [_c_str_p, ctypes.c_int, _c_int_p,
+                                                     _c_int_p, ctypes.c_int, ctypes.c_int,
+                                                     _c_u8_p, _c_u8_p, ctypes.c_int]),
     "bdvc_fetch_planes_batch": (ctypes.c_int, [_c_str_p, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_int, _c_u8_p, _c_u8_p, _c_int_p,
                                                ctypes.c_int]),
@@ -189,6 +194,10 @@ def has_fetch_planes() -> bool:
     return available()
 
 
+def has_yuv420_full() -> bool:
+    return available()
+
+
 def default_threads(share: int = 1) -> int:
     """Decode-pool size when the caller passes ``num_threads <= 0``: the CPUs
     this process may run on (at least 4 where the affinity mask reports 2 or
@@ -292,6 +301,43 @@ def decode_yuv420_batch(paths: Sequence[str], resize_dims: np.ndarray, out_size:
     rc = lib.bdvc_decode_yuv420_batch(_paths(paths), n, _ptr(rw), _ptr(rh), out_size, _ptr(cx),
                                       _ptr(cy), _ptr(out_y, _c_u8_p), _ptr(out_c, _c_u8_p),
                                       _threads(num_threads))
+    _check(rc, paths)
+    return out_y, out_c
+
+
+def decode_tencrop_batch(paths: Sequence[str], short_side: int, crop: int,
+                         num_threads: int = 0) -> np.ndarray:
+    """Decode each frame once, short-side resize, and cut the 5 FiveCrop
+    positions: (N, 5, crop, crop, 3) uint8 (the flips are added on the
+    device, ``ops.augment.tencrop_expand``)."""
+    lib = _decoder()
+    out = np.empty((len(paths), 5, crop, crop, 3), dtype=np.uint8)
+    rc = lib.bdvc_decode_tencrop_batch(_paths(paths), len(paths), short_side, crop,
+                                       _ptr(out, _c_u8_p), _threads(num_threads))
+    _check(rc, paths)
+    return out
+
+
+def decode_yuv420_full_batch(paths: Sequence[str], resize_dims: np.ndarray, pad_w: int,
+                             pad_h: int, num_threads: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """The full-frame eval wire: each frame resized to ``resize_dims[i]`` = (w,
+    h) and laid at the origin of a zero-padded slot, y (N, pad_h, pad_w) and c
+    (N, pad_h/2, pad_w/2, 2) interleaved CbCr. A crop of it equals
+    :func:`decode_yuv420_batch` at the same offsets
+    (``ops.augment.eval_yuv_full_crops`` cuts them on the device)."""
+    lib = _decoder()
+    if pad_w % 2 or pad_h % 2:
+        raise ValueError(f"pad dims must be even, got {(pad_w, pad_h)}")
+    n = len(paths)
+    dims = np.ascontiguousarray(resize_dims, dtype=np.int32).reshape(n, 2)
+    if (dims[:, 0] > pad_w).any() or (dims[:, 1] > pad_h).any():
+        raise ValueError("resize dims exceed pad dims")
+    out_y = np.empty((n, pad_h, pad_w), dtype=np.uint8)
+    out_c = np.empty((n, pad_h // 2, pad_w // 2, 2), dtype=np.uint8)
+    rw, rh = _xy(dims)
+    rc = lib.bdvc_decode_yuv420_full_batch(_paths(paths), n, _ptr(rw), _ptr(rh), pad_w, pad_h,
+                                           _ptr(out_y, _c_u8_p), _ptr(out_c, _c_u8_p),
+                                           _threads(num_threads))
     _check(rc, paths)
     return out_y, out_c
 

@@ -1,5 +1,6 @@
 """Frame-index sampling with mmaction2 ``SampleFrames`` semantics (the port's
-copy of ``bdvcil_tpu/data/sampling.py:19``, without the pipeline registry).
+copy of ``bdvcil_tpu/data/sampling.py:19``; ``data/transforms.py`` registers it
+as a pipeline op).
 
 Train mode jitters an offset inside each of ``num_clips`` segments; test mode
 takes the segment centres. The generator is an explicit
@@ -59,6 +60,18 @@ class SampleFrames:
         if self.twice_sample:
             clip_offsets = np.concatenate([clip_offsets, base_offsets.astype(np.int64)])
         return clip_offsets
+
+    def __call__(self, results: dict) -> dict:
+        """The pipeline op: ``frame_inds`` (shifted by ``start_index``) and
+        the clip fields from ``results['total_frames']`` and ``results['rng']``."""
+        frame_inds = self.sample(results["total_frames"], results.get("rng"))
+        results["frame_inds"] = frame_inds + results.get("start_index", 0)
+        results["clip_len"] = self.clip_len
+        results["frame_interval"] = self.frame_interval
+        results["num_clips"] = (
+            self.num_clips * 2 if (self.test_mode and self.twice_sample) else self.num_clips
+        )
+        return results
 
     def sample(self, num_frames: int, rng: Optional[np.random.Generator] = None) -> np.ndarray:
         """Flat frame indices, 0-based (before the ``start_index`` shift)."""

@@ -18,6 +18,12 @@ with optax's formula, so the clip never counts frozen gradients.
 
 Parameters are updated in place; the momentum buffers live in the optimizer
 state dict that ``init`` returns and ``step`` carries.
+
+Gradient accumulation (``accumulate_steps`` k > 1) is ``optax.MultiSteps``
+with the sum kept in ``p.grad``: the train step (``runtime/steps.py``) lets
+autograd add k micro-steps' gradients there and calls ``step`` on every k-th
+one, which applies the update above to their mean ``p.grad / k``. The
+schedule counts updates, not micro-steps.
 """
 
 from __future__ import annotations
@@ -117,13 +123,14 @@ class LabeledSGD:
     """The 6-group SGD policy, optional frozen leaves and global-norm clip.
 
     ``init(module)`` returns the state ``{'momentum': {name: tensor},
-    'count': int}``; ``step(module, state)`` reads ``p.grad``, updates the
-    parameters in place and returns the new state.
+    'count': int}``; ``step(module, state)`` reads ``p.grad`` (the sum of
+    ``accumulate_steps`` micro-steps' gradients), updates the parameters in
+    place and returns the new state.
     """
 
     def __init__(self, labels: Dict[str, str], base_lr: float, momentum: float,
                  weight_decay: float, fc_scale: float, factor_table: np.ndarray,
-                 steps_per_epoch: int, grad_clip: Optional[float]):
+                 steps_per_epoch: int, grad_clip: Optional[float], accumulate_steps: int = 1):
         self.labels = labels
         self.base_lr = base_lr
         self.momentum = momentum
@@ -132,6 +139,7 @@ class LabeledSGD:
         self.factor_table = factor_table
         self.steps_per_epoch = max(1, steps_per_epoch)
         self.grad_clip = grad_clip
+        self.accumulate_steps = max(1, int(accumulate_steps))
 
     def init(self, module: nn.Module) -> Dict:
         return {
@@ -144,9 +152,11 @@ class LabeledSGD:
         params = dict(module.named_parameters())
         if set(params) != set(self.labels):
             raise ValueError("the module's parameters differ from those the optimizer labeled")
+        k = self.accumulate_steps
         # frozen leaves get no gradient at all, before the clip sees any
         grads = {
-            n: torch.zeros_like(p) if (p.grad is None or self.labels[n] == "frozen") else p.grad
+            n: torch.zeros_like(p) if (p.grad is None or self.labels[n] == "frozen")
+            else p.grad if k == 1 else p.grad / k
             for n, p in params.items()
         }
         if self.grad_clip is not None:
@@ -192,8 +202,6 @@ def build_optimizer(
     """
     if optimizer_cfg.get("type", "SGD") != "SGD":
         raise ValueError(f"only SGD exists, got {optimizer_cfg.get('type')!r}")
-    if accumulate_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP A.2)")
     base_lr = optimizer_cfg["lr"]
     paramwise = optimizer_cfg.get("paramwise_cfg", {}) or {}
     fc_scale = paramwise.get("fc_lr_scale_factor", 1.0)
@@ -210,4 +218,5 @@ def build_optimizer(
     return LabeledSGD(
         labels, base_lr, optimizer_cfg.get("momentum", 0.0),
         optimizer_cfg.get("weight_decay", 0.0), fc_scale, table, steps_per_epoch, grad_clip,
+        accumulate_steps,
     )

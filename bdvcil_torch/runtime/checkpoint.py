@@ -72,8 +72,11 @@ def save_train_snapshot(path: PathLike, state: TrainState, seed: int, meta: Dict
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     meta_json = json.dumps(meta, default=float)
+    # p.grad is set only inside a gradient accumulation window: its sum so far
+    grads = {n: p.grad for n, p in state.module.named_parameters() if p.grad is not None}
     payload = {"meta": meta_json, "step": int(state.step), "seed": int(seed),
-               "module": _cpu(state.module.state_dict()), "opt_state": _cpu(state.opt_state)}
+               "module": _cpu(state.module.state_dict()), "opt_state": _cpu(state.opt_state),
+               "grads": _cpu(grads)}
     buf = io.BytesIO()
     torch.save(payload, buf)
     meta_bytes = meta_json.encode()
@@ -121,9 +124,10 @@ def snapshot_matches(meta: Optional[Mapping], task: int, phase: str, num_classes
 
 def load_train_snapshot(path: PathLike, state_target: TrainState) -> Tuple[TrainState, int, Dict]:
     """Restore a snapshot into a freshly built ``TrainState`` of the same
-    shapes (its module takes the weights in place; the optimizer state moves
-    to the module's device). Returns (state, seed, meta), the meta read from
-    the same payload as the state."""
+    shapes (its module takes the weights and an open accumulation window's
+    gradients in place; the optimizer state moves to the module's device).
+    Returns (state, seed, meta), the meta read from the same payload as the
+    state."""
     with open(path, "rb") as f:
         _, offset = _read_header(f)
         f.seek(offset)
@@ -140,6 +144,8 @@ def load_train_snapshot(path: PathLike, state_target: TrainState) -> Tuple[Train
             return {k: to_device(v) for k, v in tree.items()}
         return tree
 
+    for n, p in module.named_parameters():
+        p.grad = payload["grads"][n].to(device) if n in payload["grads"] else None
     state = TrainState(module=module, opt_state=to_device(payload["opt_state"]),
                        step=int(payload["step"]))
     return state, int(payload["seed"]), json.loads(payload["meta"])

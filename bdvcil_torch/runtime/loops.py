@@ -1,5 +1,6 @@
-"""The epoch loop of training (the port of ``prefetch_to_device`` and
-``train_epochs``, ``bdvcil_tpu/runtime/loops.py:33-332``).
+"""The epoch loop of training and the inference loop (the port of
+``prefetch_to_device``, ``train_epochs`` and ``run_inference``,
+``bdvcil_tpu/runtime/loops.py:33-479``).
 
 Input reaches the card off the critical path. A prefetch thread takes the
 loader's batches (K of them at a time for the K-step form), copies them into
@@ -11,6 +12,10 @@ that event and marks each tensor as used there (``record_stream``), so the
 allocator keeps its memory until the step's kernels are done
 (``wait_copied``). ``HOST_KEYS`` (RandAugment's draws and mask) stay on the
 host. On the CPU the same path runs without pinning, streams or events.
+
+``run_inference`` runs an eval step over an unshuffled loader through the
+same prefetch thread and copies, keeps one group's outputs pending while the
+next group runs, and returns host arrays in dataset order.
 
 Random draws in a step (dropout, tube-CutMix) come from a generator made from
 (run seed, step) (``step_generator``): a resumed run needs only its seed and
@@ -298,3 +303,125 @@ def train_epochs(
     if pending_metrics is not None:
         last_metrics = {k: float(v) for k, v in pending_metrics.items()}
     return state, last_metrics
+
+
+def run_inference(
+    eval_step: Callable,
+    module,
+    loader,
+    device=None,
+    extract_repr: bool = False,
+    pad_batch_to: Optional[int] = None,
+    steps_per_dispatch: int = 1,
+    multi_eval_step: Optional[Callable] = None,
+) -> Dict[str, np.ndarray]:
+    """Unshuffled forward over a loader's dataset.
+
+    Returns host arrays in dataset order: cls_score (N, G, nc) raw scores (as
+    f32), labels (N,), and repr (N, G, C) when ``extract_repr`` (normalized
+    by the eval step). A batch short of ``pad_batch_to`` rows is padded on the
+    host by repeating its last row (edge padding), and its outputs trimmed.
+
+    With ``steps_per_dispatch`` K > 1 and ``multi_eval_step``
+    (``make_multi_eval_step``), K batches go to the card as one staged group
+    and one call; a ragged last group, or a group whose batches differ in
+    shape, goes batch by batch through ``eval_step``, so the results are the
+    same for every K. The outputs of one group are read back only after the
+    next group has been launched. Runs on the card unless ``device`` says
+    otherwise. One process only: multi-process inference is ROADMAP A.7.
+    """
+    if getattr(loader, "process_count", 1) > 1:
+        raise NotImplementedError("multi-process inference is not ported yet (ROADMAP A.7)")
+    device = resolve_device(device)
+    stream = side_stream(device)
+    pin = device.type == "cuda"
+    spd = int(steps_per_dispatch) if multi_eval_step is not None else 1
+
+    scores: List[np.ndarray] = []
+    labels_out: List[np.ndarray] = []
+    reprs: List[np.ndarray] = []
+
+    def prep_host(batch):
+        """(pixel keys padded to the target rows, labels, valid rows)."""
+        if "imgs" in batch:
+            imgs = {"imgs": np.asarray(batch["imgs"])}
+        else:
+            imgs = {k: np.asarray(v) for k, v in batch.items() if k != "label"}
+        labels = np.asarray(batch["label"]).reshape(-1)
+        n_valid = next(iter(imgs.values())).shape[0]
+        target = pad_batch_to or n_valid
+        if target > n_valid:
+            imgs = {k: np.pad(v, [(0, target - n_valid)] + [(0, 0)] * (v.ndim - 1), mode="edge")
+                    for k, v in imgs.items()}
+        return imgs, labels, n_valid
+
+    def put(host_batches, stack: bool):
+        tree, event = copy_to_device(stage_batches(host_batches, pin, stack=stack), device,
+                                     stream)
+        return tree, event
+
+    def grouped(src):
+        buf = []
+        for b in src:
+            buf.append(b)
+            if len(buf) == spd:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+
+    def prep_group(group):
+        """Prefetch-thread work for one group: pad, stage and start the copies."""
+        preps = [prep_host(b) for b in group]
+        if spd > 1 and len(preps) == spd:
+            first = preps[0][0]
+            if all(p[0].keys() == first.keys()
+                   and all(p[0][k].shape == first[k].shape for k in first) for p in preps[1:]):
+                return ("multi", put([p[0] for p in preps], True), [p[1] for p in preps],
+                        [p[2] for p in preps])
+        return ("single", [(put([p[0]], False), p[1], p[2]) for p in preps])
+
+    def imgs_of(tree):
+        return tree["imgs"] if tuple(tree) == ("imgs",) else tree
+
+    def host(x):
+        return x.float().cpu().numpy()
+
+    def drain(entry):
+        if entry[0] == "multi":
+            _, out, labels_list, n_valids = entry
+            cls = host(out["cls_score"])
+            rep = host(out["repr"]) if extract_repr else None
+            for k, (lb, nv) in enumerate(zip(labels_list, n_valids)):
+                scores.append(cls[k][:nv])
+                labels_out.append(lb)
+                if extract_repr:
+                    reprs.append(rep[k][:nv])
+        else:
+            for out, lb, nv in entry[1]:
+                scores.append(host(out["cls_score"])[:nv])
+                labels_out.append(lb)
+                if extract_repr:
+                    reprs.append(host(out["repr"])[:nv])
+
+    pending = None
+    for entry in prefetch_to_device(grouped(loader), size=2, put_fn=prep_group):
+        if entry[0] == "multi":
+            (tree, event), labels_list, n_valids = entry[1], entry[2], entry[3]
+            out = multi_eval_step(module, imgs_of(wait_copied(tree, event, device)))
+            dispatched = ("multi", out, labels_list, n_valids)
+        else:
+            dispatched = ("single", [
+                (eval_step(module, imgs_of(wait_copied(tree, event, device))), lb, nv)
+                for (tree, event), lb, nv in entry[1]])
+        if pending is not None:
+            drain(pending)
+        pending = dispatched
+    if pending is not None:
+        drain(pending)
+
+    result = {"cls_score": np.concatenate(scores, axis=0),
+              "labels": np.concatenate(labels_out, axis=0)}
+    if extract_repr:
+        result["repr"] = np.concatenate(reprs, axis=0)
+    return result

@@ -1,4 +1,4 @@
-"""The CIL train step (port of ``bdvcil_tpu/runtime/steps.py``).
+"""The CIL train and eval steps (port of ``bdvcil_tpu/runtime/steps.py``).
 
   * 'base'            — loss_cls (CE or LSC/NCA) + per-module feature-KD MSE
                         between the current model's taps (train mode) and the
@@ -10,8 +10,13 @@
   * 'icarl_video_mix' — tube-CutMix of the batch, then the iCaRL loss
 
 The step runs eagerly: the input function (when given), forward, backward,
-then the labeled SGD update in place. ``make_multi_train_step`` runs K steps
-per call.
+then the labeled SGD update in place (with gradient accumulation, every k-th
+call; ``optim.py``). ``make_multi_train_step`` runs K steps per call.
+
+``make_eval_step`` is the forward of ``predict_step``: raw per-group scores
+and L2-normalized representations, from a float batch, uint8 crops (5-D
+centre, 6-D TenCrop) or the full-frame yuv420 eval wire;
+``make_multi_eval_step`` runs K batches per call.
 """
 
 from __future__ import annotations
@@ -30,7 +35,13 @@ from ..losses import (
 )
 from ..models.builder import ModelSpec
 from ..models.heads import head_param_path
-from ..ops.augment import draw_tubemix, tubemix
+from ..ops.augment import (
+    draw_tubemix,
+    eval_yuv_full_crops,
+    normalize_batch,
+    tencrop_expand,
+    tubemix,
+)
 from .train_state import TrainState
 
 METHODS = ("base", "icarl", "icarl_video_mix")
@@ -81,13 +92,14 @@ def make_train_step(
     — pass {} when unused; prev_model may be None at task 0 or when KD is
     off; generator (on the batch's device) drives dropout and, for
     'icarl_video_mix', the tube-CutMix draws (taken first). The state's
-    module is updated in place. Metrics are device tensors.
+    module is updated in place, on every ``tx.accumulate_steps``-th call:
+    the calls between add their gradients to ``p.grad``. Metrics are device
+    tensors.
     """
     if method not in METHODS:
-        # the JAX trainer maps 'oracle' and 'finetune' to 'base' before it
-        # builds a step; that mapping comes with the trainer
-        raise NotImplementedError(f"method {method!r} is not a step method {METHODS}; the "
-                                  f"CIL trainer's methods come with ROADMAP A.6")
+        # the trainer maps 'oracle' and 'finetune' to 'base' before it builds a step
+        raise ValueError(f"method {method!r} is not a step method {METHODS}; the CIL "
+                         f"trainer maps 'oracle' and 'finetune' to 'base' (cil/trainer.py)")
     if method == "icarl_video_mix" and video_mix is None:
         raise ValueError("method 'icarl_video_mix' needs video_mix={'alpha', 'prob'}")
     use_kd = method == "base" and kd_config is not None and task_idx > 0
@@ -153,15 +165,18 @@ def make_train_step(
                 imgs = input_fn(imgs)
         labels = _squeeze_labels(labels)
         sample_weights = extra.get("sample_weight")
-        module.zero_grad(set_to_none=True)
         if method == "base":
             total, metrics = base_loss(module, prev_model, imgs, labels, sample_weights,
                                        generator)
         else:
             total, metrics = icarl_loss(module, prev_model, imgs, labels, extra,
                                         sample_weights, generator)
-        total.backward()
-        new_opt_state = tx.step(module, state.opt_state)
+        total.backward()  # adds to p.grad, which holds the accumulation window's sum
+        if (state.step + 1) % tx.accumulate_steps:
+            new_opt_state = state.opt_state  # a micro-step: no update yet
+        else:
+            new_opt_state = tx.step(module, state.opt_state)
+            module.zero_grad(set_to_none=True)
         metrics["loss"] = total
         metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(module=module, opt_state=new_opt_state, step=state.step + 1), metrics
@@ -203,4 +218,56 @@ def make_multi_train_step(step_kwargs: Dict[str, Any], steps_per_dispatch: int) 
         return state, metrics
 
     multi.needs_prev = inner.needs_prev
+    return multi
+
+
+def _eval_forward(spec: ModelSpec, module: nn.Module, imgs) -> Dict[str, torch.Tensor]:
+    if isinstance(imgs, dict):
+        # the full-frame yuv420 wire: crops, flips and YCbCr -> RGB on the device
+        rgb = eval_yuv_full_crops(imgs)
+        rgb = rgb[:, :, 0] if rgb.shape[2] == 1 else tencrop_expand(rgb)
+        imgs = normalize_batch(rgb, dtype=spec.dtype)
+    elif imgs.dtype == torch.uint8:
+        if imgs.dim() == 6:  # (B, T, 5, h, w, C) from the TenCrop decoder
+            imgs = tencrop_expand(imgs)
+        imgs = normalize_batch(imgs, dtype=spec.dtype)
+    out = module(imgs, train=False)
+    repr_ = out["repr"]
+    norm = torch.linalg.vector_norm(repr_, dim=-1, keepdim=True)
+    return {"cls_score": out["cls_score"], "repr": repr_ / torch.clamp(norm, min=1e-12)}
+
+
+def make_eval_step(spec: ModelSpec, num_classes: int) -> Callable:
+    """The eval forward (``predict_step``, reference cil.py:558-578):
+
+        eval_step(module, imgs) -> {'cls_score': (B, G, nc), 'repr': (B, G, C)}
+
+    raw scores and L2-normalized representations, under ``torch.no_grad``
+    with BatchNorm's running statistics. ``imgs``: a normalized float batch
+    (B, M, H, W, C); uint8 crops (B, T, h, w, C) or TenCrop's (B, T, 5, h, w,
+    C), normalized (and flipped) here; or the ``yuv420_full`` wire dict
+    {imgs_y, imgs_c, crop_yx_<px>} of ``FastEvalLoader``."""
+
+    def eval_step(module: nn.Module, imgs) -> Dict[str, torch.Tensor]:
+        if head_param_path(module).num_classes != num_classes:
+            raise ValueError(f"the module's head has {head_param_path(module).num_classes} "
+                             f"classes, the eval step was built for {num_classes}")
+        with torch.no_grad():
+            return _eval_forward(spec, module, imgs)
+
+    return eval_step
+
+
+def make_multi_eval_step(spec: ModelSpec, num_classes: int, steps_per_dispatch: int) -> Callable:
+    """K eval forwards per call, the counterpart of JAX's ``lax.map`` form:
+    every leaf of ``imgs`` carries a leading K axis, and every output leaf is
+    stacked (K, B, ...). Each slot is exactly one ``make_eval_step`` call."""
+    if steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+    single = make_eval_step(spec, num_classes)
+
+    def multi(module: nn.Module, imgs) -> Dict[str, torch.Tensor]:
+        outs = [single(module, _slot(imgs, k)) for k in range(steps_per_dispatch)]
+        return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+
     return multi

@@ -17,4 +17,7 @@ class TrainState:
 
     @staticmethod
     def create(module: nn.Module, tx) -> "TrainState":
+        # a new state starts an empty accumulation window: p.grad holds a
+        # window's gradient sum between micro-steps and is None outside one
+        module.zero_grad(set_to_none=True)
         return TrainState(module=module, opt_state=tx.init(module), step=0)

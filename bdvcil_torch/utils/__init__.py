@@ -1,6 +1,12 @@
-"""Host-side utilities of the port. ``meters``: the throughput meter of the
-train loop."""
+"""Host-side utilities of the port.
 
-from .meters import Throughput
+  meters   AverageMeter (the accuracy tables) and Throughput (the train loop)
+  tables   print_mean_accuracy, the CIL result table
+  logging  get_logger and the JSONL MetricLogger
+"""
 
-__all__ = ["Throughput"]
+from .logging import MetricLogger, get_logger
+from .meters import AverageMeter, Throughput
+from .tables import print_mean_accuracy
+
+__all__ = ["AverageMeter", "MetricLogger", "Throughput", "get_logger", "print_mean_accuracy"]

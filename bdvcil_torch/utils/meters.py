@@ -1,10 +1,32 @@
-"""The throughput meter of the train loop (the port of ``Throughput``,
-``bdvcil_tpu/utils/meters.py:30``), which also adds up the seconds the loop
-waited for its input."""
+"""Running meters (the port of ``bdvcil_tpu/utils/meters.py``): the
+weighted running average of the accuracy tables, and the throughput meter of
+the train loop, which also adds up the seconds the loop waited for its
+input."""
 
 from __future__ import annotations
 
 import time
+
+
+class AverageMeter:
+    """Per-update values and sizes, and their running weighted average."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.values = []
+        self.sizes = []
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.values.append(val)
+        self.sizes.append(n)
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
 
 
 class Throughput:

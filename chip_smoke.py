@@ -16,7 +16,9 @@ native pool into a yuv420 wire batch (uint8 planes, RandAugment draws, BGMix
 and flip masks), staged through pinned memory to the card, and
 ``make_fast_input_fn`` (YCbCr -> RGB, RandAugment, normalize, flip,
 background blend; eager PyTorch, no hand-written kernel) inside the step,
-driven by ``train_epochs`` with K = 8 steps a call (phase 9).
+driven by ``train_epochs`` with K = 8 steps a call (phase 9). A whole
+class-incremental run drives the slice above it (phase 10): the task loop,
+herding, CBF, NME and TenCrop testing, in configuration B.
 
 The other entry points, each with its own kernels:
 
@@ -36,7 +38,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the plain version and, where one exists, the library call and its bare
      product (no statistics); the wgmma kernels' tile plan per shape; the
      block kernels' statistics on a second run, bit for bit; the block's
-     conv3 (#7) also at a ragged M with b > 0;
+     conv3 (#7) also at a ragged M with b > 0; #1 and #2, bit for bit, at the
+     shapes of every path that runs them: the bench's batch 16 (128 frames
+     at 224, forward and backward), phase 10's batch 8 (64 frames at 224,
+     forward and backward: train, KD, CBF, features, class means and the
+     val test) and its TenCrop test at 256 (8 x 10 x 8 = 640 frames,
+     H = W = 64 to 8, forward only);
   3. reference: one small train step per configuration on the card against
      the same step on the CPU, where the port runs the plain versions;
   4. train A and B at full width: 3 task-0 steps (26 classes), growth to 31,
@@ -71,6 +78,26 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      deterministic CUDA form is named, and the resume is held to the spread
      of two straight runs). Without the decoder the loop and the resume run
      on in-memory synthetic wire batches, and say so.
+ 10. cil, the slice's main path: a rawframe tree of UCF101's stored size
+     (320x240 JPEG frames written with cv2, 16 a video, 8 classes, 4 train
+     and 2 val videos a class, one background a video) under chiprun_out/
+     (removed after), and ``bdvcil_torch.cil_tools.train_cil``'s ``main`` on
+     a config file of the hmdb51 preset (TSM-R50, 8 segments, 224 train
+     crops, TenCrop test at 256) in configuration B, bf16: 3 tasks
+     ([0..3], [4, 5], [6, 7]), batch 8, 1 epoch a task, CBF 1 epoch, budget
+     2, eval K = 2, then ``cil_testing`` with NME. One ``cil task`` line a
+     task: the loaders each phase took (fast, or host and why), the seconds
+     of train, features + herding, CBF and test, the CNN/NME rows (finite,
+     in [0, 100]), the exemplar count, #1 and #2 launches against the count
+     worked out from the forwards and backwards (``expected_cil_launches``),
+     eval clips/s; then cil_testing's #1 launches, the loaders' batch time,
+     and the card's eval step against the CPU's (f32) on one TenCrop batch:
+     cls_score within 3e-2 of its largest entry, and the same prediction
+     (the argmax of the crops' mean softmax) for every video whose CPU
+     log-ratio of top-1 to top-2 probability exceeds 4x the measured max
+     abs err: a logit error of e moves each crop's probabilities, and so
+     their mean, by a factor within exp(+-2e), which cannot reorder two
+     classes further apart than that.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -136,22 +163,31 @@ BLOCK_ITERS = 20
 UCF_STORED = (320, 240)  # UCF101's stored frames (bench.py:305): the planes wire
 # the loop phase: a corpus of 128 videos (8 steps an epoch), K = 8, bench.py's 51 classes
 LOOP_VIDEOS, LOOP_EPOCHS, LOOP_K, LOOP_CLASSES = 128, 2, 8, 51
+# the CIL phase: UCF101's stored frames, 8 classes in 3 tasks, 4 train and 2
+# val videos a class, budget 2, batch 8, 1 epoch a task and 1 CBF epoch
+CIL_SPLITS = [[0, 1, 2, 3], [4, 5], [6, 7]]
+CIL_TRAIN, CIL_VAL, CIL_FRAMES, CIL_BUDGET, CIL_BATCH, CIL_EVAL_K = 4, 2, 16, 2, 8, 2
+EVAL_NT, EVAL_SIZE = CIL_BATCH * 10 * SEGMENTS, 256  # a TenCrop batch: 8 videos x 10 crops x 8
+CIL_BLOCKS = 16  # TSM-R50's blocks: one #1 launch each a forward, one #2 each a backward
+# phase 10 gives #1's and #2's launches: the kernels line sums their rows of its train shapes
+CIL_PATH = "cil"
 
 
-def r50_shapes():
-    """Per train forward: the fused epilogue's (N*T, H, W, C) shapes and the
-    1x1 GEMMs' (M, K, N) shapes of configuration A, each with its count, and
-    the pad path's shifted block inputs (N*T, H, W, C)."""
+def r50_shapes(nt: int = NT, size: int = SIZE):
+    """Per forward of ``nt`` frames at ``size``: the fused epilogue's (N*T,
+    H, W, C) shapes and the 1x1 GEMMs' (M, K, N) shapes of configuration A,
+    each with its count, and the pad path's shifted block inputs (N*T, H, W,
+    C)."""
     fused, gemm, shifted = collections.Counter(), collections.Counter(), collections.Counter()
-    inplanes, planes, size = 64, 64, SIZE // 4
+    inplanes, planes, size = 64, 64, size // 4
     for stage, blocks in enumerate((3, 4, 6, 3)):
         for b in range(blocks):
             stride = 2 if stage > 0 and b == 0 else 1
-            shifted[(NT, size, size, inplanes)] += 1
-            gemm[(NT * size * size, inplanes, planes)] += 1  # conv1, input resolution
+            shifted[(nt, size, size, inplanes)] += 1
+            gemm[(nt * size * size, inplanes, planes)] += 1  # conv1, input resolution
             size //= stride
-            gemm[(NT * size * size, planes, 4 * planes)] += 1  # conv3
-            fused[(NT, size, size, 4 * planes)] += 1
+            gemm[(nt * size * size, planes, 4 * planes)] += 1  # conv3
+            fused[(nt, size, size, 4 * planes)] += 1
             inplanes = 4 * planes
         planes *= 2
     return fused, gemm, shifted
@@ -186,34 +222,50 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(torch.clamp(x.abs(), min=floor))) - 7)
 
 
-def kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv):
-    """Each kernel against its plain version at every shape of the path."""
+def fused_paths():
+    """(path, the fused epilogue's shapes per forward, runs a backward) of
+    every path that runs #1: the bench's batch 16 at 224, phase 10's batch 8
+    at 224 and its TenCrop test at 256."""
+    return [("bench", r50_shapes()[0], True),
+            (CIL_PATH, r50_shapes(CIL_BATCH * SEGMENTS)[0], True),
+            ("TenCrop", r50_shapes(EVAL_NT, EVAL_SIZE)[0], False)]
+
+
+def kernel_phase(dev, gen, paths, gemm_shapes, tsm, conv):
+    """Each kernel against its plain version at every shape of its paths."""
     rows = []
     bf16 = torch.bfloat16
-    for shape, per_fwd in sorted(fused_shapes.items()):
-        h, idt, g_out, g_sh = (torch.randn(shape, generator=gen, device=dev).to(bf16)
-                               for _ in range(4))
-        out, sh = tsm.fused_fwd(h, idt, SEGMENTS, 8)
-        r_out, r_sh = tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8)
-        g_in = tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8)
-        r_g = tsm.fused_residual_relu_shift_bwd_plain(r_out, g_out, g_sh, SEGMENTS, 8)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, r_out) and torch.equal(sh, r_sh) and torch.equal(g_in, r_g)):
-            raise AssertionError(f"fused_residual_relu_shift differs from its plain version at "
-                                 f"{shape}")
-        nbytes = 4 * h.numel() * h.element_size()  # two tensors in, two out
-        for name, fn, plain in (
-            (FWD, lambda: tsm.fused_fwd(h, idt, SEGMENTS, 8),
-             lambda: tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8)),
-            (BWD, lambda: tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8),
-             lambda: tsm.fused_residual_relu_shift_bwd_plain(out, g_out, g_sh, SEGMENTS, 8)),
-        ):
-            b_ms, b_by = bound_ms(nbytes, 0.0)
-            rows.append(dict(kernel=name, shape=list(shape), per_path=per_fwd,
-                             ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
-                             product_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
-                             bytes=nbytes, flops=0, tile=None))
-        del h, idt, g_out, g_sh, out, sh, r_out, r_sh, g_in, r_g
+    for path, shapes, backward in paths:
+        for shape, per_fwd in sorted(shapes.items()):
+            h, idt, g_out, g_sh = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                                   for _ in range(4))
+            out, sh = tsm.fused_fwd(h, idt, SEGMENTS, 8)
+            r_out, r_sh = tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8)
+            same = torch.equal(out, r_out) and torch.equal(sh, r_sh)
+            timed = [(FWD, lambda: tsm.fused_fwd(h, idt, SEGMENTS, 8),
+                      lambda: tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8))]
+            if backward:
+                g_in = tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8)
+                r_g = tsm.fused_residual_relu_shift_bwd_plain(r_out, g_out, g_sh, SEGMENTS, 8)
+                same = same and torch.equal(g_in, r_g)
+                timed.append((BWD, lambda: tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8),
+                              lambda: tsm.fused_residual_relu_shift_bwd_plain(
+                                  out, g_out, g_sh, SEGMENTS, 8)))
+            torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"fused_residual_relu_shift differs from its plain version "
+                                     f"at {shape} ({path})")
+            nbytes = 4 * h.numel() * h.element_size()  # two tensors in, two out
+            for name, fn, plain in timed:
+                b_ms, b_by = bound_ms(nbytes, 0.0)
+                rows.append(dict(kernel=name, path=path, shape=list(shape), per_path=per_fwd,
+                                 ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
+                                 product_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                                 bytes=nbytes, flops=0, tile=None))
+            del h, idt, g_out, g_sh, out, sh, r_out, r_sh, timed
+            if backward:
+                del g_in, r_g
+            torch.cuda.empty_cache()
 
     for (m, k, n), per_fwd in sorted(gemm_shapes.items()):
         x = torch.randn((m, 1, 1, k), generator=gen, device=dev).to(bf16)
@@ -991,6 +1043,235 @@ def loop_phase(dev, seed, smi, conv_per_step):
     return out
 
 
+def write_cil_corpus(root: pathlib.Path, seed: int):
+    """The rawframe tree the hmdb51 preset reads under ``root``: JPEG frames
+    written with cv2, annotation files, and one background a video (the
+    median of its frames)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w, h = UCF_STORED
+    lines = {"train": [], "val": []}
+    for cls in range(8):
+        for v in range(CIL_TRAIN + CIL_VAL):
+            name = f"c{cls}_v{v}"
+            vdir = root / "rawframes" / name
+            vdir.mkdir(parents=True, exist_ok=True)
+            base = rng.integers(0, 200, size=3)
+            frames = np.clip(base + rng.integers(0, 56, size=(CIL_FRAMES, h, w, 3)), 0,
+                             255).astype(np.uint8)
+            for t in range(CIL_FRAMES):
+                cv2.imwrite(str(vdir / f"img_{t + 1:05}.jpg"), frames[t])
+            (root / "bg_extract").mkdir(exist_ok=True)
+            cv2.imwrite(str(root / "bg_extract" / f"{name}.jpg"),
+                        np.median(frames, axis=0).astype(np.uint8))
+            lines["train" if v < CIL_TRAIN else "val"].append(f"{name} {CIL_FRAMES} {cls}")
+    for split, rows in lines.items():
+        (root / f"hmdb51_{split}_split_1_rawframes.txt").write_text("\n".join(rows) + "\n")
+
+
+def cil_config_file(root: pathlib.Path) -> pathlib.Path:
+    """A config file against bdvcil_torch.config_templates: the hmdb51 preset
+    (TSM-R50, 8 segments, 224 train crops, TenCrop test at 256) cut to the
+    corpus, in configuration B with bf16 compute."""
+    path = root / "cil_config.py"
+    path.write_text(f"""from bdvcil_torch.config_templates import make_cil_config
+from bdvcil_torch.protocol import adaptive_scale_factors
+
+_splits = {CIL_SPLITS!r}
+_cfg = make_cil_config("hmdb51", 1000, 3, "bgmix_plus_randAug", data_dir={str(root)!r},
+                       work_dir={str(root / "work_dir")!r})
+_cfg.update(task_splits=_splits, ending_task=len(_splits) - 1,
+            adaptive_scale_factors=adaptive_scale_factors(_splits),
+            videos_per_gpu={CIL_BATCH}, testing_videos_per_gpu={CIL_BATCH}, workers_per_gpu=6,
+            testing_workers_per_gpu=6, num_epochs_per_task=1, cbf_num_epochs_per_task=1,
+            use_cbf=True, budget_size={CIL_BUDGET}, eval_steps_per_dispatch={CIL_EVAL_K},
+            compute_dtype="bfloat16", use_fast_input_pipeline=True, log_every_n_steps=1)
+_cfg["model"]["backbone"]["shift_mode"] = "fused_block"
+_cfg["model"]["cls_head"]["num_classes"] = len(_splits[0])
+_cfg["model"]["cls_head"]["inc_head_config"]["out_features"] = len(_splits[0])
+globals().update(_cfg)
+""")
+    return path
+
+
+def expected_cil_launches():
+    """#1 and #2 launches per task of the CIL phase, from the corpus: every
+    forward (train, the previous model's KD forward from task 1 on, feature
+    extraction, CBF, the exemplar class means, the val test) launches #1 once
+    a block, every train or CBF backward #2 once a block; then cil_testing's
+    TenCrop forwards."""
+    def batches(n):
+        return -(-n // CIL_BATCH)
+
+    per_task, seen = [], 0
+    for t, split in enumerate(CIL_SPLITS):
+        new = CIL_TRAIN * len(split)
+        train = batches(new + CIL_BUDGET * seen)
+        seen += len(split)
+        cbf = batches(CIL_BUDGET * seen) if t > 0 else 0
+        kd = 2 if t > 0 else 1  # the current and the previous model
+        fwd = (train + cbf) * kd + batches(new) + batches(CIL_BUDGET * seen) \
+            + batches(CIL_VAL * seen)
+        per_task.append({FWD: CIL_BLOCKS * fwd, BWD: CIL_BLOCKS * (train + cbf)})
+    testing = sum(batches(CIL_VAL * sum(len(s) for s in CIL_SPLITS[:t + 1]))
+                  for t in range(len(CIL_SPLITS)))
+    return per_task, {FWD: CIL_BLOCKS * testing}
+
+
+def cil_phase(dev, seed, smi):
+    """Phase 10: a whole class-incremental run through
+    bdvcil_torch.cil_tools.train_cil's main() from JPEG files on disk, then
+    cil_testing with TenCrop at 256, and the card's eval step against the
+    CPU's on one TenCrop batch."""
+    import shutil
+
+    from bdvcil_torch.cil import trainer as trainer_mod
+    from bdvcil_torch.cil_tools import train_cil
+    from bdvcil_torch.models import build_model
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.runtime import make_eval_step
+
+    root = pathlib.Path("chiprun_out/cil_corpus").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    marks = []
+    finish = trainer_mod.CILTrainer._finish_task
+
+    def finish_and_mark(self):
+        finish(self)
+        torch.cuda.synchronize()
+        marks.append(dict(_build.LAUNCHES))
+
+    try:
+        t0 = time.perf_counter()
+        write_cil_corpus(root, seed)
+        out["corpus_s"] = time.perf_counter() - t0
+        config = cil_config_file(root)
+        want_tasks, want_testing = expected_cil_launches()
+
+        trainer_mod.CILTrainer._finish_task = finish_and_mark
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        trainer = train_cil.main([str(config)])
+        out["train_s"] = time.perf_counter() - t0
+        trainer_mod.CILTrainer._finish_task = finish
+        before = collections.Counter(marks[-1])
+        t0 = time.perf_counter()
+        trainer.cil_testing(test_nme=True)
+        torch.cuda.synchronize()
+        out["cil_testing_s"] = time.perf_counter() - t0
+        testing = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                   if v - before.get(k, 0)}
+
+        tasks, prev = [], collections.Counter()
+        for t, (stats, mark) in enumerate(zip(trainer.task_stats, marks)):
+            got = {k: v - prev.get(k, 0) for k, v in mark.items() if v - prev.get(k, 0)}
+            prev = collections.Counter(mark)
+            if got != want_tasks[t]:
+                raise AssertionError(f"cil task {t}: kernel launches {got}, expected "
+                                     f"{want_tasks[t]}")
+            cnn, nme = trainer.cnn_matrix[t], trainer.nme_matrix[t]
+            for row in (cnn, nme):
+                if len(row) != t + 1 or not all(math.isfinite(a) and 0 <= a <= 100 for a in row):
+                    raise AssertionError(f"cil task {t}: accuracy row {row}")
+            if stats["exemplars"] != CIL_BUDGET * sum(len(s) for s in CIL_SPLITS[:t + 1]):
+                raise AssertionError(f"cil task {t}: {stats['exemplars']} exemplars")
+            by_choice = collections.defaultdict(list)  # "host (why)" -> the phases that took it
+            for note in sorted(set(stats["loaders"])):
+                what, choice = note.split(": ", 1)
+                by_choice[choice].append(what)
+            loaders = "; ".join(f"{', '.join(w)}: {c}" for c, w in by_choice.items())
+            clips_s = stats["eval_clips"] / stats["eval_s"]
+            tasks.append(dict(stats, launches=got, cnn=cnn, nme=nme, eval_clips_per_s=clips_s,
+                              loaders=loaders))
+            print(f"cil task {t}: loaders {loaders} | train {stats['train_s']:.2f} s, "
+                  f"features + herding {stats['exemplar_s']:.2f} s, CBF "
+                  f"{stats.get('cbf_s', 0.0):.2f} s, test {stats['test_s']:.2f} s | CNN {cnn} "
+                  f"NME {nme} | exemplars {stats['exemplars']} | #1 {got.get(FWD)} #2 "
+                  f"{got.get(BWD)} launches (= expected) | eval {clips_s:.2f} clips/s [{smi}]",
+                  flush=True)
+        if testing != want_testing:
+            raise AssertionError(f"cil_testing: kernel launches {testing}, expected "
+                                 f"{want_testing}")
+        table = (root / "work_dir" / "cnn_result.txt").read_text()
+        print(f"cil_testing (TenCrop at 256, K={CIL_EVAL_K}): {out['cil_testing_s']:.2f} s, #1 "
+              f"{testing[FWD]} launches (= expected); CNN table:\n{table}", flush=True)
+        out.update(tasks=tasks, cnn_matrix=trainer.cnn_matrix, nme_matrix=trainer.nme_matrix,
+                   testing_launches=testing, cnn_table=table,
+                   launches={FWD: sum(t["launches"][FWD] for t in tasks) + testing[FWD],
+                             BWD: sum(t["launches"][BWD] for t in tasks)})
+
+        # the input loaders' batch time on this host (the host pipeline's
+        # DataLoader, or the fast loaders where the decoder built): the last
+        # task's train batches and the TenCrop test batches
+        dm = trainer.data_module
+        train_loader, _ = trainer._try_fast_loader()
+        test_loader = dm.get_test_dataloader([0, len(CIL_SPLITS) - 1])
+        for name, loader in (("train", train_loader or dm.train_dataloader()),
+                             ("TenCrop test", test_loader)):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            out[f"loader_{name}_batch_s"] = (time.perf_counter() - t0) / n
+            print(f"cil input: {name} batch of {CIL_BATCH} videos from {type(loader).__name__} "
+                  f"{out[f'loader_{name}_batch_s']:.3f} s ({n} batches, {os.cpu_count()} CPUs)",
+                  flush=True)
+
+        # the card's eval step against the CPU's on one TenCrop batch (f32 on the CPU)
+        batch = next(iter(test_loader))
+        imgs = (torch.from_numpy(batch["imgs"]) if "imgs" in batch else
+                {k: torch.from_numpy(v) for k, v in batch.items() if k != "label"})
+        nc = trainer.num_classes(len(CIL_SPLITS) - 1)
+        state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        cfg = dict(trainer.config.model)
+        cpu_spec = build_model(cfg, dtype=torch.float32, device="cpu")
+        cpu_model = cpu_spec.module(nc)
+        cpu_model.load_state_dict(state)
+        t0 = time.perf_counter()
+        ref = make_eval_step(cpu_spec, nc)(cpu_model, imgs)
+        out["cpu_eval_s"] = time.perf_counter() - t0
+        _build.LAUNCHES.clear()
+        got = make_eval_step(trainer.spec, nc)(trainer.model, imgs.to(dev) if isinstance(
+            imgs, torch.Tensor) else {k: v.to(dev) for k, v in imgs.items()})
+        torch.cuda.synchronize()
+        if _build.LAUNCHES[FWD] != CIL_BLOCKS:
+            raise AssertionError(f"the card's eval step launched #1 {_build.LAUNCHES[FWD]} times")
+        if tuple(got["cls_score"].shape) != (CIL_BATCH, 10, nc):
+            raise AssertionError(f"eval cls_score {tuple(got['cls_score'].shape)}")
+        g, r = got["cls_score"].float().cpu(), ref["cls_score"].float()
+        err = float((g - r).abs().max())
+        tol = 3e-2 * float(r.abs().max())  # phase 3's bf16 tolerance
+        # the prediction, as the trainer makes it (average_clips='prob'): the
+        # argmax of the crops' mean softmax. A logit error of at most err moves
+        # every probability, and so their mean over crops, by a factor within
+        # exp(+-2 err): where the CPU's top-1/top-2 log-ratio exceeds 4 err the
+        # card's prediction must be the CPU's.
+        pg, pr = torch.softmax(g, -1).mean(1), torch.softmax(r, -1).mean(1)
+        top2 = pr.topk(2, dim=-1).values
+        margin = (top2[:, 0] / top2[:, 1]).log()
+        held = margin > 4 * err
+        flips = int((held & (pg.argmax(-1) != pr.argmax(-1))).sum())
+        out.update(eval_check=dict(max_abs_err=err, tol=tol, argmax_equal=int(
+            (pg.argmax(-1) == pr.argmax(-1)).sum()), held=int(held.sum()), bound=4 * err,
+            min_margin=float(margin.min()), margins=margin.tolist()))
+        if not bool(torch.isfinite(g).all()) or err > tol or flips:
+            raise AssertionError(f"eval step: card vs CPU max abs err {err} (tol {tol}), "
+                                 f"{flips} predictions differ beyond the bound")
+        print(f"cil eval step: card (bf16) vs CPU (f32) on one TenCrop batch of "
+              f"{type(test_loader).__name__} (N*T = {EVAL_NT}): cls_score max abs err {err:.4g} "
+              f"(tol {tol:.4g}); prediction held equal on the {int(held.sum())} of {CIL_BATCH} "
+              f"videos whose CPU top-1/top-2 log-ratio exceeds 4 x err = {4 * err:.3g} "
+              f"(log-ratios {min(margin.tolist()):.3g} to {max(margin.tolist()):.3g}), equal on "
+              f"{out['eval_check']['argmax_equal']} of {CIL_BATCH} in all; CPU "
+              f"{out['cpu_eval_s']:.1f} s [{smi}]", flush=True)
+    finally:
+        trainer_mod.CILTrainer._finish_task = finish
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -1034,12 +1315,13 @@ def main(argv=None) -> int:
     shift_shapes = [(s, torch.bfloat16) for s in sorted(shifted)] + [
         ((64, 28, 28, 512), torch.float32)]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = kernel_phase(dev, gen, fused_shapes, gemm_shapes, tsm, conv)
+    rows = kernel_phase(dev, gen, fused_paths(), gemm_shapes, tsm, conv)
     torch.cuda.empty_cache()
     rows += kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf)
     for r in rows:
         tile = r["tile"]
-        print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/path: {r['ms']:.4f} ms, "
+        print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/{r.get('path', 'path')}: "
+              f"{r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
               f"({KERNEL_META[r['kernel']][2]}), product "
               f"{r['product_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
@@ -1047,6 +1329,15 @@ def main(argv=None) -> int:
               + ("" if tile is None else f", tile {tile['block'][0]}x{tile['block'][1]} "
                  f"tiles {tile['tiles']} grid {tile['grid']} waves {tile['waves']:.2f}"),
               flush=True)
+    # #1 and #2 over one forward (backward) of each path that runs them
+    sums = collections.defaultdict(collections.Counter)
+    for r in rows:
+        if "path" in r:
+            for key in ("ms", "plain_ms", "bound_ms"):
+                sums[(r["kernel"], r["path"])][key] += r[key] * r["per_path"]
+    for (kname, path), v in sums.items():
+        print(f"kernel {kname} over one {path} pass: {v['ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms", flush=True)
     torch.cuda.empty_cache()
 
     reference = reference_phase(dev, args.seed)
@@ -1072,13 +1363,15 @@ def main(argv=None) -> int:
     print(f"gemm path launches {gemm_launches}, shift path launches {shift_launches}",
           flush=True)
     loop = loop_phase(dev, args.seed, smi, sum(gemm_shapes.values()))
+    cil = cil_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
-                **block["launches"], **gemm_launches, **shift_launches, **loop["launches"]}
+                **block["launches"], **gemm_launches, **shift_launches, **loop["launches"],
+                **cil["launches"]}
     kernels = []
     for kname, (source, replaces, library_call) in KERNEL_META.items():
-        mine = [r for r in rows if r["kernel"] == kname]
+        mine = [r for r in rows if r["kernel"] == kname and r.get("path", CIL_PATH) == CIL_PATH]
         per_path = lambda key: sum(r[key] * r["per_path"] for r in mine)  # noqa: E731
         t_bytes = sum(r["bytes"] * r["per_path"] for r in mine) / PEAK_HBM_BYTES * 1e3
         t_ops = sum(r["flops"] * r["per_path"] for r in mine) / PEAK_BF16_FLOPS * 1e3
@@ -1101,10 +1394,11 @@ def main(argv=None) -> int:
     detail = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
-                  loop=loop, loader_source=loop["loader_source"], kernels=kernels,
+                  loop=loop, loader_source=loop["loader_source"], cil=cil, kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
-                       "kernel's path at its shapes (rows weighted by per_path): a task-0 train "
-                       "forward for #1-#3 (backward for _bwd; #3's launches from the loop "
+                       "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
+                       "one forward and one backward of phase 10's batch 8 (its train shapes), "
+                       "for #3 a task-0 train forward of batch 16 (its launches from the loop "
                        "phase's train_epochs run), one call per shape for "
                        "gemm_with_stats and temporal_shift (forward and reverse), one layer1 "
                        "block forward for the block kernels; kernel_rows are per launch. "
@@ -1112,7 +1406,8 @@ def main(argv=None) -> int:
                        "out the prologue, so it does less work than the kernel. product_ms: "
                        "the bare torch.matmul or F.conv2d of the library yardstick, without "
                        "its sums. tile: the wgmma core's plan (sm90::make_plan, read through "
-                       "ops/gemm_plan.py) for #3, #4, #6, #7 and #8")
+                       "ops/gemm_plan.py) for #3, #4, #6, #7 and #8. launches of #1 and #2: "
+                       "phase 10's whole CIL run (tasks and cil_testing)")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

@@ -85,13 +85,13 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
                                    err_msg=key)
 
 
-def _state(seed=0, dropout=0.0):
+def _state(seed=0, dropout=0.0, accumulate=1):
     spec = _spec(dropout=dropout)
     model = init_model_params(spec, seed)
     tx = build_optimizer(model, dict(type="SGD", lr=0.05, momentum=0.9, weight_decay=1e-4,
                                      paramwise_cfg=dict(fc_lr_scale_factor=5.0)),
                          dict(type="MultiStepLR", params=dict(milestones=[2], gamma=0.1)),
-                         steps_per_epoch=3)
+                         steps_per_epoch=-(-3 // accumulate), accumulate_steps=accumulate)
     return spec, tx, TrainState.create(model, tx)
 
 
@@ -148,10 +148,20 @@ def _run(state, spec, tx, num_epochs, start_epoch=0, snapshot_hook=None):
 
 
 def test_midtask_resume_is_bit_exact(tmp_path):
-    spec, tx, state = _state(dropout=0.5)
+    _check_resume(tmp_path, accumulate=1)
+
+
+def test_midtask_resume_inside_an_accumulation_window_is_bit_exact(tmp_path):
+    """With 2 micro-steps an update and 3 batches an epoch, the snapshot after
+    epoch 0 falls inside a window: its gradient sum must ride along."""
+    _check_resume(tmp_path, accumulate=2)
+
+
+def _check_resume(tmp_path, accumulate):
+    spec, tx, state = _state(dropout=0.5, accumulate=accumulate)
     straight = _run(state, spec, tx, 3)
 
-    spec2, tx2, state2 = _state(dropout=0.5)
+    spec2, tx2, state2 = _state(dropout=0.5, accumulate=accumulate)
     path = tmp_path / "mid_task_snapshot_inc_step.pt"
 
     def hook(epoch, st, seed):
@@ -160,12 +170,16 @@ def test_midtask_resume_is_bit_exact(tmp_path):
     _run(state2, spec2, tx2, 1, snapshot_hook=hook)
     meta = ckpt.peek_train_snapshot_meta(path)
     assert meta["epoch"] == 0
+    open_window = [p.grad for p in state2.module.parameters() if p.grad is not None]
+    assert len(open_window) == (0 if accumulate == 1 else len(list(state2.module.parameters())))
 
-    spec3, tx3, fresh = _state(seed=7, dropout=0.5)  # other weights: the load must set them all
-    before = copy.deepcopy(fresh.module.state_dict())
+    spec3, tx3, fresh = _state(seed=7, dropout=0.5, accumulate=accumulate)  # other weights:
+    before = copy.deepcopy(fresh.module.state_dict())  # the load must set them all
     restored, seed, meta3 = ckpt.load_train_snapshot(path, fresh)
     assert seed == 42 and meta3 == meta and restored.step == 3
     assert not all(torch.equal(before[k], v) for k, v in restored.module.state_dict().items())
+    for p, g in zip(restored.module.parameters(), state2.module.parameters()):
+        assert (p.grad is None and g.grad is None) or torch.equal(p.grad, g.grad)
     resumed = _run(restored, spec3, tx3, 3, start_epoch=meta["epoch"] + 1)
 
     assert resumed.step == straight.step == 9
@@ -173,9 +187,11 @@ def test_midtask_resume_is_bit_exact(tmp_path):
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    assert resumed.opt_state["count"] == straight.opt_state["count"] == 9
+    assert resumed.opt_state["count"] == straight.opt_state["count"] == 9 // accumulate
     for k, v in straight.opt_state["momentum"].items():
         assert torch.equal(resumed.opt_state["momentum"][k], v), k
+    for p, q in zip(resumed.module.parameters(), straight.module.parameters()):
+        assert (p.grad is None and q.grad is None) or torch.equal(p.grad, q.grad)
 
 
 def test_dropout_makes_the_resume_test_sensitive_to_the_step_generators():
