@@ -14,7 +14,7 @@ Layout:
   data     the fast input path: the train and eval loaders and the native
            JPEG decoder binding (host half), the input functions and wire
            layout (device half); the slow host pipeline (annotations,
-           datasets, transforms, rand_augment, host_loader); SampleFrames, a
+           datasets, transforms, box, rand_augment, host_loader); SampleFrames, a
            synthetic JPEG corpus writer and synthetic wire batches
   models   ResNet-TSM backbone, flax-semantics BatchNorm, incremental heads,
            recognizer, builder, the JAX <-> torch weight converter, and the
@@ -28,7 +28,10 @@ Layout:
            run_inference, checkpoints and snapshots
   cil      herding, the per-task data module and the CIL trainer (task loop,
            exemplars, CBF, NME, cil_testing, resume)
-  cil_tools  the command-line tools: train_cil (the others wait, ROADMAP A.7)
+  cil_tools  the command-line tools: train_cil, test_cil, test_single_ckpt,
+           predict, extract_features, extract_background,
+           create_annotation_files
+  tools    the plain single-task trainer (tools.train)
   config, config_templates, registry, protocol
            python-file configs, the experiment grid (make_cil_config and
            the main path's settings), type registries, vCLIMB class orders

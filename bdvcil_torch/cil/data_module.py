@@ -11,7 +11,8 @@ dataset and loader stack:
     to realpath(data_root) (cil.py:344-363)
   * train dataset reload per task with exemplar replay merged in
     (cil.py:174-195); merging extends video_infos and (for
-    BackgroundMixDataset with merge_bg_files) bg_files (cil.py:386-402)
+    BackgroundMixDataset with merge_bg_files) bg_files, and reloads an
+    ActorCutMixDataset's detections (cil.py:386-402)
   * background-pool policies ``keep_all_backgrounds`` / ``cbf_full_bg`` for
     the class-balanced fine-tuning dataset (cil.py:146-172)
   * merged multi-task eval datasets preserving task order — accuracy
@@ -35,7 +36,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 from ..config import Config
 from ..data import native
 from ..data.annotations import accumulate_task_sizes, build_label_remap
-from ..data.datasets import BackgroundMixDataset, RawframeDataset, build_dataset
+from ..data.datasets import (ActorCutMixDataset, BackgroundMixDataset, RawframeDataset,
+                             build_dataset)
 from ..data.host_loader import DataLoader
 from ..data.loaders import FastEvalLoader
 from ..utils import get_logger
@@ -407,6 +409,11 @@ class CILDataModule:
             source.video_infos.extend(target.video_infos)
             if source.merge_bg_files:
                 source.bg_files.extend(getattr(target, "bg_files", []))
+        elif isinstance(source, ActorCutMixDataset):
+            source.video_infos.extend(target.video_infos)
+            # the reference reads the top-level config key (cil.py:396); fall
+            # back to the dataset's own det_file when a config omits it
+            source.load_detections(self.config.get("det_file", source.det_file))
         elif isinstance(source, RawframeDataset):
             source.video_infos.extend(target.video_infos)
         else:

@@ -35,10 +35,11 @@ import torch
 from .._device import resolve_device
 from ..config import Config
 from ..data import native
-from ..data.datasets import BackgroundMixDataset, RawframeDataset
-from ..data.device_pipeline import make_fast_input_fn
+from ..data.datasets import ActorCutMixDataset, BackgroundMixDataset, RawframeDataset
+from ..data.device_pipeline import make_fast_acm_input_fn, make_fast_input_fn
 from ..data.host_loader import DataLoader
-from ..data.loaders import FastBGMixLoader, fast_pipeline_mismatch, resolve_wire_format
+from ..data.loaders import (FastACMLoader, FastBGMixLoader, fast_pipeline_mismatch,
+                            resolve_wire_format)
 from ..models import build_model, init_model_params
 from ..models.builder import ModelSpec
 from ..models.heads import head_param_path, update_fc
@@ -423,6 +424,8 @@ class CILTrainer:
         if len(ds) == 0:
             self._note_loader(what, "host (empty dataset)")
             return None, None
+        if isinstance(ds, ActorCutMixDataset):
+            return self._fast_acm_loader(ds, what)
         # a plain RawframeDataset is the BGMix path without backgrounds; an
         # unknown subclass may carry augmentation the fast path lacks
         if not isinstance(ds, BackgroundMixDataset) and type(ds) is not RawframeDataset:
@@ -491,6 +494,43 @@ class CILTrainer:
             wire_format=loader.wire_format,
         )
         self._note_loader(what, f"fast ({loader.wire_format} wire)")
+        return loader, input_fn
+
+    def _fast_acm_loader(self, ds, what: str = "train"):
+        """The fast path of the ActorCutMix family: native decode of the
+        action and scene clips, boxes carried on the host, mask, cut-out and
+        composite on the device (``FastACMLoader`` + ``make_fast_acm_input_fn``;
+        reference actor_cut_mix_loader.py:117-152). The dataset hardcodes its
+        geometry (256 short side, 224 crops, the MultiScaleCrop scales, flip
+        0.5, box threshold 0.4, ``NUM_CLIPS`` clips) and drops the config's
+        pipeline, so there is no pipeline to gate; the model's num_segments
+        against ``NUM_CLIPS`` is the one setting that can differ, and then
+        the host pipeline keeps the dataset's own sampling."""
+        if int(self.spec.num_segments) != type(ds).NUM_CLIPS:
+            self._note_loader(what, f"host (fast ACM input pipeline declined: model "
+                                    f"num_segments {self.spec.num_segments} != the dataset's "
+                                    f"hardcoded num_clips {type(ds).NUM_CLIPS})")
+            return None, None
+        wire_format = resolve_wire_format(str(self.config.get("fast_input_wire_format", "auto")),
+                                          224)
+        loader = FastACMLoader(
+            ds.video_infos,
+            batch_size=self.config.videos_per_gpu * self.data_module.world_size,
+            num_segments=self.spec.num_segments,
+            acm_prob=float(ds.acm_prob),
+            filename_tmpl=ds.filename_tmpl,
+            start_index=ds.start_index,
+            seed=self.seed,
+            drop_last=False,
+            pad_to_batch=True,
+            num_workers=int(self.config.get("fast_input_workers", 1)),
+            wire_format=wire_format,
+        )
+        # the device normalize takes the dataset's hardcoded constants
+        input_fn = make_fast_acm_input_fn(mean=tuple(ds.IMG_NORM["mean"]),
+                                          std=tuple(ds.IMG_NORM["std"]), dtype=self.spec.dtype,
+                                          wire_format=loader.wire_format)
+        self._note_loader(what, f"fast ACM ({loader.wire_format} wire)")
         return loader, input_fn
 
     def train_task(self) -> None:
@@ -763,8 +803,9 @@ class CILTrainer:
             (self.work_dir / "nme_result.txt").write_text("NME Accuracies" + nme_table + "\n")
         self._current_task = tmp
 
-    def single_ckpt_testing(self, ckpt_file: str, test_nme: bool = True) -> None:
-        """Evaluate one checkpoint at the configured ending task (cil.py:1030-1057)."""
+    def single_ckpt_testing(self, ckpt_file: str, test_nme: bool = True):
+        """Evaluate one checkpoint at the configured ending task (cil.py:1030-1057);
+        returns ``_testing``'s accuracies."""
         logger.info("Load ckpt from %s", ckpt_file)
         state, meta = load_checkpoint(ckpt_file)
         nc = int(meta["num_classes"]) if meta else head_param_path(self.model).num_classes
@@ -785,5 +826,5 @@ class CILTrainer:
                                          test_mode=True)
             self.data_module.test_datasets.append(ds)
         self._current_task = self.ending_task
-        self._testing(val_test="test", exemplar_class_means=exemplar_class_means,
-                      task_indices=[0, self._current_task])
+        return self._testing(val_test="test", exemplar_class_means=exemplar_class_means,
+                             task_indices=[0, self._current_task])

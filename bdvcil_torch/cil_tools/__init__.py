@@ -1,21 +1,53 @@
-"""Command-line tools of the port (``python -m bdvcil_torch.cil_tools.<tool>``).
+"""Command-line tools of the port (``python -m bdvcil_torch.cil_tools.<tool>``),
+one per JAX tool in ``cil_tools/``:
 
-  train_cil           the CIL training entry point
-  test_cil, test_single_ckpt, predict, extract_features, extract_background
-                      not ported yet: each raises NotImplementedError naming
-                      ROADMAP A.7 (``CILTrainer.cil_testing`` and
-                      ``single_ckpt_testing`` themselves are ported)
+  train_cil                the CIL training entry point
+  test_cil                 every per-task checkpoint of a run on tasks [0..t]
+  test_single_ckpt         one checkpoint at a chosen task
+  predict                  top-k classes of unlabeled rawframe videos
+  extract_features         per-sample scores and representations of a split
+  extract_background       the temporal-median background bank
+  create_annotation_files  per-task and oracle annotation files, the label map
+
+Each runs on the card unless ``--device`` names another device (the model
+tools) or the reduction runs on the host (``extract_background`` without
+``--device``, ``create_annotation_files``). One process: started under a
+launcher with ``WORLD_SIZE`` > 1, a tool raises (``torch.distributed`` is
+ROADMAP A.7).
 """
 
-DEFERRED_TOOLS = ("test_cil", "test_single_ckpt", "predict", "extract_features",
-                  "extract_background")
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
 
 
-def deferred_tool(name: str):
-    """The ``main`` of a tool that waits for ROADMAP A.7."""
+def single_process(tool: str) -> None:
+    """Raise when a launcher started ``tool`` (its module name) as one of
+    several processes."""
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if world > 1:
+        raise NotImplementedError(
+            f"{tool} runs in one process; WORLD_SIZE={world} needs "
+            f"torch.distributed, which is not ported yet (ROADMAP A.7)")
 
-    def main(argv=None):
-        raise NotImplementedError(f"bdvcil_torch.cil_tools.{name} is not ported yet "
-                                  f"(ROADMAP A.7; cil_tools/{name}.py is the JAX tool)")
 
-    return main
+def load_model(config, ckpt_path, device) -> Tuple[object, torch.nn.Module, int, Optional[Dict]]:
+    """(spec, module on ``device``, classifier width, sidecar meta) of a port
+    checkpoint (``runtime/checkpoint.py``): the width is the checkpoint's
+    classifier rows. The model is float32 whatever the config's
+    ``compute_dtype``, as the JAX tools build it."""
+    from ..models.builder import build_model
+    from ..runtime.checkpoint import load_checkpoint
+
+    state, meta = load_checkpoint(ckpt_path)
+    fc = state.get("cls_head.fc_weights", state.get("cls_head.fc_weight"))
+    if fc is None:
+        raise KeyError(f"{ckpt_path}: no classifier (cls_head.fc_weights / fc_weight)")
+    num_classes = int(fc.shape[0])
+    spec = build_model(dict(config.model), device=device)
+    module = spec.module(num_classes)
+    module.load_state_dict(state)
+    return spec, module, num_classes, meta

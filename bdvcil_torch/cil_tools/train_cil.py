@@ -11,7 +11,8 @@ files under ``configs/`` import the JAX package); ``--preset`` builds one with
 The flags are those of the JAX entry point; boolean flags and ``--alpha`` /
 ``--log_every_n_steps`` override the config only when given. It runs on the
 card unless ``--device`` names another device (``--device cpu``); without a
-CUDA device and without ``--device`` it raises.
+CUDA device and without ``--device`` it raises. One process: with
+``WORLD_SIZE`` > 1 it raises (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Sequence
 from .._device import resolve_device
 from ..config import Config
 from ..config_templates import parse_preset
+from . import single_process
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -80,6 +82,7 @@ def load_config(args, cfg_dict) -> Config:
 
 def main(argv: Optional[Sequence[str]] = None):
     """Train; returns the trainer (its accuracy matrices and ``task_stats``)."""
+    single_process("bdvcil_torch.cil_tools.train_cil")
     args, cfg_dict = parse_args(argv)
     device = resolve_device(args.device)
     config = load_config(args, cfg_dict)

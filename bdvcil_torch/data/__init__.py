@@ -14,8 +14,9 @@ The fast path (native decode, then the rest on the device):
 The slow host pipeline (numpy, cv2, PIL), which the trainer takes when the
 config does not ask for the fast path or the decoder is unavailable:
   annotations      annotation files, the label remap, task splits
-  datasets         RawframeDataset, BackgroundMixDataset (ActorCutMixDataset
-                   waits, ROADMAP A.8)
+  datasets         RawframeDataset, BackgroundMixDataset, ActorCutMixDataset
+  box              the detection-aware ops of ActorCutMix (box loading, cut
+                   outs, the human mask, box-aware resize, crop and flip)
   transforms       the pipeline ops (decode, resize, crops, normalize, ...)
   rand_augment     the whole-clip PIL RandAugment
   host_loader      the threaded DataLoader and collate

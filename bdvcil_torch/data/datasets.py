@@ -1,5 +1,5 @@
-"""Rawframe datasets: base and BackgroundMix (the port's copy of
-``bdvcil_tpu/data/datasets.py:33-265``; ActorCutMix waits, ROADMAP A.8).
+"""Rawframe datasets: base, BackgroundMix and ActorCutMix (the port's copy
+of ``bdvcil_tpu/data/datasets.py``).
 
 The JAX package's re-design of the reference's dataset layer:
   * ``RawframeDataset`` — the mmaction2 base-class capability surface the
@@ -13,7 +13,8 @@ The JAX package's re-design of the reference's dataset layer:
     extraction when missing, alpha-blend with probability ``prob``, mutual
     exclusion with RandAugment when ``with_randAug``.
   * ``ActorCutMixDataset`` — actor/scene compositing with human-box
-    detections; here a stub that raises (ROADMAP A.8).
+    detections (reference libs/loader/actor_cut_mix_loader.py:11-167), on
+    the box ops of ``data/box.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import cv2
 import numpy as np
 
 from ..registry import DATASETS
-from . import rand_augment  # noqa: F401  (registers RandAugment)
+from . import box, rand_augment  # noqa: F401  (register the box ops and RandAugment)
 from .annotations import read_annotation_file
 from .transforms import Compose, _imresize
 
@@ -266,13 +267,131 @@ class BackgroundMixDataset(RawframeDataset):
 
 @DATASETS.register_module()
 class ActorCutMixDataset(RawframeDataset):
-    """The actor/scene compositing dataset of the ``actorcutmix_plus_randaug``
-    preset. It waits, with ``data/box.py`` and the trainer's fast ACM loader,
-    for ROADMAP A.8; the device half (``FastACMLoader``,
-    ``make_fast_acm_input_fn``) is ported."""
+    """Composites the human-box region of one video onto another's scene.
 
+    Internal randAug/scene/action/out pipelines are hardcoded exactly like the
+    reference (actor_cut_mix_loader.py:39-103); emits ``foreground_ratio`` and
+    ``background_label`` consumed by ACMSmoothCE / the iCaRL step.
+    """
+
+    IMG_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375], to_bgr=False)
+    # the reference hardcodes 8-clip sampling inside every internal pipeline
+    # (actor_cut_mix_loader.py:39-103); the trainer's fast-ACM gate compares
+    # the model's num_segments against THIS constant so the two can't drift
     NUM_CLIPS = 8
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ActorCutMixDataset (and data/box.py) are not ported yet (ROADMAP A.8)")
+    def __init__(
+        self,
+        ann_file: str,
+        det_file: Optional[str],
+        acm_prob: float = 1.0,
+        **kwargs,
+    ):
+        randaug_pipeline = [
+            dict(type="SampleFrames", clip_len=1, frame_interval=1, num_clips=self.NUM_CLIPS),
+            dict(type="RawFrameDecode"),
+            dict(type="Resize", scale=(-1, 256)),
+            dict(type="RandAugment", n=2, m=10, prob=1),
+            dict(
+                type="MultiScaleCrop",
+                input_size=224,
+                scales=(1, 0.875, 0.75, 0.66),
+                random_crop=False,
+                max_wh_scale_gap=1,
+                num_fixed_crops=13,
+            ),
+            dict(type="Resize", scale=(224, 224), keep_ratio=False),
+        ]
+        kwargs.pop("pipeline", None)
+        super().__init__(ann_file, randaug_pipeline, **kwargs)
+        self.randAug_pipeline = self.pipeline
+
+        if det_file is not None:
+            self.load_detections(det_file)
+        self.det_file = det_file
+        self.acm_prob = acm_prob
+
+        self.scene_pipeline = Compose(
+            [
+                dict(type="SampleFrames", clip_len=1, frame_interval=1, num_clips=self.NUM_CLIPS),
+                dict(type="RawFrameDecode"),
+                dict(type="DetectionLoad", thres=0.4),
+                dict(type="ResizeWithBox", scale=(-1, 256)),
+                dict(type="FlipWithBox", flip_ratio=0.5),
+                dict(type="ResizeWithBox", scale=(224, 224), keep_ratio=False),
+                dict(type="ActorCutOut", fill_color=127),
+            ]
+        )
+        self.action_pipeline = Compose(
+            [
+                dict(type="SampleFrames", clip_len=1, frame_interval=1, num_clips=self.NUM_CLIPS),
+                dict(type="RawFrameDecode"),
+                dict(type="DetectionLoad", thres=0.4),
+                dict(type="ResizeWithBox", scale=(-1, 256)),
+                dict(type="FlipWithBox", flip_ratio=0.5),
+                dict(type="ResizeWithBox", scale=(224, 224), keep_ratio=False),
+                dict(type="BuildHumanMask"),
+                dict(type="SceneCutOut", fill_color=127),
+            ]
+        )
+        self.out_pipeline = Compose(
+            [
+                dict(type="Normalize", **self.IMG_NORM),
+                dict(type="FormatShape", input_format="NCHW"),
+                dict(
+                    type="Collect",
+                    keys=["imgs", "label", "foreground_ratio", "background_label"],
+                    meta_keys=[],
+                ),
+                dict(type="ToTensor", keys=["imgs", "label", "background_label"]),
+            ]
+        )
+
+    def load_detections(self, det_file: str) -> None:
+        """Merge human-box detections (.npy dict keyed by sequence name) into
+        video_infos (actor_cut_mix_loader.py:105-115)."""
+        dets = np.load(det_file, allow_pickle=True).item()
+        for idx in range(len(self.video_infos)):
+            seq_name = self.video_infos[idx]["frame_dir"].split("/")[-1]
+            if "kinetics" in det_file:
+                seq_name = seq_name[:11]
+            self.video_infos[idx]["all_detections"] = dets[seq_name]
+
+    def prepare_train_frames(self, idx: int) -> dict:
+        results = self._base_results(idx)
+        rng = results["rng"]
+        if rng.random() < self.acm_prob:
+            results = self.actor_cut_mix(results, rng)
+        else:
+            results = self.randAug_pipeline(results)
+            results["foreground_ratio"] = 1
+            results["background_label"] = -1
+        return self.out_pipeline(results)
+
+    def actor_cut_mix(self, result: dict, rng: np.random.Generator) -> dict:
+        result = self.action_pipeline(result)
+
+        scene_index = int(rng.integers(len(self.video_infos)))
+        scene_video = self._base_results(scene_index)
+        scene_video["rng"] = rng
+        scene_video = self.scene_pipeline(scene_video)
+
+        for frame_idx in range(len(result["imgs"])):
+            actor_img = result["imgs"][frame_idx]
+            scene_img = scene_video["imgs"][frame_idx]
+            actor_mask = result["human_mask"][frame_idx]
+            result["imgs"][frame_idx] = actor_img * actor_mask + scene_img * (1 - actor_mask)
+        result["foreground_ratio"] = self._calc_foreground_ratio(result)
+        result["background_label"] = scene_video["label"]
+        return result
+
+    @staticmethod
+    def _calc_foreground_ratio(result: dict) -> float:
+        h, w = result["imgs"][0].shape[:2]
+        num_segments = len(result["imgs"])
+        total_area = num_segments * w * h
+        foreground_area = sum(float(m[:, :, 0].sum()) for m in result["human_mask"])
+        return foreground_area / total_area
+
+    def prepare_test_frames(self, idx: int) -> dict:
+        raise NotImplementedError("ActorCutMixDataset is train-only (reference :166)")

@@ -1,7 +1,7 @@
 """Host-side (numpy/cv2) video transform pipeline (the port's copy of
 ``bdvcil_tpu/data/transforms.py``; ``SampleFrames`` is registered from
-``data/sampling.py``, and the crop box of ``RandomResizedCrop`` is drawn here
-rather than by the box ops, which wait with ActorCutMix, ROADMAP A.8).
+``data/sampling.py``, and the crop box of ``RandomResizedCrop`` is drawn here;
+``data/box.py``'s ``RandomResizedCropWithBox`` draws it through this class).
 
 Provides the mmaction2 pipeline-op capability surface the reference configs
 use (SURVEY.md §2.4 "Data pipeline ops"): SampleFrames (sampling.py),
@@ -268,7 +268,7 @@ class RandomCrop:
 @PIPELINES.register_module()
 class RandomResizedCrop:
     """Random area/aspect crop (mmaction2 RandomResizedCrop capability; the
-    box-aware variant waits with ActorCutMix, ROADMAP A.8)."""
+    box-aware variant is ``data/box.py``'s RandomResizedCropWithBox)."""
 
     def __init__(self, area_range=(0.08, 1.0), aspect_ratio_range=(3 / 4, 4 / 3)):
         self.area_range = area_range

@@ -18,7 +18,9 @@ and flip masks), staged through pinned memory to the card, and
 background blend; eager PyTorch, no hand-written kernel) inside the step,
 driven by ``train_epochs`` with K = 8 steps a call (phase 9). A whole
 class-incremental run drives the slice above it (phase 10): the task loop,
-herding, CBF, NME and TenCrop testing, in configuration B.
+herding, CBF, NME and TenCrop testing, in configuration B; the ActorCutMix
+preset and the single-process tools (phase 11) drive it again from their
+command-line entry points.
 
 The other entry points, each with its own kernels:
 
@@ -98,6 +100,25 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      abs err: a logit error of e moves each crop's probabilities, and so
      their mean, by a factor within exp(+-2e), which cannot reorder two
      classes further apart than that.
+ 11. acm and the tools, the slice's path through each tool's ``main``: phase
+     10's corpus writer with a ``detections.npy`` (one or two boxes on most
+     frames, scores on both sides of 0.4, some frames without, one video
+     without any); ``create_annotation_files`` (every video listed once with
+     its frames and label); ``extract_background --device`` (the card's
+     medians equal ``np.round(np.median(...))`` bit for bit at 16 and 15
+     frames; at 16 a lower-middle median would differ); ``train_cil`` on the
+     ``actorcutmix_plus_randaug`` preset of the hmdb51 template (TSM-R50,
+     icarl with ACMSmoothCE, ActorCutMixDataset from the host pipeline,
+     acm_prob 0.5 and no CBF as the preset sets them) cut as phase 10, with
+     one ``cil acm task`` line a task (the loaders, stage seconds, #1/#2
+     launches against ``expected_cil_launches(use_cbf=False)``), then
+     ``cil_testing`` and the host ACM batch time; ``test_cil`` (tables
+     equal to the trainer's, launches equal); ``test_single_ckpt`` on the
+     last checkpoint; ``predict`` on 4 videos (top-1 equal to the argmax of
+     the eval step on the same videos, with the original labels of the
+     annotation tool's map); ``extract_features`` on them (every video kept,
+     scores and representations within 3e-2 of the largest entry of the eval
+     step's).
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -168,6 +189,7 @@ LOOP_VIDEOS, LOOP_EPOCHS, LOOP_K, LOOP_CLASSES = 128, 2, 8, 51
 CIL_SPLITS = [[0, 1, 2, 3], [4, 5], [6, 7]]
 CIL_TRAIN, CIL_VAL, CIL_FRAMES, CIL_BUDGET, CIL_BATCH, CIL_EVAL_K = 4, 2, 16, 2, 8, 2
 EVAL_NT, EVAL_SIZE = CIL_BATCH * 10 * SEGMENTS, 256  # a TenCrop batch: 8 videos x 10 crops x 8
+SERVE_VIDEOS = 4  # phase 11's predict and extract_features batch (float32, as the tools build)
 CIL_BLOCKS = 16  # TSM-R50's blocks: one #1 launch each a forward, one #2 each a backward
 # phase 10 gives #1's and #2's launches: the kernels line sums their rows of its train shapes
 CIL_PATH = "cil"
@@ -223,21 +245,26 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_paths():
-    """(path, the fused epilogue's shapes per forward, runs a backward) of
-    every path that runs #1: the bench's batch 16 at 224, phase 10's batch 8
-    at 224 and its TenCrop test at 256."""
-    return [("bench", r50_shapes()[0], True),
-            (CIL_PATH, r50_shapes(CIL_BATCH * SEGMENTS)[0], True),
-            ("TenCrop", r50_shapes(EVAL_NT, EVAL_SIZE)[0], False)]
+    """(path, the fused epilogue's shapes per forward, runs a backward, dtype)
+    of every path that runs #1: the bench's batch 16 at 224, phase 10's batch
+    8 at 224 and its TenCrop test at 256 (bf16), and phase 11's float32
+    tools: predict's TenCrop batch of 4 at 256, extract_features' batch of 4
+    at 224."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("bench", r50_shapes()[0], True, bf16),
+            (CIL_PATH, r50_shapes(CIL_BATCH * SEGMENTS)[0], True, bf16),
+            ("TenCrop", r50_shapes(EVAL_NT, EVAL_SIZE)[0], False, bf16),
+            ("predict f32", r50_shapes(SERVE_VIDEOS * 10 * SEGMENTS, EVAL_SIZE)[0], False, f32),
+            ("features f32", r50_shapes(SERVE_VIDEOS * SEGMENTS)[0], False, f32)]
 
 
 def kernel_phase(dev, gen, paths, gemm_shapes, tsm, conv):
     """Each kernel against its plain version at every shape of its paths."""
     rows = []
     bf16 = torch.bfloat16
-    for path, shapes, backward in paths:
+    for path, shapes, backward, dtype in paths:
         for shape, per_fwd in sorted(shapes.items()):
-            h, idt, g_out, g_sh = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+            h, idt, g_out, g_sh = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                                    for _ in range(4))
             out, sh = tsm.fused_fwd(h, idt, SEGMENTS, 8)
             r_out, r_sh = tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8)
@@ -254,12 +281,12 @@ def kernel_phase(dev, gen, paths, gemm_shapes, tsm, conv):
             torch.cuda.synchronize()
             if not same:
                 raise AssertionError(f"fused_residual_relu_shift differs from its plain version "
-                                     f"at {shape} ({path})")
+                                     f"at {shape} {dtype} ({path})")
             nbytes = 4 * h.numel() * h.element_size()  # two tensors in, two out
             for name, fn, plain in timed:
                 b_ms, b_by = bound_ms(nbytes, 0.0)
                 rows.append(dict(kernel=name, path=path, shape=list(shape), per_path=per_fwd,
-                                 ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
+                                 dtype=str(dtype).removeprefix("torch."), ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
                                  product_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
                                  bytes=nbytes, flops=0, tile=None))
             del h, idt, g_out, g_sh, out, sh, r_out, r_sh, timed
@@ -1096,12 +1123,13 @@ globals().update(_cfg)
     return path
 
 
-def expected_cil_launches():
-    """#1 and #2 launches per task of the CIL phase, from the corpus: every
-    forward (train, the previous model's KD forward from task 1 on, feature
-    extraction, CBF, the exemplar class means, the val test) launches #1 once
-    a block, every train or CBF backward #2 once a block; then cil_testing's
-    TenCrop forwards."""
+def expected_cil_launches(use_cbf: bool = True):
+    """#1 and #2 launches per task of a CIL phase, from the corpus: every
+    forward (train, the previous model's forward from task 1 on: KD in
+    phase 10, the iCaRL targets in phase 11; feature extraction, CBF, the
+    exemplar class means, the val test) launches #1 once a block, every
+    train or CBF backward #2 once a block; then cil_testing's TenCrop
+    forwards."""
     def batches(n):
         return -(-n // CIL_BATCH)
 
@@ -1110,7 +1138,7 @@ def expected_cil_launches():
         new = CIL_TRAIN * len(split)
         train = batches(new + CIL_BUDGET * seen)
         seen += len(split)
-        cbf = batches(CIL_BUDGET * seen) if t > 0 else 0
+        cbf = batches(CIL_BUDGET * seen) if t > 0 and use_cbf else 0
         kd = 2 if t > 0 else 1  # the current and the previous model
         fwd = (train + cbf) * kd + batches(new) + batches(CIL_BUDGET * seen) \
             + batches(CIL_VAL * seen)
@@ -1272,6 +1300,348 @@ def cil_phase(dev, seed, smi):
     return out
 
 
+def write_detections(root: pathlib.Path, seed: int) -> pathlib.Path:
+    """``detections.npy`` for the corpus, keyed by video and 1-based frame:
+    most frames hold one or two person boxes with scores on both sides of
+    the 0.4 threshold (0.4 itself among them), some none, and the first
+    video none at all."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    w, h = UCF_STORED
+    dets = {}
+    for v, vdir in enumerate(sorted((root / "rawframes").iterdir())):
+        frames = {}
+        for fi in range(1, CIL_FRAMES + 1):
+            n = 0 if v == 0 else int(rng.choice([0, 1, 1, 2, 2]))
+            x0, y0 = rng.uniform(0, 0.6 * w, n), rng.uniform(0, 0.6 * h, n)
+            x1, y1 = x0 + rng.uniform(20, 0.4 * w, n), y0 + rng.uniform(20, 0.4 * h, n)
+            score = rng.choice([0.2, 0.4, 0.6, 0.9, 0.95], n)
+            frames[fi] = np.stack([x0, y0, x1, y1, score], 1).astype(np.float32).reshape(-1, 5)
+        dets[vdir.name] = frames
+    path = root / "detections.npy"
+    np.save(path, dets, allow_pickle=True)
+    return path
+
+
+def acm_config_file(root: pathlib.Path) -> pathlib.Path:
+    """The ``actorcutmix_plus_randaug`` preset of the hmdb51 template (TSM-R50,
+    8 segments, the icarl method with ACMSmoothCE, ActorCutMixDataset train
+    and exemplar sets, acm_prob and use_cbf as the preset sets them, TenCrop
+    test at 256) cut to the corpus, in configuration B with bf16 compute."""
+    path = root / "acm_config.py"
+    path.write_text(f"""from bdvcil_torch.config_templates import make_cil_config
+from bdvcil_torch.protocol import adaptive_scale_factors
+
+_splits = {CIL_SPLITS!r}
+_cfg = make_cil_config("hmdb51", 1000, 3, "actorcutmix_plus_randaug", data_dir={str(root)!r},
+                       work_dir={str(root / "work_dir")!r})
+_cfg.update(task_splits=_splits, ending_task=len(_splits) - 1,
+            adaptive_scale_factors=adaptive_scale_factors(_splits),
+            videos_per_gpu={CIL_BATCH}, testing_videos_per_gpu={CIL_BATCH}, workers_per_gpu=6,
+            testing_workers_per_gpu=6, num_epochs_per_task=1, budget_size={CIL_BUDGET},
+            eval_steps_per_dispatch={CIL_EVAL_K}, compute_dtype="bfloat16",
+            use_fast_input_pipeline=True, log_every_n_steps=1)
+_cfg["model"]["backbone"]["shift_mode"] = "fused_block"
+_cfg["model"]["cls_head"]["num_classes"] = len(_splits[0])
+_cfg["model"]["cls_head"]["inc_head_config"]["out_features"] = len(_splits[0])
+globals().update(_cfg)
+""")
+    return path
+
+
+def _launched(before):
+    """The #1 / #2 launches since ``before`` (a copy of the counts)."""
+    from bdvcil_torch.ops import _build
+
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items() if v - before.get(k, 0)}
+
+
+def acm_phase(dev, seed, smi):
+    """Phase 11: the ActorCutMix preset and the single-process tools, from
+    JPEG files on disk through each tool's ``main``: annotation files, the
+    card's background bank, a 3-task ActorCutMix run, test_cil,
+    test_single_ckpt, predict and extract_features."""
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from bdvcil_torch.cil import trainer as trainer_mod
+    from bdvcil_torch.cil_tools import (create_annotation_files, extract_background,
+                                        extract_features, load_model, predict, test_cil,
+                                        test_single_ckpt, train_cil)
+    from bdvcil_torch.config import Config
+    from bdvcil_torch.data.datasets import build_dataset
+    from bdvcil_torch.data.host_loader import DataLoader
+    from bdvcil_torch.models import build_model
+    from bdvcil_torch.models.recognizer import average_clips
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.runtime import make_eval_step
+    from bdvcil_torch.runtime.loops import run_inference
+
+    root = pathlib.Path("chiprun_out/acm_corpus").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    out, tools, marks = {}, {}, []
+    finish = trainer_mod.CILTrainer._finish_task
+
+    def finish_and_mark(self):
+        finish(self)
+        torch.cuda.synchronize()
+        marks.append(dict(_build.LAUNCHES))
+
+    def timed(name, fn):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        tools[name] = dict(s=time.perf_counter() - t0, launches=_launched(before))
+        return result
+
+    phase0 = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        write_cil_corpus(root, seed)
+        write_detections(root, seed)
+        out["corpus_s"] = time.perf_counter() - t0
+        config = acm_config_file(root)
+        videos = {f"c{c}_v{v}": c for c in range(8) for v in range(CIL_TRAIN + CIL_VAL)}
+
+        # annotation files: every video once a split, with its frames and label
+        ann = root / "ann"
+        timed("create_annotation_files", lambda: create_annotation_files.main([
+            "--train_ann_file", str(root / "hmdb51_train_split_1_rawframes.txt"),
+            "--val_ann_file", str(root / "hmdb51_val_split_1_rawframes.txt"),
+            "--destination", str(ann), "--task_splits_config", str(config)]))
+        listed = {}
+        for split in ("train", "val"):
+            for t in range(len(CIL_SPLITS)):
+                for line in (ann / f"{split}_task_{t}.txt").read_text().split("\n"):
+                    if line:
+                        name, frames, label = line.split()
+                        listed[name] = (int(frames), int(label))
+        mapping = json.loads((ann / "class_indices_mapping.json").read_text())
+        want = {n: (CIL_FRAMES, mapping[str(c)]) for n, c in videos.items()}
+        if listed != want:
+            raise AssertionError(f"create_annotation_files listed {len(listed)} videos, "
+                                 f"expected {len(want)}: {sorted(set(want) ^ set(listed))}")
+        shutil.copy(ann / "class_indices_mapping.json", root / "class_indices_mapping.json")
+
+        # the background bank on the card, held to the rounded numpy median
+        done = timed("extract_background", lambda: extract_background.main([
+            "--video_dir", str(root / "rawframes"), "--output_dir", str(root / "bg_device"),
+            "--device"]))
+        if len(done) != len(videos) or len(list((root / "bg_device").glob("*.jpg"))) != len(
+                videos):
+            raise AssertionError(f"extract_background wrote {len(done)} of {len(videos)}")
+        bg = dict(videos=len(done), frames=[CIL_FRAMES, CIL_FRAMES - 1], lower_middle_differs=0)
+        for vdir in sorted((root / "rawframes").iterdir()):
+            for max_frames in (CIL_FRAMES, CIL_FRAMES - 2):  # 16 frames, and 15
+                got = extract_background.bg_extraction_tmf(vdir, root / "bg_check.jpg", False, 1,
+                                                           max_frames, 0, device=dev)
+                stack = np.stack([cv2.imread(str(f)) for f in sorted(vdir.glob("*.jpg"))][
+                    :max_frames + 1])
+                ref = np.round(np.median(stack, axis=0)).astype(np.uint8)
+                if got.dtype != np.uint8 or not np.array_equal(got, ref):
+                    raise AssertionError(f"{vdir.name}, {len(stack)} frames: the card's median "
+                                         f"differs from numpy's on {(got != ref).sum()} pixels")
+                if len(stack) % 2 == 0:
+                    lower = np.sort(stack, axis=0)[len(stack) // 2 - 1]
+                    bg["lower_middle_differs"] += int((lower != ref).any())
+        if bg["lower_middle_differs"] != len(videos):
+            raise AssertionError(f"a lower-middle median equals the card's on "
+                                 f"{len(videos) - bg['lower_middle_differs']} videos")
+        out["backgrounds"] = bg
+        print(f"acm tools: create_annotation_files listed {len(listed)} videos x {CIL_FRAMES} "
+              f"frames; extract_background --device: {len(done)} backgrounds in "
+              f"{tools['extract_background']['s']:.2f} s, equal to np.round(np.median) bit for "
+              f"bit at 16 and 15 frames (the lower-middle median differs on all "
+              f"{bg['lower_middle_differs']} videos at 16) [{smi}]", flush=True)
+
+        # the ActorCutMix run
+        want_tasks, want_testing = expected_cil_launches(use_cbf=False)
+        trainer_mod.CILTrainer._finish_task = finish_and_mark
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        trainer = train_cil.main([str(config)])
+        out["train_s"] = time.perf_counter() - t0
+        trainer_mod.CILTrainer._finish_task = finish
+        if type(trainer.train_dataset).__name__ != "ActorCutMixDataset" or \
+                trainer.method != "icarl":
+            raise AssertionError(f"the preset trained {type(trainer.train_dataset).__name__} "
+                                 f"with {trainer.method}")
+        tasks, prev = [], collections.Counter()
+        for t, (stats, mark) in enumerate(zip(trainer.task_stats, marks)):
+            got = {k: v - prev.get(k, 0) for k, v in mark.items() if v - prev.get(k, 0)}
+            prev = collections.Counter(mark)
+            if got != want_tasks[t]:
+                raise AssertionError(f"cil acm task {t}: kernel launches {got}, expected "
+                                     f"{want_tasks[t]}")
+            cnn, nme = trainer.cnn_matrix[t], trainer.nme_matrix[t]
+            for row in (cnn, nme):
+                if len(row) != t + 1 or not all(math.isfinite(a) and 0 <= a <= 100 for a in row):
+                    raise AssertionError(f"cil acm task {t}: accuracy row {row}")
+            by_choice = collections.defaultdict(list)
+            for note in sorted(set(stats["loaders"])):
+                what, choice = note.split(": ", 1)
+                by_choice[choice].append(what)
+            loaders = "; ".join(f"{', '.join(w)}: {c}" for c, w in by_choice.items())
+            tasks.append(dict(stats, launches=got, cnn=cnn, nme=nme, loaders=loaders))
+            print(f"cil acm task {t}: loaders {loaders} | train {stats['train_s']:.2f} s, "
+                  f"features + herding {stats['exemplar_s']:.2f} s, test "
+                  f"{stats['test_s']:.2f} s | CNN {cnn} NME {nme} | exemplars "
+                  f"{stats['exemplars']} | #1 {got.get(FWD)} #2 {got.get(BWD)} launches "
+                  f"(= expected) [{smi}]", flush=True)
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        trainer.cil_testing(test_nme=True)
+        out["cil_testing_s"] = time.perf_counter() - t0
+        testing = _launched(before)
+        if testing != want_testing:
+            raise AssertionError(f"acm cil_testing: kernel launches {testing}, expected "
+                                 f"{want_testing}")
+        wd = root / "work_dir"
+        tables = {n: (wd / n).read_text() for n in ("cnn_result.txt", "nme_result.txt")}
+
+        # the host ACM loader's batch time: the last task's train batches
+        loader = trainer.data_module.train_dataloader()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        out["loader_train_batch_s"] = (time.perf_counter() - t0) / n
+        print(f"acm input: train batch of {CIL_BATCH} videos from {type(loader).__name__} "
+              f"{out['loader_train_batch_s']:.3f} s ({n} batches, {os.cpu_count()} CPUs)",
+              flush=True)
+
+        # test_cil: the same tables as the trainer's own cil_testing
+        timed("test_cil", lambda: test_cil.main([str(config)]))
+        again = {n: (wd / n).read_text() for n in tables}
+        if again != tables or tools["test_cil"]["launches"] != want_testing:
+            raise AssertionError(f"test_cil: tables equal {again == tables}, launches "
+                                 f"{tools['test_cil']['launches']} (expected {want_testing})")
+        last = wd / "ckpt" / f"ckpt_task_{len(CIL_SPLITS) - 1}.pt"
+        cnn, nme = timed("test_single_ckpt", lambda: test_single_ckpt.main([
+            str(config), "--ckpt", str(last), "--starting_task", str(len(CIL_SPLITS) - 1)]))
+        for row in (cnn.values, nme.values):
+            if len(row) != len(CIL_SPLITS) or not all(math.isfinite(a) and 0 <= a <= 100
+                                                      for a in row):
+                raise AssertionError(f"test_single_ckpt: accuracy row {row}")
+        print(f"acm testing: cil_testing {out['cil_testing_s']:.2f} s, test_cil "
+              f"{tools['test_cil']['s']:.2f} s, tables equal, #1 {testing[FWD]} launches each "
+              f"(= expected); test_single_ckpt {tools['test_single_ckpt']['s']:.2f} s CNN "
+              f"{cnn.values} NME {nme.values}; CNN table:\n{tables['cnn_result.txt']}",
+              flush=True)
+
+        # predict and extract_features on 4 videos: float32, as the tools build
+        # the model, against the same eval step in float32 and, at phase 3's
+        # bf16 tolerance, against the trainer's bf16 one
+        cfg = Config.fromfile(str(config))
+        spec, module, nc, _ = load_model(cfg, last, dev)
+        spec16 = build_model(dict(cfg.model), dtype=torch.bfloat16, device=dev)
+        module16 = spec16.module(nc)
+        module16.load_state_dict(module.state_dict())
+        chosen = [f"c{c}_v{CIL_TRAIN}" for c in (0, 3, 5, 7)]
+        vids = root / "predict_videos"
+        vids.mkdir()
+        for name in chosen:
+            (vids / name).symlink_to(root / "rawframes" / name)
+
+        def eval_scores(pipeline, spec, module, extract_repr=False):
+            ann_file = root / "four.txt"
+            ann_file.write_text("".join(f"{n} {CIL_FRAMES} 0\n" for n in chosen))
+            ds = build_dataset(dict(type="RawframeDataset", ann_file=str(ann_file),
+                                    data_prefix=str(root / "rawframes"), pipeline=pipeline,
+                                    test_mode=True))
+            return run_inference(make_eval_step(spec, nc), module,
+                                 DataLoader(ds, SERVE_VIDEOS), device=dev,
+                                 extract_repr=extract_repr, pad_batch_to=SERVE_VIDEOS)
+
+        mode = cfg.model.get("test_cfg", {}).get("average_clips", "prob") or "score"
+        ref32, ref16 = (average_clips(torch.from_numpy(eval_scores(
+            cfg.data.test.pipeline, s, m)["cls_score"]), mode).numpy()
+            for s, m in ((spec, module), (spec16, module16)))
+        preds = timed("predict", lambda: predict.main([
+            str(config), str(last), str(vids), "--output", str(root / "preds.json"),
+            "--batch_size", str(SERVE_VIDEOS)]))["predictions"]
+        top1 = [p["topk"][0]["class_index"] for p in preds]
+        labels = [p["topk"][0].get("original_label") for p in preds]
+        if [p["video"] for p in preds] != chosen or top1 != ref32.argmax(-1).tolist() or \
+                None in labels or any(len(p["topk"]) != min(5, nc) for p in preds):
+            raise AssertionError(f"predict: {[p['video'] for p in preds]} top-1 {top1} "
+                                 f"(labels {labels}), the eval step's argmax "
+                                 f"{ref32.argmax(-1).tolist()}")
+        # every top-k score against the same video's eval-step score: each
+        # video's scores differ from every other video's by more than the
+        # tolerance, so a video paired with another's scores fails
+        got = np.array([[e["score"] for e in p["topk"]] for p in preds])
+        cls = np.array([[e["class_index"] for e in p["topk"]] for p in preds])
+        serve = dict(f32=float(np.abs(got - np.take_along_axis(ref32, cls, 1)).max()),
+                     bf16=float(np.abs(got - np.take_along_axis(ref16, cls, 1)).max()),
+                     tol=1e-5, bf16_tol=3e-2 * float(np.abs(ref16).max()),
+                     videos_apart=min(float(np.abs(ref32[a] - ref32[b]).max())
+                                      for a in range(len(chosen)) for b in range(a)))
+        if not serve["f32"] <= serve["tol"] < serve["videos_apart"] or \
+                serve["bf16"] > serve["bf16_tol"]:
+            raise AssertionError(f"predict's top-k scores against the eval step's: {serve}")
+
+        # extract_features keeps the correctly classified videos: label each
+        # with the float32 eval step's prediction on the val pipeline, so all 4 stay
+        refs = {name: eval_scores(cfg.data.val.pipeline, s, m, extract_repr=True)
+                for name, s, m in (("f32", spec, module), ("bf16", spec16, module16))}
+        refs = {name: (r["cls_score"].mean(axis=1), r["repr"].mean(axis=1))
+                for name, r in refs.items()}
+        feat = root / "features"
+        feat.mkdir()
+        (feat / "four.txt").write_text("".join(f"{n} {CIL_FRAMES} {int(c)}\n" for n, c in
+                                               zip(chosen, refs["f32"][0].argmax(-1))))
+        fcfg = Config.fromfile(str(config))
+        fcfg.data.train = dict(type="RawframeDataset", ann_file=str(feat / "four.txt"),
+                               data_prefix=str(root / "rawframes"), pipeline=[])
+        fcfg.dump(str(feat / "config.py"))
+        shutil.copy(last, feat / "latest.pt")
+        dst = timed("extract_features", lambda: extract_features.main([
+            str(feat), "--batch_size", str(SERVE_VIDEOS)]))
+        kept = {e["frame_dir"].rsplit("/", 1)[-1]: e for es in json.loads(
+            dst.read_text())["features_by_class"].values() for e in es}
+        if sorted(kept) != sorted(chosen):
+            raise AssertionError(f"extract_features kept {sorted(kept)}")
+        feat_err = {}
+        for i, key in enumerate(("cls_score", "repr_consensus")):
+            g = np.array([kept[n][key] for n in chosen])
+            r32, r16 = refs["f32"][i], refs["bf16"][i]
+            feat_err[key] = dict(f32=float(np.abs(g - r32).max()),
+                                 bf16=float(np.abs(g - r16).max()),
+                                 bf16_tol=3e-2 * float(np.abs(r16).max()))  # phase 3's
+            if feat_err[key]["f32"] > 1e-5 * float(np.abs(r32).max()) or \
+                    feat_err[key]["bf16"] > feat_err[key]["bf16_tol"]:
+                raise AssertionError(f"extract_features {key}: {feat_err[key]}")
+        out.update(tasks=tasks, cnn_matrix=trainer.cnn_matrix, nme_matrix=trainer.nme_matrix,
+                   testing_launches=testing, tables=tables, tools=tools,
+                   single_ckpt=dict(cnn=cnn.values, nme=nme.values), predict_top1=top1,
+                   predict_labels=labels, predict_max_abs_err=serve,
+                   features_max_abs_err=feat_err)
+        out["launches"] = {k: sum(t["launches"].get(k, 0) for t in tasks) + testing.get(k, 0)
+                           + sum(v["launches"].get(k, 0) for v in tools.values())
+                           for k in (FWD, BWD)}
+        out["phase_s"] = time.perf_counter() - phase0
+        print(f"acm serving: predict {tools['predict']['s']:.2f} s on {len(chosen)} videos, "
+              f"top-1 {top1} ({labels}) = the f32 eval step's argmax, top-k scores max abs "
+              f"err {serve['f32']:.3g} (tol {serve['tol']:g}, videos apart by >= "
+              f"{serve['videos_apart']:.3g}), against bf16 {serve['bf16']:.3g} (tol "
+              f"{serve['bf16_tol']:.3g}); extract_features "
+              f"{tools['extract_features']['s']:.2f} s, all {len(kept)} kept, max abs err "
+              + ", ".join(f"{k} f32 {v['f32']:.3g} bf16 {v['bf16']:.3g} (tol {v['bf16_tol']:.3g})"
+                          for k, v in feat_err.items()) + "; "
+              f"phase launches #1 {out['launches'][FWD]} #2 {out['launches'][BWD]}, phase "
+              f"{out['phase_s']:.1f} s (corpus {out['corpus_s']:.1f} s) [{smi}]",
+              flush=True)
+    finally:
+        trainer_mod.CILTrainer._finish_task = finish
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -1364,11 +1734,12 @@ def main(argv=None) -> int:
           flush=True)
     loop = loop_phase(dev, args.seed, smi, sum(gemm_shapes.values()))
     cil = cil_phase(dev, args.seed, smi)
+    acm = acm_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
-                **block["launches"], **gemm_launches, **shift_launches, **loop["launches"],
-                **cil["launches"]}
+                **block["launches"], **gemm_launches, **shift_launches, **loop["launches"]}
+    launches.update({k: cil["launches"][k] + acm["launches"][k] for k in (FWD, BWD)})
     kernels = []
     for kname, (source, replaces, library_call) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname and r.get("path", CIL_PATH) == CIL_PATH]
@@ -1394,7 +1765,8 @@ def main(argv=None) -> int:
     detail = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
-                  loop=loop, loader_source=loop["loader_source"], cil=cil, kernels=kernels,
+                  loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
+                  kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
                        "one forward and one backward of phase 10's batch 8 (its train shapes), "
@@ -1407,7 +1779,8 @@ def main(argv=None) -> int:
                        "the bare torch.matmul or F.conv2d of the library yardstick, without "
                        "its sums. tile: the wgmma core's plan (sm90::make_plan, read through "
                        "ops/gemm_plan.py) for #3, #4, #6, #7 and #8. launches of #1 and #2: "
-                       "phase 10's whole CIL run (tasks and cil_testing)")
+                       "phase 10's whole CIL run (tasks and cil_testing) plus phase 11's "
+                       "(the ActorCutMix run, its cil_testing and the tools)")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

@@ -4,8 +4,9 @@
     anything of bdvcil_tpu;
   * entry points run on the card unless told otherwise: with no CUDA device
     and no ``device`` they raise;
-  * switches, methods, datasets and tools that are not ported yet raise
-    NotImplementedError naming the ROADMAP item;
+  * switches, methods and options that are not ported yet raise
+    NotImplementedError naming the ROADMAP item, and so does every tool
+    started as one of several processes (WORLD_SIZE > 1);
   * the package's layout docstrings name every module;
   * chip_smoke.py fails, and prints no result, without a GPU or without the
     rest of the repo.
@@ -23,8 +24,6 @@ import torch
 
 import importlib
 
-from bdvcil_torch import cil_tools
-from bdvcil_torch.data.datasets import build_dataset
 from bdvcil_torch.models import build_model, init_model_params
 from bdvcil_torch.optim import build_optimizer
 from bdvcil_torch.runtime import make_eval_step, make_train_step
@@ -101,10 +100,13 @@ def test_unported_options_raise():
         make_train_step(spec, tx, 3, method="finetune")
 
 
-def test_deferred_items_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        build_dataset(dict(type="ActorCutMixDataset", ann_file="", pipeline=[], det_file="x"))
+TOOLS = ("bdvcil_torch.cil_tools.train_cil", "bdvcil_torch.cil_tools.test_cil",
+         "bdvcil_torch.cil_tools.test_single_ckpt", "bdvcil_torch.cil_tools.predict",
+         "bdvcil_torch.cil_tools.extract_features", "bdvcil_torch.cil_tools.extract_background",
+         "bdvcil_torch.cil_tools.create_annotation_files", "bdvcil_torch.tools.train")
 
+
+def test_deferred_items_raise_naming_the_roadmap(monkeypatch):
     class TwoProcessLoader(list):
         process_count, batch_size = 2, 1
 
@@ -112,9 +114,12 @@ def test_deferred_items_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         run_inference(make_eval_step(spec, 3), init_model_params(spec, 0), TwoProcessLoader(),
                       device="cpu")
-    for tool in cil_tools.DEFERRED_TOOLS:
+    # every tool runs in one process: under a launcher with WORLD_SIZE > 1 it
+    # raises before it reads its arguments
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for tool in TOOLS:
         with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            importlib.import_module(f"bdvcil_torch.cil_tools.{tool}").main([])
+            importlib.import_module(tool).main([])
 
 
 def test_train_cil_refuses_to_fall_back_to_the_cpu(tmp_path):
@@ -136,7 +141,7 @@ def _module_names(package: pathlib.Path):
 
 
 @pytest.mark.parametrize("package", ["bdvcil_torch", "bdvcil_torch/data",
-                                     "bdvcil_torch/cil_tools"])
+                                     "bdvcil_torch/cil_tools", "bdvcil_torch/tools"])
 def test_layout_docstrings_name_every_module(package):
     doc = importlib.import_module(package.replace("/", ".")).__doc__
     names = [n for n in _module_names(ROOT / package) if not n.startswith("_")]
