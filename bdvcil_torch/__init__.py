@@ -16,9 +16,12 @@ Layout:
            layout (device half); the slow host pipeline (annotations,
            datasets, transforms, box, rand_augment, host_loader); SampleFrames, a
            synthetic JPEG corpus writer and synthetic wire batches
-  models   ResNet-TSM backbone, flax-semantics BatchNorm, incremental heads,
-           recognizer, builder, the JAX <-> torch weight converter, and the
-           ImageNet backbone weights from local files (pretrained)
+  models   ResNet-TSM backbone (its s2d stem and 'fused' shift too),
+           flax-semantics and grouped BatchNorm, incremental heads, the PyCIL
+           linears, recognizer, builder, the JAX <-> torch weight converter,
+           and the ImageNet backbone weights from local files (pretrained)
+  parallel data parallelism over torch.distributed, one rank a card: the
+           process group, the batch contract, gathers and all-reduces
   losses   LSC/NCA, cross-entropy, soft-target CE, ActorCutMix smoothing, feature-KD
   optim    the labeled 6-group SGD with torch-order updates, optax clip and
            MultiSteps gradient accumulation
@@ -35,7 +38,7 @@ Layout:
   config, config_templates, registry, protocol
            python-file configs, the experiment grid (make_cil_config and
            the main path's settings), type registries, vCLIMB class orders
-  utils    meters, the result table, loggers
+  utils    meters, the result table, loggers, torch.profiler traces
   bench_train        end-to-end train throughput from JPEG frames on disk
   bench_block_fused  the block-fused bottleneck against the plain schedule
   profile_kernels, profile_step  device-time profiles of the kernels and the step

@@ -1,5 +1,5 @@
 """Per-task dataset factory for class-incremental training (the port of
-``bdvcil_tpu/cil/data_module.py``, one process).
+``bdvcil_tpu/cil/data_module.py``).
 
 ``CILDataModule`` semantics (reference libs/cil/cil.py:29-405) on the port's
 dataset and loader stack:
@@ -22,9 +22,10 @@ dataset and loader stack:
     built, else the host pipeline's ``DataLoader`` (the JAX choice); each
     choice and its reason is appended to ``loader_notes``
 
-One process: the world size is 1, and the files are written without the
-JAX package's primary-process guard and barriers (``torch.distributed`` is
-ROADMAP A.7).
+Under a process group every rank keeps the same bookkeeping, rank 0 writes
+the annotation and exemplar files, and a barrier follows each write
+(``parallel/distributed.py``), as in the JAX package. The loaders take the
+global batch, ``videos_per_gpu`` times the ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..data.datasets import (ActorCutMixDataset, BackgroundMixDataset, RawframeD
                              build_dataset)
 from ..data.host_loader import DataLoader
 from ..data.loaders import FastEvalLoader
+from ..parallel import distributed
 from ..utils import get_logger
 
 logger = get_logger("bdvcil.cil")
@@ -90,9 +92,9 @@ class CILDataModule:
 
     @property
     def world_size(self) -> int:
-        """GPUs in the run. The reference's videos_per_gpu is a per-device
-        batch; the global batch scales with the GPUs. One here (ROADMAP A.7)."""
-        return 1
+        """GPUs in the run, one a rank. The reference's videos_per_gpu is a
+        per-device batch; the global batch scales with the GPUs."""
+        return distributed.process_count()
 
     # -- annotation files --------------------------------------------------
     def generate_annotation_file(self) -> None:
@@ -121,10 +123,12 @@ class CILDataModule:
                     task_file = destination / self.config.cil_ann_file_template.format(
                         train_val, task_i
                     )
-                    with open(task_file, "w") as f:
-                        f.writelines("{} {} {}\n".format(*row) for row in task_data)
-                    logger.info("create file at: %s", task_file)
+                    if distributed.is_primary():  # every rank bookkeeps, rank 0 writes
+                        with open(task_file, "w") as f:
+                            f.writelines("{} {} {}\n".format(*row) for row in task_data)
+                        logger.info("create file at: %s", task_file)
                     self.task_splits_ann_files[train_val].append(task_file)
+        distributed.sync_processes("ann_files")
 
     def collect_ann_files_from_work_dir(self) -> None:
         ann_dir = self.work_dir / "task_splits"
@@ -358,10 +362,12 @@ class CILDataModule:
 
     def combine_all_exemplar_ann_files(self, task_idx: int) -> pathlib.Path:
         tmp = self.exemplar_dir / "tmp_exemplars.txt"
-        parts = []
-        for i in range(task_idx + 1):
-            parts.append((self.exemplar_dir / f"exemplar_task_{i}.txt").read_text().strip())
-        tmp.write_text("\n".join(parts))
+        if distributed.is_primary():
+            parts = []
+            for i in range(task_idx + 1):
+                parts.append((self.exemplar_dir / f"exemplar_task_{i}.txt").read_text().strip())
+            tmp.write_text("\n".join(parts))
+        distributed.sync_processes("exemplar_tmp")
         return tmp
 
     def features_extraction_dataloader_on_exemplar(self, task_idx: int) -> DataLoader:
@@ -380,11 +386,13 @@ class CILDataModule:
             task_idx = self.current_task
         root_dir = pathlib.Path(osp.realpath(self.config.data_root)).absolute()
         ann_file = self.exemplar_dir / f"exemplar_task_{task_idx}.txt"
-        with open(ann_file, "w") as f:
-            for class_idx, meta in exemplar_meta.items():
-                for frame_dir, total_frames in zip(meta["frame_dir"], meta["total_frames"]):
-                    rel = pathlib.Path(frame_dir).relative_to(root_dir)
-                    f.write(f"{rel} {int(total_frames)} {class_idx}\n")
+        if distributed.is_primary():
+            with open(ann_file, "w") as f:
+                for class_idx, meta in exemplar_meta.items():
+                    for frame_dir, total_frames in zip(meta["frame_dir"], meta["total_frames"]):
+                        rel = pathlib.Path(frame_dir).relative_to(root_dir)
+                        f.write(f"{rel} {int(total_frames)} {class_idx}\n")
+        distributed.sync_processes("exemplar_ann")
         return str(ann_file)
 
     def build_exemplar_dataset(self, ann_file: str):

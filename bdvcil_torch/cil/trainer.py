@@ -1,5 +1,5 @@
 """CIL orchestration: the per-task outer loop (the port of
-``bdvcil_tpu/cil/trainer.py``, one GPU).
+``bdvcil_tpu/cil/trainer.py``).
 
 Per task t: train -> herding exemplars -> class-balanced fine-tuning (CBF,
 from task 1 on) -> checkpoint -> NME class means -> test tasks 0..t by CNN
@@ -13,8 +13,13 @@ Where the port differs from the JAX trainer, on purpose:
     key: a phase's train steps from ``step_generator(phase seed, step)``
     (``runtime/loops.py``), the classifier's new rows from ``growth_generator``.
     A run resumed at task t therefore draws what the straight run drew;
-  * per-task checkpoints are ``ckpt_task_{t}.pt`` (``runtime/checkpoint.py``);
-  * one process (``torch.distributed`` is ROADMAP A.7).
+  * per-task checkpoints are ``ckpt_task_{t}.pt`` (``runtime/checkpoint.py``).
+
+Under a process group (``parallel/distributed.py``, one rank a card) every
+rank runs the same loop on its rows of each global batch: rank 0 writes the
+config, the metrics, checkpoints, snapshots, class means and result tables,
+then a barrier; every rank reads them back. Inference gathers every rank's
+rows, so herding, NME and the tables see the whole set on every rank.
 
 ``task_stats`` keeps, per task, the seconds of each stage, the eval rows per
 second, the exemplar count and the loaders each phase took.
@@ -45,6 +50,8 @@ from ..models.builder import ModelSpec
 from ..models.heads import head_param_path, update_fc
 from ..models.pretrained import apply_backbone_weights, load_checkpoint_file, load_torch_resnet_backbone
 from ..optim import build_optimizer
+from ..parallel import distributed
+from ..parallel.mesh import replicate
 from ..runtime import (
     TrainState,
     make_eval_step,
@@ -145,10 +152,11 @@ class CILTrainer:
 
         self.data_module.build_validation_datasets()
 
-        if dump_config:
+        if dump_config and distributed.is_primary():
             config.dump(str(self.work_dir / "config.py"))
 
-        self.metric_logger = MetricLogger(str(self.work_dir))
+        # the other ranks keep a logger that writes nothing
+        self.metric_logger = MetricLogger(str(self.work_dir) if distributed.is_primary() else None)
         self.training_phase: Optional[str] = None  # 'inc_step' or 'cbf_step'
         self.current_best: Optional[float] = 0.0 if config.get("save_best", False) else None
         # per-task accuracy rows recorded by _finish_task
@@ -165,7 +173,7 @@ class CILTrainer:
                 load_checkpoint_file(str(pretrained))))
         elif pretrained:
             logger.info("pretrained=%r not found locally; training from scratch", pretrained)
-        return model
+        return replicate(model)
 
     def _grow(self, task: int) -> None:
         """Grow the current and the previous model to task ``task``'s width."""
@@ -190,9 +198,12 @@ class CILTrainer:
         return self.ckpt_dir / f"ckpt_task_{task_idx}.pt"
 
     def _save_task_ckpt(self, task_idx: int) -> None:
-        save_checkpoint(self._ckpt_path(task_idx), self.model,
-                        meta={"task": task_idx, "num_classes": self.num_classes(task_idx)})
-        logger.info("save_model at: %s", self._ckpt_path(task_idx))
+        if distributed.is_primary():
+            save_checkpoint(self._ckpt_path(task_idx), self.model,
+                            meta={"task": task_idx, "num_classes": self.num_classes(task_idx)})
+            logger.info("save_model at: %s", self._ckpt_path(task_idx))
+        # the other ranks may read it back (save-best, resume, cil_testing)
+        distributed.sync_processes("ckpt_save")
 
     def _load_task_ckpt(self, task_idx: int):
         """A new module holding task ``task_idx``'s checkpoint, on the device."""
@@ -345,10 +356,12 @@ class CILTrainer:
         def snapshot_hook(epoch, state_now, seed_now):
             if (epoch + 1) % snap_every != 0 or epoch + 1 >= num_epochs:
                 return
-            save_train_snapshot(
-                snap_path, state_now, seed_now,
-                meta=dict(task=t, phase=phase_name, epoch=epoch, num_classes=nc,
-                          current_best=self.current_best, run_token=self._run_token))
+            if distributed.is_primary():
+                save_train_snapshot(
+                    snap_path, state_now, seed_now,
+                    meta=dict(task=t, phase=phase_name, epoch=epoch, num_classes=nc,
+                              current_best=self.current_best, run_token=self._run_token))
+            distributed.sync_processes("mid_task_snapshot")
 
         def epoch_hook(epoch, state_now):
             if not validate:
@@ -385,7 +398,9 @@ class CILTrainer:
         )
         if use_snap:
             # the phase completed: a later rerun of this task must not restore it
-            clear_train_snapshot(snap_path)
+            if distributed.is_primary():
+                clear_train_snapshot(snap_path)
+            distributed.sync_processes("mid_task_snapshot_clear")
         self.model = state.module
 
     def _validate(self) -> float:
@@ -616,7 +631,9 @@ class CILTrainer:
         labels = pred["labels"]
         class_means = np.stack([repr_[labels == c].mean(axis=0)
                                 for c in range(self.num_classes(task_idx))], axis=0)
-        np.savez(cache, class_means=class_means)
+        if distributed.is_primary():
+            np.savez(cache, class_means=class_means)
+        distributed.sync_processes("class_means")
         return class_means
 
     # -- testing -------------------------------------------------------------
@@ -795,12 +812,14 @@ class CILTrainer:
         logger.info("CNN accuracies")
         cnn_table = print_mean_accuracy(cnn_accuracies, sizes)
         print(cnn_table)
-        (self.work_dir / "cnn_result.txt").write_text("CNN Accuracies" + cnn_table + "\n")
+        if distributed.is_primary():
+            (self.work_dir / "cnn_result.txt").write_text("CNN Accuracies" + cnn_table + "\n")
         if test_nme:
             logger.info("NME accuracies")
             nme_table = print_mean_accuracy(nme_accuracies, sizes)
             print(nme_table)
-            (self.work_dir / "nme_result.txt").write_text("NME Accuracies" + nme_table + "\n")
+            if distributed.is_primary():
+                (self.work_dir / "nme_result.txt").write_text("NME Accuracies" + nme_table + "\n")
         self._current_task = tmp
 
     def single_ckpt_testing(self, ckpt_file: str, test_nme: bool = True):

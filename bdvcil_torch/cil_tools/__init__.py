@@ -11,27 +11,20 @@ one per JAX tool in ``cil_tools/``:
 
 Each runs on the card unless ``--device`` names another device (the model
 tools) or the reduction runs on the host (``extract_background`` without
-``--device``, ``create_annotation_files``). One process: started under a
-launcher with ``WORLD_SIZE`` > 1, a tool raises (``torch.distributed`` is
-ROADMAP A.7).
+``--device``, ``create_annotation_files``). Under a launcher
+(``python -m torch.distributed.run --nproc_per_node N -m
+bdvcil_torch.cil_tools.<tool> ...``) each ``main`` first joins the process
+group (``parallel.distributed.initialize``), one rank a card; rank 0 writes
+the files. ``extract_background``'s host path splits the videos by the
+launcher's rank and joins no group, so its workers fork from a parent that
+has touched neither CUDA nor a process group.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Optional, Tuple
 
 import torch
-
-
-def single_process(tool: str) -> None:
-    """Raise when a launcher started ``tool`` (its module name) as one of
-    several processes."""
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"{tool} runs in one process; WORLD_SIZE={world} needs "
-            f"torch.distributed, which is not ported yet (ROADMAP A.7)")
 
 
 def load_model(config, ckpt_path, device) -> Tuple[object, torch.nn.Module, int, Optional[Dict]]:

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 
 from ..config import Config
 from ..data.annotations import build_label_remap, generate_task_annotation_files
-from . import single_process
+from ..parallel import distributed
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -37,26 +37,30 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[pathlib.Path]]:
     """Write the files; returns them by split, as ``generate_task_annotation_files``."""
-    single_process("bdvcil_torch.cil_tools.create_annotation_files")
+    # a host tool: under a launcher its ranks meet over gloo, and rank 0 writes
+    distributed.initialize(device="cpu")
     args = parse_args(argv)
     task_splits = Config.fromfile(args.task_splits_config).task_splits
 
     destination = pathlib.Path(args.destination)
-    out = generate_task_annotation_files(
-        args.train_ann_file,
-        args.val_ann_file,
-        task_splits,
-        destination,
-        write_oracle=True,
-    )
-    for split, files in out.items():
-        for f in files:
-            print("create file at:", f)
+    out: Dict[str, List[pathlib.Path]] = {}
+    if distributed.is_primary():
+        out = generate_task_annotation_files(
+            args.train_ann_file,
+            args.val_ann_file,
+            task_splits,
+            destination,
+            write_oracle=True,
+        )
+        for split, files in out.items():
+            for f in files:
+                print("create file at:", f)
 
-    mapping = build_label_remap(task_splits)
-    mapping_file = destination / "class_indices_mapping.json"
-    mapping_file.write_text(json.dumps({str(k): v for k, v in mapping.items()}))
-    print("create indice mapping file at:", mapping_file)
+        mapping = build_label_remap(task_splits)
+        mapping_file = destination / "class_indices_mapping.json"
+        mapping_file.write_text(json.dumps({str(k): v for k, v in mapping.items()}))
+        print("create indice mapping file at:", mapping_file)
+    distributed.sync_processes("annotation_files")
     return out
 
 

@@ -17,6 +17,12 @@ the card (``--device cpu``: the same torch code on the CPU) through
 JAX tool's device median does; it runs in this process, one video after
 another, so no forked worker touches CUDA. ``--device`` without a CUDA device
 raises.
+
+Under a launcher the ranks split the sorted videos (rank r takes every W-th
+from r). The host path reads the rank from the launcher's environment and
+joins no process group, so its workers fork from a parent that has touched
+neither CUDA nor a group; ``--device`` joins the group first
+(``parallel.distributed.initialize``) and runs on the rank's card.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import cv2
 import numpy as np
 
 from .._device import resolve_device
-from . import single_process
+from ..parallel import distributed
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -144,16 +150,19 @@ def bg_extract_multiple(paths: List[pathlib.Path], output_dir, from_video, inter
 
 def main(argv: Optional[Sequence[str]] = None) -> List[pathlib.Path]:
     """Extract the missing backgrounds; returns the videos it extracted."""
-    single_process("bdvcil_torch.cil_tools.extract_background")
     args = parse_args(argv)
+    if args.device is not None:
+        distributed.initialize()  # the process group under a launcher; a no-op alone
     # the card unless a device is named; raises without CUDA
     device = None if args.device is None else resolve_device(args.device or None)
+    rank, world = distributed.launch_rank()
     output_dir = pathlib.Path(args.output_dir)
     output_dir.mkdir(exist_ok=True, parents=True)
     video_dir = pathlib.Path(args.video_dir)
 
-    # skip-existing resume (reference :119-125)
-    video_paths = set(video_dir.glob(args.glob_pattern))
+    # skip-existing resume (reference :119-125); the ranks split the sorted
+    # list before skipping, so the split does not depend on timing
+    video_paths = set(sorted(video_dir.glob(args.glob_pattern))[rank::world])
     extracted = [
         p for p in video_paths if (output_dir / p.name).with_suffix(args.image_suffix).exists()
     ]

@@ -26,7 +26,8 @@ import numpy as np
 
 from .._device import resolve_device
 from ..config import Config
-from . import load_model, single_process
+from ..parallel import distributed
+from . import load_model
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -42,7 +43,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> pathlib.Path:
     """Write the features; returns the JSON file's path."""
-    single_process("bdvcil_torch.cil_tools.extract_features")
+    distributed.initialize()  # the process group under a launcher; a no-op alone
     args = parse_args(argv)
     device = resolve_device(args.device)
     root_dir = pathlib.Path(args.root_dir)
@@ -64,11 +65,13 @@ def main(argv: Optional[Sequence[str]] = None) -> pathlib.Path:
     train_cfg["pipeline"] = cfg.data.val.pipeline
     train_cfg["test_mode"] = True
     dataset = build_dataset(train_cfg)
-    loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=False, num_workers=2)
+    # the global batch: --batch_size a rank
+    loader = DataLoader(dataset, batch_size=args.batch_size * distributed.process_count(),
+                        shuffle=False, num_workers=2)
 
     eval_step = make_eval_step(spec, num_classes)
     pred = run_inference(eval_step, module, loader, device=device, extract_repr=True,
-                         pad_batch_to=args.batch_size)
+                         pad_batch_to=loader.batch_size)
     cls_score = pred["cls_score"].mean(axis=1)  # (N, nc)
     repr_consensus = pred["repr"].mean(axis=1)  # (N, C)
 
@@ -88,8 +91,10 @@ def main(argv: Optional[Sequence[str]] = None) -> pathlib.Path:
         "features_by_class": features_by_class,
         "model_weights": fc.detach().float().cpu().numpy().tolist(),
     }
-    dst.write_text(json.dumps(data))
-    print("Saved features at:", dst)
+    if distributed.is_primary():  # every rank holds the gathered scores; rank 0 writes
+        dst.write_text(json.dumps(data))
+        print("Saved features at:", dst)
+    distributed.sync_processes("extract_features_write")
     return dst
 
 

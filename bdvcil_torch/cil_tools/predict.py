@@ -33,7 +33,8 @@ import torch
 from .._device import resolve_device
 from ..config import Config
 from ..models.recognizer import average_clips
-from . import load_model, single_process
+from ..parallel import distributed
+from . import load_model
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -79,7 +80,7 @@ def discover_videos(root: pathlib.Path, tmpl: str):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Classify; returns the predictions (also written as JSON)."""
-    single_process("bdvcil_torch.cil_tools.predict")
+    distributed.initialize()  # the process group under a launcher; a no-op alone
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
@@ -115,10 +116,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         dict(frame_dir=str(d), total_frames=n, label=0, start_index=start)
         for name, d, n, start in videos
     ]
-    loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=False, num_workers=2)
+    # the global batch: --batch_size a rank
+    loader = DataLoader(dataset, batch_size=args.batch_size * distributed.process_count(),
+                        shuffle=False, num_workers=2)
 
     eval_step = make_eval_step(spec, num_classes)
-    pred = run_inference(eval_step, module, loader, device=device, pad_batch_to=args.batch_size)
+    pred = run_inference(eval_step, module, loader, device=device,
+                         pad_batch_to=loader.batch_size)
     mode = cfg.model.get("test_cfg", {}).get("average_clips", "prob") or "score"
     scores = average_clips(torch.from_numpy(pred["cls_score"]), mode).numpy()  # (N, nc)
 
@@ -147,11 +151,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         })
 
     payload = {"predictions": results}
-    if args.output:
-        pathlib.Path(args.output).write_text(json.dumps(payload, indent=2))
-        print(f"wrote {len(results)} predictions to {args.output}")
-    else:
-        print(json.dumps(payload, indent=2))
+    # every rank holds the gathered scores; rank 0 reports
+    if distributed.is_primary():
+        if args.output:
+            pathlib.Path(args.output).write_text(json.dumps(payload, indent=2))
+            print(f"wrote {len(results)} predictions to {args.output}")
+        else:
+            print(json.dumps(payload, indent=2))
+    distributed.sync_processes("predict_write")
     return payload
 
 

@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 
 from .._device import resolve_device
 from ..config import Config
-from . import single_process
+from ..parallel import distributed
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -41,7 +41,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None):
     """Test the checkpoint; returns the CNN accuracies (and NME ones unless
     ``--no_nme``), as ``CILTrainer.single_ckpt_testing`` does."""
-    single_process("bdvcil_torch.cil_tools.test_single_ckpt")
+    distributed.initialize()  # the process group under a launcher; a no-op alone
     args, cfg_dict = parse_args(argv)
     device = resolve_device(args.device)
     config = Config.fromfile(args.config)

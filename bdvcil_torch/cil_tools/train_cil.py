@@ -11,8 +11,11 @@ files under ``configs/`` import the JAX package); ``--preset`` builds one with
 The flags are those of the JAX entry point; boolean flags and ``--alpha`` /
 ``--log_every_n_steps`` override the config only when given. It runs on the
 card unless ``--device`` names another device (``--device cpu``); without a
-CUDA device and without ``--device`` it raises. One process: with
-``WORLD_SIZE`` > 1 it raises (ROADMAP A.7).
+CUDA device and without ``--device`` it raises. Under a launcher each rank
+trains on its rows of every global batch (``videos_per_gpu`` a rank):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m bdvcil_torch.cil_tools.train_cil CONFIG.py
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional, Sequence
 from .._device import resolve_device
 from ..config import Config
 from ..config_templates import parse_preset
-from . import single_process
+from ..parallel import distributed
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -82,7 +85,7 @@ def load_config(args, cfg_dict) -> Config:
 
 def main(argv: Optional[Sequence[str]] = None):
     """Train; returns the trainer (its accuracy matrices and ``task_stats``)."""
-    single_process("bdvcil_torch.cil_tools.train_cil")
+    distributed.initialize()  # the process group under a launcher; a no-op alone
     args, cfg_dict = parse_args(argv)
     device = resolve_device(args.device)
     config = load_config(args, cfg_dict)

@@ -4,9 +4,9 @@ fast path's ``loaders.py``).
 
 A thread pool runs the datasets' ``__getitem__`` (cv2/PIL release the GIL for
 decode and resize). Batches are plain dicts of numpy arrays, which
-``runtime/loops.py`` stages to the card. One process by default: the
-``process_index``/``process_count`` slicing comes with ``torch.distributed``
-(ROADMAP A.7).
+``runtime/loops.py`` stages to the card. ``batch_size`` is the global batch;
+under a process group each rank loads its contiguous rows of it
+(``process_index``/``process_count`` default to the group's rank and size).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Sequence
 
 import numpy as np
+
+from ..parallel import distributed
 
 _SKIP_KEYS = ("rng",)
 
@@ -74,8 +76,10 @@ class DataLoader:
         # (seeded shuffle) and loads only its contiguous row slice; the
         # runtime reassembles the global batch on the mesh (parallel/mesh.py
         # shard_batch). Replaces the reference's DistributedSampler shards.
-        self.process_count = max(1, process_count or 1)
-        self.process_index = process_index or 0
+        # (the process group's rank and size unless given)
+        self.process_count = max(1, process_count or distributed.process_count())
+        self.process_index = (distributed.process_index() if process_index is None
+                              else process_index)
         if self.process_count > 1:
             assert batch_size % self.process_count == 0, (batch_size, self.process_count)
             self.pad_to_batch = self.pad_to_batch or not self.drop_last

@@ -30,21 +30,23 @@ functions take (``ops.rand_augment_dev.DRAW_KEYS``), derived on the host from
 that uint32 pair alone (``randaug_draws_from_keys``). The batch layout is in
 ``data/device_pipeline.py``.
 
-The process count defaults to 1: slicing a global batch across processes is
-kept (``process_index``/``process_count``), and ``torch.distributed`` comes
-with multi-GPU (ROADMAP A.7).
+Every loader's ``batch_size`` is the global batch. Under a process group each
+rank loads its contiguous rows of every global batch (``process_index`` /
+``process_count`` default to the group's rank and size,
+``parallel/distributed.py``), and a train loader pads the tail globally.
 """
 
 from __future__ import annotations
 
 import os.path as osp
 import threading
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.rand_augment_dev import DRAW_KEYS, draw_randaug
+from ..parallel import distributed
 from . import native
 from .device_pipeline import identity_plane_taps, plane_resize_taps
 from .sampling import SampleFrames
@@ -398,8 +400,10 @@ class _EpochSpanMixin:
     def _init_common(self, batch_size, process_index, process_count, drop_last, pad_to_batch,
                      seed, shuffle, num_threads, prefetch, num_workers):
         self.batch_size = batch_size  # the global batch
-        self.process_count = max(1, process_count)
-        self.process_index = process_index or 0
+        # the process group's rank and size unless given
+        self.process_count = max(1, process_count or distributed.process_count())
+        self.process_index = (distributed.process_index() if process_index is None
+                              else process_index)
         if self.process_count > 1:
             if batch_size % self.process_count:
                 raise ValueError(f"batch_size {batch_size} is not a multiple of "
@@ -535,8 +539,8 @@ class FastBGMixLoader(_EpochSpanMixin):
         pad_to_batch: bool = False,  # wrap-pad the tail; emits sample_weight
         prefetch: int = 2,
         num_workers: int = 1,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
         wire_format: str = "rgb",  # 'rgb' | 'yuv420' | 'planes' | 'auto'
         randaug_n: int = 2,  # the input function's ops per clip
     ):
@@ -736,8 +740,8 @@ class FastACMLoader(_EpochSpanMixin):
         pad_to_batch: bool = False,
         prefetch: int = 2,
         num_workers: int = 1,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
         wire_format: str = "rgb",  # 'rgb' | 'yuv420' | 'planes' | 'auto'
         randaug_n: int = 2,
     ):
@@ -949,7 +953,9 @@ class FastEvalLoader:
       'auto'         'yuv420_full' for TenCrop, else 'rgb' (the JAX choice)
 
     Raises when the native decoder is unavailable, as JAX's does: the caller
-    takes the host pipeline then. One process by default (ROADMAP A.7).
+    takes the host pipeline then. Under a process group each rank decodes its
+    rows of every global batch, the global order padded to whole batches
+    (``num_valid`` rows are real).
     """
 
     def __init__(self, video_infos: Sequence[dict], batch_size: int, num_segments: int = 8,
@@ -968,8 +974,9 @@ class FastEvalLoader:
         self._pad_w = self._pad_h = 0
         self.video_infos = list(video_infos)
         self.batch_size = batch_size  # the global batch
-        self.process_count = max(1, process_count or 1)
-        self.process_index = process_index or 0
+        self.process_count = max(1, process_count or distributed.process_count())
+        self.process_index = (distributed.process_index() if process_index is None
+                              else process_index)
         if self.process_count > 1 and batch_size % self.process_count:
             raise ValueError(f"batch_size {batch_size} is not a multiple of "
                              f"process_count {self.process_count}")

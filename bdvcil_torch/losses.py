@@ -14,6 +14,11 @@
   * ``feature_kd_loss`` — MSE feature distillation over tagged intermediates
                           with per-module weights and per-task scale,
                           optional exemplar-only masking
+
+Every batch mean divides by the global batch's count (``weighted_mean``,
+``feature_kd_loss``): under a process group a rank's loss is its share of the
+global loss, and the ranks' gradients sum to the one-process gradient of the
+whole batch, pad rows and exemplar-only masks included.
 """
 
 from __future__ import annotations
@@ -22,13 +27,25 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
+from .parallel import distributed
+
+
+def _global_total(x: torch.Tensor) -> torch.Tensor:
+    """A denominator summed over the ranks (no gradient flows into it)."""
+    return distributed.global_sums(x.detach().reshape(1))[0][0]
+
 
 def weighted_mean(values: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over the batch, optionally masked by per-sample weights (0 on pad rows)."""
+    """Mean over the batch, optionally masked by per-sample weights (0 on pad rows).
+
+    The denominator is the global batch's: under a process group each rank
+    returns its own numerator over the all-reduced count or weight sum, so
+    the ranks' losses, and their gradients, sum to the global ones."""
     if weights is None:
-        return values.mean()
+        return values.sum() / distributed.global_count(values.numel(), values)
     weights = weights.to(values.dtype)
-    return torch.sum(values * weights) / torch.clamp(torch.sum(weights), min=1e-8)
+    return torch.sum(values * weights) / torch.clamp(_global_total(torch.sum(weights)),
+                                                     min=1e-8)
 
 
 def cross_entropy(
@@ -148,12 +165,12 @@ def feature_kd_loss(
         prev = prev_feats[name].detach().float()
         sq = (cur - prev) ** 2
         if sample_mask is None:
-            mse = sq.mean()
+            mse = sq.sum() / distributed.global_count(sq.numel(), sq)
         else:
             # features are (B*T, ...); expand the mask over segments
             per_elem = sq.reshape(sq.shape[0], -1).mean(dim=1)
             m = torch.repeat_interleave(sample_mask, per_elem.shape[0] // sample_mask.shape[0])
-            mse = torch.sum(per_elem * m) / torch.clamp(torch.sum(m), min=1.0)
+            mse = torch.sum(per_elem * m) / torch.clamp(_global_total(torch.sum(m)), min=1.0)
         out[name] = mse
         total = total + scale_factor * weight * mse
     out["kd_loss"] = total

@@ -1,7 +1,7 @@
 from .builder import ModelSpec, build_model, init_model_params
 from .convert import from_jax_variables, to_jax_variables
 from .heads import IncrementalTSMHead, head_param_path, update_fc
-from .norm import BatchNorm
+from .norm import BatchNorm, GroupedBatchNorm
 from .recognizer import KD_TAPS, CILRecognizer2D, average_clips
 from .resnet_tsm import ARCH, ResNetTSM
 
@@ -9,6 +9,7 @@ __all__ = [
     "ARCH",
     "BatchNorm",
     "CILRecognizer2D",
+    "GroupedBatchNorm",
     "IncrementalTSMHead",
     "KD_TAPS",
     "ModelSpec",

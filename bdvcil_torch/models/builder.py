@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from .._device import resolve_device
+from ..parallel import distributed
 from .heads import IncrementalTSMHead
 from .norm import BatchNorm
 from .recognizer import CILRecognizer2D
@@ -79,9 +80,6 @@ def build_model(
     b = dict(cfg["backbone"])
     if b.pop("type") != "ResNetTSM":
         raise ValueError("only the ResNetTSM backbone exists")
-    if b.get("bn_groups") == "per_device":
-        raise NotImplementedError(
-            "bn_groups='per_device' is not ported yet (ROADMAP A.1 (norm), A.7 multi-GPU)")
     backbone_kwargs = dict(
         depth=b.get("depth", 50),
         num_segments=b.get("num_segments", 8),
@@ -92,7 +90,10 @@ def build_model(
         stem_mode=b.get("stem_mode", "conv"),
         conv1x1_mode=b.get("conv1x1_mode", "xla"),
         pretrained=b.get("pretrained"),
-        bn_groups=int(b.get("bn_groups", 1)),
+        # 'per_device' resolves to the ranks of the process group (one card a
+        # rank): the reference's per-GPU statistics, DDP without SyncBN
+        bn_groups=(distributed.process_count() if b.get("bn_groups") == "per_device"
+                   else int(b.get("bn_groups", 1))),
         bn_stats_rows=int(b.get("bn_stats_rows", 0)),
     )
     if "norm_dtype" in b:

@@ -14,7 +14,10 @@ in both directions:
   the head is ``head`` in JAX and ``cls_head`` in the port)
 
 ``block_params_from_jax`` carries the whole-block fused bottleneck's
-``BlockParams`` (``ops/block_fused.py``) across.
+``BlockParams`` (``ops/block_fused.py``) across. ``linear_from_jax`` /
+``linear_to_jax`` carry the PyCIL heads of ``models/linears.py``: ``weight``
+(already (out, in) in both), ``bias``, ``sigma``, and ``fc1`` / ``fc2`` of
+the split classifier as ``fc1.weight`` / ``fc2.weight``.
 
 The converter works on arrays, so it imports nothing of the JAX package.
 """
@@ -153,3 +156,30 @@ def block_params_from_jax(params, dtype: torch.dtype = torch.bfloat16) -> BlockP
         w3=w3.reshape(-1, w3.shape[-1]).to(dtype),
         g3=tensor("g3"), b3=tensor("b3"),
     )
+
+
+_LINEAR_LEAVES = ("weight", "bias", "sigma")
+
+
+def linear_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A ``linears.py`` module's flax params (numpy leaves) -> its state_dict."""
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, value in _leaves(params):
+        if path[-1] not in _LINEAR_LEAVES or any(p not in ("fc1", "fc2") for p in path[:-1]):
+            raise KeyError(f"unknown linear-head leaf {'/'.join(path)}")
+        out[".".join(path)] = torch.from_numpy(np.array(np.asarray(value, np.float32), order="C"))
+    return out
+
+
+def linear_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``linear_from_jax``."""
+    out: Dict = {}
+    for name, tensor in state_dict.items():
+        *mods, leaf = name.split(".")
+        if leaf not in _LINEAR_LEAVES or any(m not in ("fc1", "fc2") for m in mods):
+            raise KeyError(f"unknown linear-head entry {name!r}")
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = tensor.detach().float().cpu().numpy()
+    return out

@@ -22,6 +22,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel import distributed
+
 LSC_TYPES = ("LocalSimilarityClassifier", "LSC")
 LINEAR_TYPES = ("SimpleLinear", "IncrementalNet")
 
@@ -39,9 +41,16 @@ def kaiming_normal_linear(shape, generator: Optional[torch.Generator] = None) ->
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale by 1/keep.
-    ``generator`` lives on x's device."""
+    ``generator`` lives on x's device. Under a process group the mask is
+    drawn for the global batch (every rank's generator is the same) and the
+    rank keeps its rows, so W ranks drop what one process drops."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    world = distributed.process_count()
+    u = torch.rand((x.shape[0] * world, *x.shape[1:]), generator=generator, device=x.device)
+    if world > 1:
+        lo = distributed.process_index() * x.shape[0]
+        u = u[lo:lo + x.shape[0]]
+    keep = u < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

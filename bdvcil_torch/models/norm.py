@@ -1,8 +1,9 @@
-"""BatchNorm with flax semantics.
+"""BatchNorm with flax semantics, and the grouped BatchNorm of the reference's
+per-GPU statistics.
 
-Port of the ``flax.linen.BatchNorm`` the JAX backbone uses (through
-``bdvcil_tpu/models/resnet_tsm.py::_make_bn`` with ``bn_groups == 1``). It
-differs from ``torch.nn.BatchNorm2d`` in ways that change numbers:
+``BatchNorm`` ports the ``flax.linen.BatchNorm`` the JAX backbone uses
+(through ``bdvcil_tpu/models/resnet_tsm.py::_make_bn`` with ``bn_groups ==
+1``). It differs from ``torch.nn.BatchNorm2d`` in ways that change numbers:
 
   * momentum 0.9 in the flax convention: ``ra = 0.9 * ra + 0.1 * batch``;
   * statistics in f32 from the input whatever its dtype, with
@@ -12,9 +13,23 @@ differs from ``torch.nn.BatchNorm2d`` in ways that change numbers:
   * the normalize ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` runs in
     f32 and is cast once to ``dtype`` (the backbone's ``norm_dtype``).
 
+Under a process group its train-mode statistics are those of the global
+batch, as the JAX package computes them under SPMD: the f32 (sum x, sum x^2,
+count) are all-reduced, and the backward all-reduces their gradients
+(``parallel/distributed.global_sums``). ``torch.nn.SyncBatchNorm`` is not
+used: it keeps the unbiased running variance and torch's momentum.
+
+``GroupedBatchNorm`` ports ``bdvcil_tpu/models/norm.py``: train-mode
+statistics over ``groups`` contiguous row blocks of the (N*T) axis, and with
+``stats_rows`` > 0 ghost statistics from each group's first rows, normalized
+in the compute dtype. ``groups`` counts the groups of the GLOBAL batch: with
+W ranks each holds groups / W of them (``'per_device'`` gives one a rank, the
+reference's DDP-without-SyncBN), and a single group spans the ranks. The
+running statistics take the mean over all groups, so every rank's buffers
+stay equal.
+
 Parameters are named like torchvision's (``weight``, ``bias``,
 ``running_mean``, ``running_var``) so state dicts convert one to one.
-``GroupedBatchNorm`` (``bn_groups``/``bn_stats_rows``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +38,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..parallel import distributed
 
 
 class BatchNorm(nn.Module):
@@ -44,19 +61,99 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """x: (N, C, H, W) in any memory format; statistics over N, H, W."""
+        """x: (N, C, H, W) in any memory format; statistics over N, H, W (and
+        over every rank's rows under a process group)."""
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            mean2 = (xf * xf).mean(dim=(0, 2, 3))
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            s1, s2, count = distributed.global_sums(
+                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                xf.new_full((1,), float(xf.numel() // xf.shape[1])))
+            mean = s1 / count
+            var = torch.clamp(s2 / count - mean * mean, min=0.0)
+            self._update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype or x.dtype)
+
+
+class GroupedBatchNorm(BatchNorm):
+    """Train-mode statistics per contiguous row group of the global batch
+    (``groups``), optionally from each group's first ``stats_rows`` rows."""
+
+    def __init__(self, num_features: int, groups: int = 1, stats_rows: int = 0, **kw):
+        super().__init__(num_features, **kw)
+        self.groups = int(groups)
+        self.stats_rows = int(stats_rows)
+
+    def _layout(self, n_local: int):
+        """(groups on this rank, rows per group, this rank's rows in the
+        statistics prefix of a group spanning the ranks, or None)."""
+        world, rank = distributed.process_count(), distributed.process_index()
+        g = self.groups
+        if g == 1 and world > 1:
+            # one group over every rank's rows: this rank's share of its prefix
+            k = min(self.stats_rows, n_local * world) if self.stats_rows else n_local * world
+            return 1, n_local, max(0, min(n_local, k - rank * n_local))
+        if g % world:
+            raise ValueError(f"bn groups {g} do not split over {world} ranks (give 1, a "
+                             f"multiple of the rank count, or 'per_device')")
+        local = g // world
+        if n_local % local:
+            raise ValueError(f"leading dim {n_local} not divisible by {local} bn groups a rank")
+        return local, n_local // local, None
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """x: (N, C, H, W); returns ``dtype`` (else x's dtype)."""
+        out_dtype = self.dtype or x.dtype
+        if not train:
+            inv = self.weight / torch.sqrt(self.running_var + self.epsilon)
+            return ((x.to(out_dtype) - self.running_mean.to(out_dtype)[:, None, None])
+                    * inv.to(out_dtype)[:, None, None] + self.bias.to(out_dtype)[:, None, None])
+
+        n, c = x.shape[0], x.shape[1]
+        groups, rows, prefix = self._layout(n)
+        xg = x.reshape(groups, rows, *x.shape[1:])
+        dims = (1, 3, 4)  # rows + spatial, keep (G, C)
+        shape = (groups, 1, c, 1, 1)
+        if prefix is None:
+            k = min(self.stats_rows, rows) if self.stats_rows else 0
+            xs = (xg[:, :k] if k else xg).float()
+            mean = xs.mean(dim=dims)
+            var = (xs * xs).mean(dim=dims) - mean * mean
+        else:
+            # the group spans the ranks: sums over this rank's share, all-reduced
+            k = self.stats_rows
+            xs = xg[:, :prefix].float()
+            s1, s2, count = distributed.global_sums(
+                xs.sum(dim=dims).reshape(-1), (xs * xs).sum(dim=dims).reshape(-1),
+                xs.new_full((1,), float(prefix * x.shape[2] * x.shape[3])))
+            mean = (s1 / count).reshape(1, c)
+            var = (s2 / count).reshape(1, c) - mean * mean
+
+        if k:
+            # ghost statistics: normalize in the compute dtype
+            inv = (self.weight[None] / torch.sqrt(var + self.epsilon)).to(out_dtype)
+            y = (xg.to(out_dtype) - mean.to(out_dtype).reshape(shape)) * inv.reshape(shape)
+            y = y.reshape(x.shape) + self.bias.to(out_dtype)[:, None, None]
+        else:
+            y = (xg.float() - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + self.epsilon)
+            y = y.reshape(x.shape).to(out_dtype)
+            y = y * self.weight.to(out_dtype)[:, None, None] + self.bias.to(out_dtype)[:, None, None]
+
+        with torch.no_grad():
+            if prefix is None and distributed.process_count() > 1:
+                # the mean over every rank's groups
+                sm, sv = distributed.global_sums(mean.sum(dim=0), var.sum(dim=0))
+                self._update_running(sm / self.groups, sv / self.groups)
+            else:
+                self._update_running(mean.mean(dim=0), var.mean(dim=0))
+        return y

@@ -15,13 +15,21 @@ input and weight to it), ``norm_dtype`` the BatchNorm output dtype;
 parameters and BatchNorm statistics stay float32.
 
 Switches, as in the JAX package:
-  * ``shift_mode``: ``'pad'`` (materialised shift, the default) or
+  * ``shift_mode``: ``'pad'`` (materialised shift, the default), ``'fused'``
+    (conv1 takes the shift through the conv's linearity,
+    ``ops/tsm_shift.shifted_conv``: three convolutions, no shifted copy) or
     ``'fused_block'`` (each block's epilogue kernel emits its successor's
     shifted input, ``ops/tsm_shift.fused_residual_relu_shift``);
   * ``conv1x1_mode``: ``'xla'`` (plain conv, the default) or
     ``'pallas_stats'`` (bottleneck conv1/conv3 as the GEMM kernel with a
     BatchNorm-statistics epilogue, ``ops/conv1x1_bn``; needs ``shift_mode ==
-    'pad'``). The names follow the JAX package's configs.
+    'pad'``, ``bn_groups == 1`` and ``bn_stats_rows == 0``). The names follow
+    the JAX package's configs;
+  * ``stem_mode``: ``'conv'`` (the 7x7/s2 stem) or ``'s2d'`` (a 2x2
+    space-to-depth and the equivalent 4x4/s1 conv, ``S2DStem``; the same
+    parameter);
+  * ``bn_groups`` / ``bn_stats_rows``: ``GroupedBatchNorm`` (``models/norm.py``)
+    in place of every BatchNorm when ``bn_groups > 1`` or ``bn_stats_rows > 0``.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv1x1_bn import conv1x1_bn
-from ..ops.tsm_shift import fused_residual_relu_shift, temporal_shift
-from .norm import BatchNorm
+from ..ops.tsm_shift import fused_residual_relu_shift, shifted_conv, temporal_shift
+from .norm import BatchNorm, GroupedBatchNorm
 
 # depth -> (block type, stage sizes, expansion)
 ARCH = {
@@ -44,8 +52,9 @@ ARCH = {
     101: ("bottleneck", (3, 4, 23, 3), 4),
 }
 
-SHIFT_MODES = ("pad", "fused_block")
+SHIFT_MODES = ("pad", "fused", "fused_block")
 CONV1X1_MODES = ("xla", "pallas_stats")
+STEM_MODES = ("conv", "s2d")
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -88,28 +97,83 @@ class Conv2d(nn.Module):
                         self.padding)
 
 
-def _downsample(inplanes, planes, stride, dtype, norm_dtype, device):
-    return nn.Sequential(
-        Conv2d(inplanes, planes, 1, stride, 0, dtype, device),
-        BatchNorm(planes, dtype=norm_dtype, device=device),
-    )
+class ShiftedConv2d(Conv2d):
+    """conv1 of ``shift_mode='fused'``: ``conv(temporal_shift(x))`` through the
+    conv's linearity (``ops/tsm_shift.shifted_conv``). The parameter is
+    ``Conv2d``'s, so checkpoints and optimizer labels do not change."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride, padding, num_segments, shift_div,
+                 dtype=torch.float32, device=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, dtype, device)
+        self.num_segments, self.shift_div = num_segments, shift_div
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nchw(shifted_conv(nhwc(x.to(self.dtype)), self.weight.to(self.dtype),
+                                 self.num_segments, self.shift_div, self.stride, self.padding))
+
+
+class S2DStem(Conv2d):
+    """The space-to-depth stem (``_S2DStem``): a 2x2 space-to-depth of the
+    input (224² x 3 -> 112² x 12) and the exactly equivalent 4x4/s1 conv with
+    rearranged weights and padding (2, 1). The parameter keeps the plain
+    stem's (64, 3, 7, 7) layout."""
+
+    def __init__(self, out_ch, dtype=torch.float32, device=None):
+        super().__init__(3, out_ch, 7, 2, 3, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        # space-to-depth, channel order (p, q, c)
+        xt = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        xt = xt.reshape(n, 4 * c, h // 2, w // 2)
+        # w_pad[t + 1] = w[t]; wt[(p, q, c), a, b] = w[2a + p - 1, 2b + q - 1, c]
+        w_pad = F.pad(self.weight, (1, 0, 1, 0))
+        o = w_pad.shape[0]
+        wt = w_pad.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+        xt = F.pad(xt.to(self.dtype), (2, 1, 2, 1))
+        return F.conv2d(xt, wt.to(self.dtype))
+
+
+def _make_bn(planes, norm_dtype, bn_groups, bn_stats_rows, device):
+    """``BatchNorm`` (global-batch statistics), or ``GroupedBatchNorm`` when
+    ``bn_groups > 1`` or ``bn_stats_rows > 0`` (the JAX ``_make_bn``)."""
+    if bn_groups > 1 or bn_stats_rows > 0:
+        return GroupedBatchNorm(planes, groups=bn_groups, stats_rows=bn_stats_rows,
+                                dtype=norm_dtype, device=device)
+    return BatchNorm(planes, dtype=norm_dtype, device=device)
+
+
+def _conv1(inplanes, planes, kernel_size, stride, padding, num_segments, shift_div, is_shift,
+           shift_mode, dtype, device):
+    if is_shift and shift_mode == "fused":
+        return ShiftedConv2d(inplanes, planes, kernel_size, stride, padding, num_segments,
+                             shift_div, dtype, device)
+    return Conv2d(inplanes, planes, kernel_size, stride, padding, dtype, device)
+
+
+def _downsample(inplanes, planes, stride, dtype, bn, device):
+    return nn.Sequential(Conv2d(inplanes, planes, 1, stride, 0, dtype, device), bn)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride, num_segments, shift_div, is_shift, dtype,
-                 norm_dtype, shift_mode="pad", device=None):
+                 norm_dtype, shift_mode="pad", bn_groups=1, bn_stats_rows=0, device=None):
         super().__init__()
-        self.num_segments, self.shift_div, self.is_shift = num_segments, shift_div, is_shift
+        self.num_segments, self.shift_div = num_segments, shift_div
         self.fused_block = is_shift and shift_mode == "fused_block"
-        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, dtype, device)
-        self.bn1 = BatchNorm(planes, dtype=norm_dtype, device=device)
+        # 'fused' takes the shift inside conv1
+        self.is_shift = is_shift and shift_mode != "fused"
+        bn = lambda c: _make_bn(c, norm_dtype, bn_groups, bn_stats_rows, device)  # noqa: E731
+        self.conv1 = _conv1(inplanes, planes, 3, stride, 1, num_segments, shift_div, is_shift,
+                            shift_mode, dtype, device)
+        self.bn1 = bn(planes)
         self.conv2 = Conv2d(planes, planes, 3, 1, 1, dtype, device)
-        self.bn2 = BatchNorm(planes, dtype=norm_dtype, device=device)
+        self.bn2 = bn(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
-            self.downsample = _downsample(inplanes, planes, stride, dtype, norm_dtype, device)
+            self.downsample = _downsample(inplanes, planes, stride, dtype, bn(planes), device)
 
     def forward(self, x, train: bool, x_shifted=None):
         identity = x
@@ -130,25 +194,32 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride, num_segments, shift_div, is_shift, dtype,
-                 norm_dtype, shift_mode="pad", conv1x1_mode="xla", device=None):
+                 norm_dtype, shift_mode="pad", conv1x1_mode="xla", bn_groups=1, bn_stats_rows=0,
+                 device=None):
         super().__init__()
-        self.num_segments, self.shift_div, self.is_shift = num_segments, shift_div, is_shift
+        self.num_segments, self.shift_div = num_segments, shift_div
         self.fused_block = is_shift and shift_mode == "fused_block"
+        self.is_shift = is_shift and shift_mode != "fused"
         # the GEMM-with-stats path replaces conv1/bn1 and conv3/bn3 when the
-        # shift is materialised (the JAX package's condition)
-        self.use_stats_gemm = conv1x1_mode == "pallas_stats" and shift_mode == "pad"
+        # shift is materialised and BatchNorm is the global one (the JAX
+        # package's condition)
+        self.use_stats_gemm = (conv1x1_mode == "pallas_stats" and shift_mode == "pad"
+                               and bn_groups == 1 and bn_stats_rows == 0)
         self.dtype, self.norm_dtype = dtype, norm_dtype
         out_planes = planes * self.expansion
-        self.conv1 = Conv2d(inplanes, planes, 1, 1, 0, dtype, device)
-        self.bn1 = BatchNorm(planes, dtype=norm_dtype, device=device)
+        bn = lambda c: _make_bn(c, norm_dtype, bn_groups, bn_stats_rows, device)  # noqa: E731
+        self.conv1 = _conv1(inplanes, planes, 1, 1, 0, num_segments, shift_div, is_shift,
+                            shift_mode, dtype, device)
+        self.bn1 = bn(planes)
         # stride on the 3x3 (torch / mmaction2 'pytorch' style)
         self.conv2 = Conv2d(planes, planes, 3, stride, 1, dtype, device)
-        self.bn2 = BatchNorm(planes, dtype=norm_dtype, device=device)
+        self.bn2 = bn(planes)
         self.conv3 = Conv2d(planes, out_planes, 1, 1, 0, dtype, device)
-        self.bn3 = BatchNorm(out_planes, dtype=norm_dtype, device=device)
+        self.bn3 = bn(out_planes)
         self.downsample = None
         if stride != 1 or inplanes != out_planes:
-            self.downsample = _downsample(inplanes, out_planes, stride, dtype, norm_dtype, device)
+            self.downsample = _downsample(inplanes, out_planes, stride, dtype, bn(out_planes),
+                                          device)
 
     def _conv_bn(self, h, conv, bn, train):
         if self.use_stats_gemm:
@@ -172,10 +243,6 @@ class Bottleneck(nn.Module):
         return F.relu(h + identity.to(h.dtype))
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class ResNetTSM(nn.Module):
     def __init__(
         self,
@@ -196,13 +263,13 @@ class ResNetTSM(nn.Module):
     ):
         super().__init__()
         if shift_mode not in SHIFT_MODES:
-            raise _not_ported(f"shift_mode={shift_mode!r}", "A.1 (shifted_conv 'fused')")
+            raise ValueError(f"unknown shift_mode {shift_mode!r}, not one of {SHIFT_MODES}")
         if conv1x1_mode not in CONV1X1_MODES:
-            raise _not_ported(f"conv1x1_mode={conv1x1_mode!r}", "A.1 (conv1x1 modes)")
-        if stem_mode != "conv":
-            raise _not_ported(f"stem_mode={stem_mode!r}", "A.1 (s2d stem)")
-        if bn_groups != 1 or bn_stats_rows:
-            raise _not_ported("GroupedBatchNorm (bn_groups / bn_stats_rows)", "A.1 (norm)")
+            raise NotImplementedError(
+                f"conv1x1_mode={conv1x1_mode!r} is not ported (ROADMAP A.1: the port has "
+                f"{CONV1X1_MODES})")
+        if stem_mode not in STEM_MODES:
+            raise ValueError(f"unknown stem_mode {stem_mode!r}, not one of {STEM_MODES}")
         block_kind, stage_sizes, expansion = ARCH[depth]
         self.depth = depth
         self.num_segments, self.shift_div, self.is_shift = num_segments, shift_div, is_shift
@@ -210,14 +277,16 @@ class ResNetTSM(nn.Module):
         self.dtype, self.norm_dtype = dtype, norm_dtype
         self.fused_block = is_shift and shift_mode == "fused_block"
 
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, dtype, device)
-        self.bn1 = BatchNorm(64, dtype=norm_dtype, device=device)
+        self.conv1 = (S2DStem(64, dtype, device) if stem_mode == "s2d"
+                      else Conv2d(3, 64, 7, 2, 3, dtype, device))
+        self.bn1 = _make_bn(64, norm_dtype, bn_groups, bn_stats_rows, device)
         inplanes, planes = 64, 64
         for stage_idx, num_blocks in enumerate(stage_sizes):
             blocks = []
             for block_idx in range(num_blocks):
                 stride = 2 if (stage_idx > 0 and block_idx == 0) else 1
-                kw = dict(shift_mode=shift_mode, device=device)
+                kw = dict(shift_mode=shift_mode, bn_groups=bn_groups,
+                          bn_stats_rows=bn_stats_rows, device=device)
                 if block_kind == "bottleneck":
                     block = Bottleneck(inplanes, planes, stride, num_segments, shift_div,
                                        is_shift, dtype, norm_dtype, conv1x1_mode=conv1x1_mode,

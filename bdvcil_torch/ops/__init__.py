@@ -2,9 +2,10 @@
 PyTorch version.
 
   tsm_shift    temporal_shift, temporal_shift_kernel (the shift kernel, both
-               directions), fused_residual_relu_shift (forward + backward kernels)
+               directions), fused_residual_relu_shift (forward + backward kernels),
+               shifted_conv (shift_mode='fused': three F.conv2d, no kernel)
   conv1x1_bn   conv1x1_with_stats and gemm_with_stats (GEMM + BatchNorm-statistics
-               kernel), conv1x1_bn
+               kernel), conv1x1_bn (the sums all-reduced under a process group)
   block_fused  the whole-block fused bottleneck forward: conv1x1_stats,
                conv3x3_affine_relu_stats, conv1x1_affine_relu_stats (kernels),
                fused_bottleneck_fwd, plain_bottleneck_fwd

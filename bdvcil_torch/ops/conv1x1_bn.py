@@ -13,7 +13,9 @@ On a CUDA tensor the forward is the hand-written kernel of
 ``csrc/gemm_stats_sm90.cuh`` with or without the block's prologue; on a CPU
 tensor it is ``gemm_stats_plain``. The backward is plain PyTorch on both, as
 the JAX package leaves it to XLA: the cotangents of s1/s2 are folded into dy
-(``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward.
+(``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward. Under a process
+group ``conv1x1_bn`` all-reduces the kernel's s1, s2 and row count before
+``bn_affine_from_sums``; the kernel itself sees only the rank's rows.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel import distributed
 from . import _build
 
 KERNEL = "conv1x1_with_stats"
@@ -194,12 +197,17 @@ def bn_affine_from_sums(
 
     ``bn`` owns ``weight``/``bias`` and the running statistics (the flax
     BatchNorm layout); in train mode the running statistics are updated with
-    the flax momentum convention.
+    the flax momentum convention. ``count`` is this rank's rows: under a
+    process group the sums are all-reduced first, so the statistics are the
+    global batch's, as in ``models/norm.BatchNorm``.
     """
     if not train:
         return bn.weight, bn.bias, bn.running_mean, bn.running_var
-    mean = s1 / count
-    var = s2 / count - mean * mean
+    # under a process group the sums and the count are the global batch's:
+    # one all-reduce, whose backward all-reduces their gradients
+    s1, s2, n = distributed.global_sums(s1, s2, s1.new_full((1,), float(count)))
+    mean = s1 / n
+    var = s2 / n - mean * mean
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)

@@ -7,6 +7,10 @@ pass through; boundary frames read zero.
 
   * ``temporal_shift`` — plain PyTorch (slice + cat), differentiable by
     autograd. ``shift_mode='pad'`` uses it before every block's conv1.
+  * ``shifted_conv`` — ``shift_mode='fused'``: ``conv(temporal_shift(x), W)``
+    through the conv's linearity, three ``F.conv2d`` calls on the pass-through
+    channels and the two shifted folds, so the shifted tensor is never
+    written whole. The JAX function is three XLA convolutions, no kernel.
   * ``temporal_shift_kernel`` — the same shift through the hand-written
     kernel of ``csrc/tsm_shift.cu`` (the port of ``temporal_shift_pallas``):
     forward and backward are one kernel with a direction argument, the
@@ -29,6 +33,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -62,6 +67,34 @@ def temporal_unshift(g: torch.Tensor, num_segments: int, shift_div: int = 8) -> 
         [gt[:, 1:, ..., fold:2 * fold], torch.zeros_like(gt[:, :1, ..., fold:2 * fold])], dim=1
     )
     return torch.cat([left, right, gt[..., 2 * fold:]], dim=-1).reshape(nt, h, w, c)
+
+
+def shifted_conv(x: torch.Tensor, weight: torch.Tensor, num_segments: int, shift_div: int = 8,
+                 stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """``conv(temporal_shift(x), weight)`` without the shifted tensor:
+
+        conv(x[..., 2f:], W[:, 2f:]) + conv(shift_left(x[..., :f]), W[:, :f])
+                                     + conv(shift_right(x[..., f:2f]), W[:, f:2f])
+
+    x: (N*T, H, W, C); weight (O, C, kh, kw) OIHW, cast to x's dtype. Returns
+    (N*T, H', W', O), the NHWC view of a channels_last tensor."""
+    nt, h, w, c = x.shape
+    n = nt // num_segments
+    fold = c // shift_div
+    weight = weight.to(x.dtype)
+
+    def conv(inp, ker):
+        return F.conv2d(inp.permute(0, 3, 1, 2), ker, None, stride, padding)
+
+    y = conv(x[..., 2 * fold:], weight[:, 2 * fold:])
+    xt = x.reshape(n, num_segments, h, w, c)
+    left = torch.cat([xt[:, 1:, ..., :fold], torch.zeros_like(xt[:, :1, ..., :fold])],
+                     dim=1).reshape(nt, h, w, fold)
+    right = torch.cat([torch.zeros_like(xt[:, :1, ..., fold:2 * fold]),
+                       xt[:, :-1, ..., fold:2 * fold]], dim=1).reshape(nt, h, w, fold)
+    y = y + conv(left, weight[:, :fold])
+    y = y + conv(right, weight[:, fold:2 * fold])
+    return y.permute(0, 2, 3, 1)
 
 
 # --- plain versions -----------------------------------------------------------

@@ -15,7 +15,13 @@
     payload always belong together. ``peek_train_snapshot_meta`` reads only
     the header.
 
-JAX's orbax backend has no counterpart (ROADMAP A.4).
+Under a process group every rank holds the same weights and optimizer state
+(the gradients are all-reduced, ``runtime/steps.py``), so one file serves all:
+the callers write on rank 0 and then meet at a barrier
+(``parallel.distributed.is_primary`` / ``sync_processes``; ``cil/trainer.py``,
+``tools/train.py``), and every rank reads it back. The module is never
+wrapped, so its names carry no ``module.`` prefix. JAX's orbax backend, a
+sharding-aware directory format, has no counterpart.
 """
 
 from __future__ import annotations

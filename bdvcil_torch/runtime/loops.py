@@ -15,7 +15,8 @@ host. On the CPU the same path runs without pinning, streams or events.
 
 ``run_inference`` runs an eval step over an unshuffled loader through the
 same prefetch thread and copies, keeps one group's outputs pending while the
-next group runs, and returns host arrays in dataset order.
+next group runs, and returns host arrays in dataset order; across ranks it
+gathers every rank's rows in rank order.
 
 Random draws in a step (dropout, tube-CutMix) come from a generator made from
 (run seed, step) (``step_generator``): a resumed run needs only its seed and
@@ -36,6 +37,8 @@ import torch
 
 from .._device import resolve_device
 from ..data.device_pipeline import HOST_KEYS
+from ..parallel import distributed
+from ..parallel.mesh import gather_to_host
 from ..utils import Throughput
 
 logger = logging.getLogger("bdvcil.runtime")
@@ -180,9 +183,13 @@ def split_batch(tree: Mapping[str, Any]):
 
 
 def _valid_rows(batch: Mapping[str, Any]) -> int:
+    """The valid rows of the global batch: this rank's, times the ranks (exact
+    but for the pad-row skew of a padded tail, as in JAX)."""
     if "sample_weight" in batch:
-        return int(np.asarray(batch["sample_weight"]).sum())
-    return int(np.shape(batch["label"])[0])
+        n = int(np.asarray(batch["sample_weight"]).sum())
+    else:
+        n = int(np.shape(batch["label"])[0])
+    return n * distributed.process_count()
 
 
 def train_epochs(
@@ -328,14 +335,24 @@ def run_inference(
     shape, goes batch by batch through ``eval_step``, so the results are the
     same for every K. The outputs of one group are read back only after the
     next group has been launched. Runs on the card unless ``device`` says
-    otherwise. One process only: multi-process inference is ROADMAP A.7.
+    otherwise.
+
+    Under a process group each rank runs its rows of every global batch (the
+    loaders pad the global order to whole batches and cut each rank's rows,
+    the same count on every rank), ``pad_batch_to`` counts the global batch
+    (a rank pads to its share), and each batch's outputs are gathered in rank
+    order as they drain; the whole is trimmed to ``loader.num_valid`` rows
+    (else the dataset's length) and every rank returns it (JAX
+    ``_run_inference_multiprocess``). Every rank runs the same loop, so the
+    gathers pair up.
     """
-    if getattr(loader, "process_count", 1) > 1:
-        raise NotImplementedError("multi-process inference is not ported yet (ROADMAP A.7)")
     device = resolve_device(device)
     stream = side_stream(device)
     pin = device.type == "cuda"
     spd = int(steps_per_dispatch) if multi_eval_step is not None else 1
+    world = distributed.process_count()
+    if world > 1 and pad_batch_to:
+        pad_batch_to = -(-int(pad_batch_to) // world)
 
     scores: List[np.ndarray] = []
     labels_out: List[np.ndarray] = []
@@ -346,7 +363,8 @@ def run_inference(
         if "imgs" in batch:
             imgs = {"imgs": np.asarray(batch["imgs"])}
         else:
-            imgs = {k: np.asarray(v) for k, v in batch.items() if k != "label"}
+            imgs = {k: np.asarray(v) for k, v in batch.items()
+                    if k not in ("label", "sample_weight")}
         labels = np.asarray(batch["label"]).reshape(-1)
         n_valid = next(iter(imgs.values())).shape[0]
         target = pad_batch_to or n_valid
@@ -385,24 +403,30 @@ def run_inference(
         return tree["imgs"] if tuple(tree) == ("imgs",) else tree
 
     def host(x):
-        return x.float().cpu().numpy()
+        """A dispatch's output as f32: on the host in one process; on the
+        card under a group, for the gather."""
+        x = x.float()
+        return x if world > 1 else x.cpu()
+
+    def rows(x, nv):
+        """A batch's valid rows on the host, every rank's in rank order."""
+        return gather_to_host(x[:nv]) if world > 1 else np.asarray(x[:nv])
 
     def drain(entry):
         if entry[0] == "multi":
             _, out, labels_list, n_valids = entry
             cls = host(out["cls_score"])
             rep = host(out["repr"]) if extract_repr else None
-            for k, (lb, nv) in enumerate(zip(labels_list, n_valids)):
-                scores.append(cls[k][:nv])
-                labels_out.append(lb)
-                if extract_repr:
-                    reprs.append(rep[k][:nv])
+            batches = [(cls[k], rep[k] if extract_repr else None, lb, nv)
+                       for k, (lb, nv) in enumerate(zip(labels_list, n_valids))]
         else:
-            for out, lb, nv in entry[1]:
-                scores.append(host(out["cls_score"])[:nv])
-                labels_out.append(lb)
-                if extract_repr:
-                    reprs.append(host(out["repr"])[:nv])
+            batches = [(host(out["cls_score"]), host(out["repr"]) if extract_repr else None,
+                        lb, nv) for out, lb, nv in entry[1]]
+        for cls, rep, lb, nv in batches:
+            scores.append(rows(cls, nv))
+            labels_out.append(rows(lb, nv))
+            if extract_repr:
+                reprs.append(rows(rep, nv))
 
     pending = None
     for entry in prefetch_to_device(grouped(loader), size=2, put_fn=prep_group):
@@ -420,8 +444,13 @@ def run_inference(
     if pending is not None:
         drain(pending)
 
-    result = {"cls_score": np.concatenate(scores, axis=0),
-              "labels": np.concatenate(labels_out, axis=0)}
+    n_valid = None
+    if world > 1:
+        n_valid = getattr(loader, "num_valid", None)
+        if n_valid is None:
+            n_valid = len(loader.dataset)
+    result = {"cls_score": np.concatenate(scores, axis=0)[:n_valid],
+              "labels": np.concatenate(labels_out, axis=0)[:n_valid]}
     if extract_repr:
-        result["repr"] = np.concatenate(reprs, axis=0)
+        result["repr"] = np.concatenate(reprs, axis=0)[:n_valid]
     return result

@@ -13,6 +13,15 @@ The step runs eagerly: the input function (when given), forward, backward,
 then the labeled SGD update in place (with gradient accumulation, every k-th
 call; ``optim.py``). ``make_multi_train_step`` runs K steps per call.
 
+Under a process group (``parallel/distributed.py``) each rank runs the step on
+its rows of the global batch: its loss is its share of the global loss (the
+denominators are all-reduced, ``losses.py``), BatchNorm takes the global
+batch's statistics, the gradients are summed over the ranks after every
+backward (one flat all-reduce; the module stays unwrapped, so no
+``module.`` prefix reaches a checkpoint), dropout and tube-CutMix draw for
+the global batch, and the metrics are the global losses. W ranks then take
+the step one process takes on the whole batch.
+
 ``make_eval_step`` is the forward of ``predict_step``: raw per-group scores
 and L2-normalized representations, from a float batch, uint8 crops (5-D
 centre, 6-D TenCrop) or the full-frame yuv420 eval wire;
@@ -35,6 +44,7 @@ from ..losses import (
 )
 from ..models.builder import ModelSpec
 from ..models.heads import head_param_path
+from ..parallel import distributed, mesh
 from ..ops.augment import (
     draw_tubemix,
     eval_yuv_full_crops,
@@ -139,10 +149,15 @@ def make_train_step(
                                          extra["foreground_ratio"].float(), num_classes,
                                          alpha=4.0)
         if method == "icarl_video_mix":
-            b, _, h, w, _ = imgs.shape
+            # the mix permutes the global batch: gather every rank's rows,
+            # mix them as one process would, keep this rank's
+            g_imgs, g_targets = mesh.all_gather_rows(imgs), mesh.all_gather_rows(targets)
+            b, _, h, w, _ = g_imgs.shape
             draws = draw_tubemix(generator, b, h, w, video_mix["alpha"], video_mix["prob"],
                                  device=imgs.device)  # on the generator's device if given
-            imgs, targets = tubemix(imgs, targets, **draws)
+            g_imgs, g_targets = tubemix(g_imgs, g_targets, **draws)
+            lo, hi = mesh.local_rows(b)
+            imgs, targets = g_imgs[lo:hi], g_targets[lo:hi]
         out = module(imgs, train=True, generator=generator)
         # average_clips='score' in iCaRL: the raw score mean over clips
         cls_score = out["cls_score"].mean(dim=1)
@@ -171,18 +186,50 @@ def make_train_step(
         else:
             total, metrics = icarl_loss(module, prev_model, imgs, labels, extra,
                                         sample_weights, generator)
-        total.backward()  # adds to p.grad, which holds the accumulation window's sum
+        if distributed.is_initialized():
+            _backward_all_reduced(module, total)
+        else:
+            total.backward()  # adds to p.grad, which holds the accumulation window's sum
         if (state.step + 1) % tx.accumulate_steps:
             new_opt_state = state.opt_state  # a micro-step: no update yet
         else:
             new_opt_state = tx.step(module, state.opt_state)
             module.zero_grad(set_to_none=True)
         metrics["loss"] = total
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = _global_metrics({k: v.detach() for k, v in metrics.items()})
         return TrainState(module=module, opt_state=new_opt_state, step=state.step + 1), metrics
 
     step.needs_prev = use_kd or use_prev_targets
     return step
+
+
+def _backward_all_reduced(module: nn.Module, total: torch.Tensor) -> None:
+    """The backward of one rank's share of the loss, its gradients summed over
+    the ranks, then added to the window's sum in ``p.grad``: after every
+    micro-step each rank's ``p.grad`` holds the global sum of the window so
+    far (``optax.MultiSteps`` in JAX), so a snapshot inside a window is whole."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    window = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    total.backward()
+    distributed.all_reduce_gradients(params)
+    for p, g in zip(params, window):
+        if g is not None:
+            if p.grad is None:
+                p.grad = g
+            else:
+                p.grad.add_(g)
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ranks' loss shares summed into the global batch's losses (each
+    rank's loss divides by the global denominators, ``losses.py``)."""
+    if not distributed.is_initialized():
+        return metrics
+    keys = sorted(metrics)
+    total = distributed.global_sums(*[metrics[k].float().reshape(1) for k in keys])
+    return {k: v[0] for k, v in zip(keys, total)}
 
 
 def _slot(tree, k: int):

@@ -12,8 +12,10 @@ The initial weights and the step draws come from the config's ``seed``
 (``init_model_params``, ``runtime/loops.step_generator``), not from a JAX key.
 The model is float32 whatever the config's ``compute_dtype``, as in the JAX
 tool, and runs on the card unless ``--device`` names another device; without a CUDA device and
-without ``--device`` it raises. One process: ``--launcher`` is accepted for
-the reference's command line, and ``WORLD_SIZE`` > 1 raises (ROADMAP A.7).
+without ``--device`` it raises. ``--launcher`` is accepted for the reference's
+command line; under ``python -m torch.distributed.run --nproc_per_node N`` each
+rank trains on its ``videos_per_gpu`` rows of the global batch and rank 0
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .._device import resolve_device
-from ..cil_tools import single_process
+from ..parallel import distributed
 from ..config import Config
 
 
@@ -46,7 +48,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None):
     """Train; returns the final train state."""
-    single_process("bdvcil_torch.tools.train")
+    distributed.initialize()  # the process group under a launcher; a no-op alone
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
@@ -77,7 +79,10 @@ def main(argv: Optional[Sequence[str]] = None):
     logger = get_logger("bdvcil.tools.train")
     work_dir = pathlib.Path(cfg.get("work_dir", "work_dirs/train"))
     work_dir.mkdir(parents=True, exist_ok=True)
-    cfg.dump(str(work_dir / "config.py"))
+    primary = distributed.is_primary()
+    world = distributed.process_count()
+    if primary:
+        cfg.dump(str(work_dir / "config.py"))
 
     seed = cfg.get("seed", 0)
     spec = build_model(dict(cfg.model), device=device)
@@ -91,7 +96,7 @@ def main(argv: Optional[Sequence[str]] = None):
     val_ds = build_dataset(dict(cfg.data.val)) if "val" in cfg.data else None
     loader = DataLoader(
         train_ds,
-        batch_size=cfg.videos_per_gpu,
+        batch_size=cfg.videos_per_gpu * world,
         shuffle=True,
         num_workers=cfg.get("workers_per_gpu", 4),
         drop_last=False,
@@ -112,14 +117,17 @@ def main(argv: Optional[Sequence[str]] = None):
     )
     step_fn = make_train_step(spec, tx, num_classes=num_classes, method="base", task_idx=0)
     state = TrainState.create(model, tx)
-    metric_logger = MetricLogger(str(work_dir))
+    metric_logger = MetricLogger(str(work_dir) if primary else None)
     meta = {"num_classes": num_classes}
 
     def epoch_hook(epoch, state_now):
-        save_checkpoint(work_dir / "latest.pt", state_now.module, meta=dict(meta, epoch=epoch))
+        if primary:
+            save_checkpoint(work_dir / "latest.pt", state_now.module,
+                            meta=dict(meta, epoch=epoch))
+        distributed.sync_processes("latest_ckpt")
         if val_ds is not None and args.validate:
             val_loader = DataLoader(
-                val_ds, batch_size=cfg.get("testing_videos_per_gpu", cfg.videos_per_gpu),
+                val_ds, batch_size=cfg.get("testing_videos_per_gpu", cfg.videos_per_gpu) * world,
                 shuffle=False)
             pred = run_inference(make_eval_step(spec, num_classes), state_now.module, val_loader,
                                  device=device, pad_batch_to=val_loader.batch_size)
@@ -141,7 +149,10 @@ def main(argv: Optional[Sequence[str]] = None):
         phase="train",
         epoch_hook=epoch_hook,
     )
-    save_checkpoint(work_dir / "final.pt", state.module, meta=dict(meta, epochs=total_epochs))
+    if primary:
+        save_checkpoint(work_dir / "final.pt", state.module,
+                        meta=dict(meta, epochs=total_epochs))
+    distributed.sync_processes("final_ckpt")
     logger.info("done; checkpoints in %s", work_dir)
     return state
 

@@ -119,6 +119,23 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      annotation tool's map); ``extract_features`` on them (every video kept,
      scores and representations within 3e-2 of the largest entry of the eval
      step's).
+ 12. distributed, the slice's path across ranks (``bdvcil_torch/parallel``):
+     (a) config A's task-0 and task-1 KD steps at 16 x 8 x 224² bf16 in a
+     one-rank NCCL group against no group, bit for bit under deterministic
+     algorithms (the gradient all-reduce, #3's sums and BatchNorm's all
+     all-reduced), #3 32 launches a step, the step ms with and without the
+     group; (b) two processes on the one card over gloo (NCCL refuses two
+     ranks on one device; the script starts itself with ``--rank``), 8 rows
+     each, against one process at 16: configs A and B in bf16 (losses, equal
+     weights on both ranks, #3 32 a step, #1 16 / 32 and #2 16 on each rank)
+     and B in float32 without TF32 (losses and the backbone's update, in
+     norm), the task-1 batch's 4 pad rows all on rank 1; ``run_inference``
+     of 10 videos at a global batch of 8, every gathered row against one
+     process; ``train_cil`` for 2 tasks at phase 10's cut on both ranks,
+     then ``cil_testing`` and ``test_cil`` on rank 0's checkpoints with equal
+     tables; (c) one train-mode forward of TSM-R50 under ``stem_mode='s2d'``,
+     ``shift_mode='fused'``, ``bn_groups=2`` and ``bn_stats_rows=4``, card
+     against CPU in f32 and bf16.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -132,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -247,18 +265,32 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def fused_paths():
     """(path, the fused epilogue's shapes per forward, runs a backward, dtype)
     of every path that runs #1: the bench's batch 16 at 224, phase 10's batch
-    8 at 224 and its TenCrop test at 256 (bf16), and phase 11's float32
-    tools: predict's TenCrop batch of 4 at 256, extract_features' batch of 4
-    at 224."""
+    8 at 224 and its TenCrop test at 256 (bf16), phase 11's float32 tools:
+    predict's TenCrop batch of 4 at 256, extract_features' batch of 4 at 224;
+    and phase 12's: a rank's 4 videos at 224 (its CIL run's train and
+    run_inference) and their TenCrop test at 256 (bf16), config B in float32
+    on one process (batch 16) and on a rank (batch 8), with a backward."""
     bf16, f32 = torch.bfloat16, torch.float32
+    rank_videos = CIL_BATCH // DIST_WORLD
     return [("bench", r50_shapes()[0], True, bf16),
             (CIL_PATH, r50_shapes(CIL_BATCH * SEGMENTS)[0], True, bf16),
             ("TenCrop", r50_shapes(EVAL_NT, EVAL_SIZE)[0], False, bf16),
             ("predict f32", r50_shapes(SERVE_VIDEOS * 10 * SEGMENTS, EVAL_SIZE)[0], False, f32),
-            ("features f32", r50_shapes(SERVE_VIDEOS * SEGMENTS)[0], False, f32)]
+            ("features f32", r50_shapes(SERVE_VIDEOS * SEGMENTS)[0], False, f32),
+            ("cil rank", r50_shapes(rank_videos * SEGMENTS)[0], True, bf16),
+            ("TenCrop rank", r50_shapes(rank_videos * 10 * SEGMENTS, EVAL_SIZE)[0], False, bf16),
+            ("B f32", r50_shapes()[0], True, f32),
+            ("B f32 rank", r50_shapes(BATCH // DIST_WORLD * SEGMENTS)[0], True, f32)]
 
 
-def kernel_phase(dev, gen, paths, gemm_shapes, tsm, conv):
+def gemm_paths():
+    """(path, #3's (M, K, N) shapes per forward) of every path that runs #3:
+    the main path's batch 16 (None: the kernels line's path) and a phase-12
+    rank's batch 8."""
+    return [(None, r50_shapes()[1]), ("A rank", r50_shapes(BATCH // DIST_WORLD * SEGMENTS)[1])]
+
+
+def kernel_phase(dev, gen, paths, gemm_paths, tsm, conv):
     """Each kernel against its plain version at every shape of its paths."""
     rows = []
     bf16 = torch.bfloat16
@@ -294,7 +326,8 @@ def kernel_phase(dev, gen, paths, gemm_shapes, tsm, conv):
                 del g_in, r_g
             torch.cuda.empty_cache()
 
-    for (m, k, n), per_fwd in sorted(gemm_shapes.items()):
+    for path, (m, k, n), per_fwd in [(path, shape, per_fwd) for path, shapes in gemm_paths
+                                     for shape, per_fwd in sorted(shapes.items())]:
         x = torch.randn((m, 1, 1, k), generator=gen, device=dev).to(bf16)
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
         y, s1, s2 = conv.conv1x1_with_stats_fwd(x, w)
@@ -323,7 +356,8 @@ def kernel_phase(dev, gen, paths, gemm_shapes, tsm, conv):
                          library_ms=cuda_ms(library),
                          product_ms=cuda_ms(lambda: torch.matmul(x2, w)), bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=float(err.max()),
-                         bytes=nbytes, flops=flops, tile=tile_of(m, n)))
+                         bytes=nbytes, flops=flops, tile=tile_of(m, n),
+                         **({} if path is None else {"path": path})))
         # the autograd backward on the card against the JAX rule (_bwd4) in f32
         # on the kernel's own y: dy = bf16(gy + gs1 + 2 gs2 y), then dy @ w.T
         # and x.T @ dy. (Autograd through the plain version is no reference
@@ -1642,6 +1676,496 @@ def acm_phase(dev, seed, smi):
     return out
 
 
+# --- phase 12: the port across ranks ------------------------------------------------
+
+DIST_WORLD = 2  # two processes on the one card, over gloo
+DIST_DEVICE = "cuda:0"
+DIST_BACKEND_A = "nccl"  # (a)'s one-rank group
+DIST_PAD = 4  # the task-1 batch's pad rows: its last 4, all on the last rank
+DIST_TIMEOUT_S = 900
+DIST_EVAL_VIDEOS, DIST_EVAL_BATCH = 10, 8  # a padded global eval batch: 4 rows a rank
+DIST_CIL_SPLITS = CIL_SPLITS[:2]  # phase 10's cut, 2 tasks
+# (b)'s runs on 8 rows a rank against 16 rows in one process: (loss rtol, the
+# backbone's task-0 update as one vector, in norm; the task-0 step of the
+# BatchNorm running statistics as one vector, in norm). In bf16 the untrained
+# BatchNorm net amplifies rounding into updates that differ O(1) (the CPU
+# float64 witness, tests/test_torch_port_distributed.py, shows the math
+# exact), so the update is bounded in float32 without TF32. The running
+# statistics read the all-reduced sums (config A: #3's) directly, in f32:
+# measured 3.7e-3 (bf16) and 1.1e-6 (f32) off, and 7.9e-2 for config A when
+# #3's sums are not all-reduced.
+DIST_TOLS = {"A": (1e-2, None, 1e-2), "B": (1e-2, None, 1e-2), "B_f32": (1e-4, 0.1, 1e-5)}
+DIST_EVAL_TOL = 3e-2  # of the largest entry, phase 3's bf16 tolerance
+MODE_SWITCHES = {"s2d": dict(stem_mode="s2d"), "fused": dict(shift_mode="fused"),
+                 "bn_groups=2": dict(bn_groups=2), "bn_stats_rows=4": dict(bn_stats_rows=4)}
+MODE_F32_TOL = 1e-3  # card f32 (no TF32) vs CPU f32, of the largest entry
+MODE_BF16_FACTOR = 2.0  # card bf16 vs CPU f32, against the plain backbone's own error
+
+
+def dist_inputs(seed):
+    """The global batch of phase 12's steps, made on the host from ``seed``:
+    clips, task-0 and task-1 labels, and the task-1 sample weights (0 on the
+    last ``DIST_PAD`` rows). The second half of the clips (the last rank's
+    rows) is brighter and of more contrast, as clips of other videos are, so
+    a rank's own statistics differ from the global batch's."""
+    from bdvcil_torch import config_templates as presets
+
+    g = torch.Generator().manual_seed(seed + 12)
+    nc0 = presets.HMDB51_BASE_CLASSES
+    imgs = torch.randn((BATCH, SEGMENTS, SIZE, SIZE, 3), generator=g)
+    imgs[BATCH // 2:] = imgs[BATCH // 2:] * 1.5 + 0.5
+    labels0 = torch.randint(0, nc0, (BATCH,), generator=g)
+    labels1 = torch.randint(0, nc0 + presets.HMDB51_CLASSES_PER_TASK, (BATCH,), generator=g)
+    weights1 = torch.ones(BATCH)
+    weights1[-DIST_PAD:] = 0
+    return imgs, labels0, labels1, weights1
+
+
+def dist_steps(name, dev, seed, dtype=torch.bfloat16):
+    """A task-0 step and a task-1 KD step (padded tail) of config ``name`` at
+    TSM-R50 16 x 8 x 224² in ``dtype``, on this rank's rows of the global
+    batch (all of them in one process); dropout from ``step_generator(seed,
+    step)``. float32 runs without TF32."""
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.models import build_model, init_model_params, update_fc
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.optim import build_optimizer
+    from bdvcil_torch.parallel import mesh
+    from bdvcil_torch.runtime import TrainState, make_train_step
+    from bdvcil_torch.runtime.loops import step_generator
+
+    lo, hi = mesh.local_rows(BATCH)
+    imgs, labels0, labels1, weights1 = (t[lo:hi].to(dev) for t in dist_inputs(seed))
+    nc0 = presets.HMDB51_BASE_CLASSES
+    nc1 = nc0 + presets.HMDB51_CLASSES_PER_TASK
+    spec = build_model(presets.hmdb51_r50_cfg(nc0, SEGMENTS, **presets.SWITCHES[name]),
+                       dtype=dtype, device=dev)
+    model = init_model_params(spec, seed)
+    tx = build_optimizer(model, presets.OPTIMIZER, presets.LR_SCHEDULER, steps_per_epoch=100)
+    state = TrainState.create(model, tx)
+    records = []
+
+    def run(step, prev, labels, extra, s):
+        nonlocal state
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_tf32() if dtype == torch.float32 else contextlib.nullcontext():
+            state, m = step(state, prev, imgs, labels, extra, step_generator(seed, s, dev))
+        torch.cuda.synchronize()
+        records.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(m["loss"]),
+                            kd_loss=float(m["kd_loss"]), launches=dict(_build.LAUNCHES)))
+
+    run(make_train_step(spec, tx, nc0), None, labels0, {}, 0)
+    after0 = {k: v.detach().float().cpu().clone() for k, v in state.module.state_dict().items()
+              if k.startswith("backbone.")}
+    prev = copy.deepcopy(state.module)
+    update_fc(state.module, nc1, torch.Generator().manual_seed(seed + 2))
+    update_fc(prev, nc1, torch.Generator().manual_seed(seed + 3))
+    tx1 = build_optimizer(state.module, presets.OPTIMIZER, presets.LR_SCHEDULER,
+                          steps_per_epoch=100, grad_clip=presets.GRAD_CLIP)
+    state = TrainState.create(state.module, tx1)
+    step1 = make_train_step(spec, tx1, nc1, task_idx=1, prev_num_classes=nc0,
+                            kd_config=presets.kd_config(nc1, nc1 - nc0))
+    run(step1, prev, labels1, {"sample_weight": weights1}, 1)
+    after = {k: v.detach().float().cpu().clone() for k, v in state.module.state_dict().items()}
+    del state, prev, model
+    torch.cuda.empty_cache()
+    return dict(records=records, state=after, state0=after0)
+
+
+class EvalClips:
+    """``DIST_EVAL_VIDEOS`` normalized clips at 8 x 224², made from (seed, index)."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __len__(self):
+        return DIST_EVAL_VIDEOS
+
+    def __getitem__(self, i):
+        g = torch.Generator().manual_seed(self.seed * 1000 + i)
+        return {"imgs": torch.randn((SEGMENTS, SIZE, SIZE, 3), generator=g).numpy(),
+                "label": i % 5}
+
+
+def dist_inference(dev, seed):
+    """``run_inference`` of config B (bf16) over ``EvalClips`` at a global batch
+    of ``DIST_EVAL_BATCH``: the rows gathered in rank order across ranks."""
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.data.host_loader import DataLoader
+    from bdvcil_torch.models import build_model, init_model_params
+    from bdvcil_torch.runtime import make_eval_step
+    from bdvcil_torch.runtime.loops import run_inference
+
+    spec = build_model(presets.hmdb51_r50_cfg(5, SEGMENTS, **presets.SWITCHES["B"]),
+                       dtype=torch.bfloat16, device=dev)
+    model = init_model_params(spec, seed)
+    loader = DataLoader(EvalClips(seed), batch_size=DIST_EVAL_BATCH, num_workers=4)
+    out = run_inference(make_eval_step(spec, 5), model, loader, device=dev, extract_repr=True,
+                        pad_batch_to=DIST_EVAL_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def dist_cil_config(root: pathlib.Path) -> pathlib.Path:
+    """Phase 10's config file, cut to 2 tasks, at ``CIL_BATCH`` / ``DIST_WORLD``
+    videos a rank (phase 10's global batch)."""
+    path = cil_config_file(root)
+    per_rank = CIL_BATCH // DIST_WORLD
+    path.write_text(path.read_text().replace("globals().update(_cfg)", f"""_cfg.update(
+    task_splits={DIST_CIL_SPLITS!r}, ending_task={len(DIST_CIL_SPLITS) - 1},
+    adaptive_scale_factors=adaptive_scale_factors({DIST_CIL_SPLITS!r}),
+    videos_per_gpu={per_rank}, testing_videos_per_gpu={per_rank})
+globals().update(_cfg)"""))
+    return path
+
+
+def dist_cil(root: pathlib.Path):
+    """On every rank: ``train_cil``'s main for 2 tasks, the trainer's
+    ``cil_testing``, then ``test_cil``'s main on rank 0's checkpoints; the
+    result tables of both, read by every rank after a barrier."""
+    from bdvcil_torch.cil_tools import test_cil, train_cil
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.parallel import distributed
+
+    config = root / "cil_config.py"
+    wd = root / "work_dir"
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    trainer = train_cil.main([str(config)])
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    trainer.cil_testing(test_nme=True)
+    distributed.sync_processes("tables")
+    tables = {n: (wd / n).read_text() for n in ("cnn_result.txt", "nme_result.txt")}
+    distributed.sync_processes("tables_read")
+    test_cil.main([str(config)])
+    distributed.sync_processes("test_cil_tables")
+    again = {n: (wd / n).read_text() for n in tables}
+    return dict(cnn=trainer.cnn_matrix, nme=trainer.nme_matrix, train_s=train_s,
+                launches=launches, tables=tables, test_cil_tables=again,
+                ckpts=sorted(p.name for p in (wd / "ckpt").glob("ckpt_task_*.pt")))
+
+
+def rank_main(args) -> int:
+    """One rank of phase 12 (b): joins the gloo group on cuda:0 and runs
+    configs A and B, ``run_inference`` and the 2-task CIL run; writes its
+    results to ``<dist-dir>/rank<r>.pt``."""
+    from bdvcil_torch.parallel import distributed
+
+    root = pathlib.Path(args.dist_dir)
+    dev = distributed.initialize(backend="gloo", device=DIST_DEVICE,
+                                 init_method=f"tcp://127.0.0.1:{args.port}",
+                                 world_size=args.world, rank=args.rank, timeout_s=DIST_TIMEOUT_S)
+    try:
+        out = {}
+        for name in KERNEL_CONFIGS:
+            dist_steps(name, dev, args.seed)  # a warm-up, so the timed run is the second
+            out[name] = dist_steps(name, dev, args.seed)
+        out["B_f32"] = dist_steps("B", dev, args.seed, torch.float32)
+        out["infer"] = dist_inference(dev, args.seed)
+        out["cil"] = dist_cil(root)
+        out["rank"] = distributed.process_index()
+        torch.save(out, root / f"rank{args.rank}.pt")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def rank_command(rank: int, port: int, root: pathlib.Path, seed: int):
+    """The command line of one rank process: this script, given its rank."""
+    return [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--rank", str(rank),
+            "--world", str(DIST_WORLD), "--port", str(port), "--dist-dir", str(root)]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _backbone_update_gap(got, want, start, running=False):
+    """|(got - start) - (want - start)| / |want - start| over the backbone's
+    parameters as one vector (its BatchNorm running statistics with
+    ``running``)."""
+    names = [k for k in start if k.startswith("backbone.") and ("running" in k) == running
+             and start[k].is_floating_point()]
+    d_got = torch.cat([(got[k] - start[k]).double().reshape(-1) for k in names])
+    d_want = torch.cat([(want[k] - start[k]).double().reshape(-1) for k in names])
+    return float((d_got - d_want).norm() / d_want.norm())
+
+
+def _initial_backbone(name, seed):
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.models import build_model, init_model_params
+
+    spec = build_model(presets.hmdb51_r50_cfg(5, SEGMENTS, **presets.SWITCHES[name]),
+                       device="cpu")
+    return {k: v for k, v in init_model_params(spec, seed).state_dict().items()
+            if k.startswith("backbone.")}
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """True float32 convolutions and matmuls on the card (no TF32)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def modes_forward(dev, seed, smi):
+    """(c): one train-mode forward of TSM-R50 under each switch no config on
+    the main path reaches, on the card against the CPU (f32): in f32 without
+    TF32, within ``MODE_F32_TOL``; in bf16, within twice the plain backbone's
+    own bf16 error on the same input (``MODE_BF16_FACTOR``)."""
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.models import build_model, init_model_params
+
+    x = torch.randn((2, SEGMENTS, SIZE, SIZE, 3), generator=torch.Generator().manual_seed(seed))
+
+    def forward(switches, where, dtype):
+        cfg = presets.hmdb51_r50_cfg(5, SEGMENTS, dropout_ratio=0.0, **switches)
+        model = init_model_params(build_model(cfg, dtype=dtype, device=where), seed)
+        with torch.no_grad(), no_tf32():
+            res = model(x.to(where), train=True)
+        return {k: res[k].float().cpu() for k in ("cls_score", "repr")}
+
+    def err(got, ref):
+        return {k: float((got[k] - ref[k]).abs().max()) / float(ref[k].abs().max()) for k in ref}
+
+    out = {}
+    for mode, switches in {"plain": {}, **MODE_SWITCHES}.items():
+        ref = forward(switches, "cpu", torch.float32)
+        e32 = err(forward(switches, dev, torch.float32), ref)
+        e16 = err(forward(switches, dev, torch.bfloat16), ref)
+        out[mode] = dict(f32=e32, bf16=e16)
+        tol16 = {k: MODE_BF16_FACTOR * v for k, v in out["plain"]["bf16"].items()}
+        bad = [k for k in ref if not e32[k] <= MODE_F32_TOL or not e16[k] <= tol16[k]]
+        if bad:
+            raise AssertionError(f"distributed (c) {mode}: card vs CPU f32 {e32}, bf16 {e16} "
+                                 f"(tol f32 {MODE_F32_TOL}, bf16 {tol16})")
+        print(f"distributed (c) {mode}: TSM-R50 train-mode forward 2 x 8 x 224² on the card "
+              f"against the CPU (f32), off by, of the largest entry: f32 cls_score "
+              f"{e32['cls_score']:.3g} repr {e32['repr']:.3g} (tol {MODE_F32_TOL}); bf16 "
+              f"cls_score {e16['cls_score']:.3g} repr {e16['repr']:.3g} (tol "
+              f"{MODE_BF16_FACTOR} x the plain backbone's bf16 error) [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def counted_all_reduce():
+    """Counts ``torch.distributed.all_reduce`` calls and their bytes."""
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    real = dist.all_reduce
+
+    def counting(tensor, *args, **kwargs):
+        counts["calls"] += 1
+        counts["bytes"] += tensor.numel() * tensor.element_size()
+        return real(tensor, *args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield counts
+    finally:
+        dist.all_reduce = real
+
+
+def distributed_phase(dev, seed, smi):
+    """Phase 12: (a) config A's two steps over a one-rank NCCL group against no
+    group, bit for bit; (b) two processes on the card over gloo against one
+    process (configs A and B, run_inference) and a 2-task CIL run scored again
+    by test_cil; (c) the backbone switches off the main path, card vs CPU."""
+    import shutil
+
+    from bdvcil_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) deterministic algorithms, so two runs of one program agree bit for bit
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        first = dist_steps("A", dev, seed)  # pays the first calls' set-up
+        distributed.initialize(backend=DIST_BACKEND_A, device=dev,
+                               init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                               rank=0)
+        try:
+            distributed.sync_processes("communicator")  # NCCL sets up at its first call
+            grouped = dist_steps("A", dev, seed)
+            with counted_all_reduce() as collectives:
+                grouped_timed = dist_steps("A", dev, seed)
+        finally:
+            distributed.shutdown()
+        alone = dist_steps("A", dev, seed)
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[1:]
+    differ = [k for k in alone["state"] for run in (first, grouped, grouped_timed)
+              if not torch.equal(alone["state"][k], run["state"][k])]
+    losses = ([r["loss"] for r in alone["records"]], [r["loss"] for r in grouped["records"]])
+    if [r["loss"] for r in first["records"]] != losses[0]:
+        differ.append("the first run's losses")
+    conv_launches = [r["launches"].get(CONV, 0) for r in grouped["records"]]
+    if differ or losses[0] != losses[1] or conv_launches != [32, 32]:
+        raise AssertionError(f"distributed (a): {len(differ)} leaves differ (e.g. {differ[:3]}), "
+                             f"losses {losses}, #3 launches a step {conv_launches}")
+    ms = ([r["ms"] for r in alone["records"]], [r["ms"] for r in grouped_timed["records"]])
+    extra_ms = sum(ms[1]) - sum(ms[0])
+    out["a"] = dict(losses=losses[1], ms_alone=ms[0], ms_nccl1=ms[1],
+                    conv_launches=conv_launches, all_reduces=collectives["calls"],
+                    all_reduce_mb=collectives["bytes"] / 1e6,
+                    extra_us_per_all_reduce=1e3 * extra_ms / collectives["calls"])
+    print(f"distributed (a) config A, one rank over NCCL vs no process group, 2 steps at "
+          f"16 x 8 x 224² bf16: losses and all {len(alone['state'])} weights and buffers equal "
+          f"bit for bit (deterministic algorithms; no group, the group twice, no group "
+          f"again); task-0 step {ms[1][0]:.2f} ms vs {ms[0][0]:.2f} ms, task-1 KD step "
+          f"{ms[1][1]:.2f} ms vs {ms[0][1]:.2f} ms (the group's second run vs no group's "
+          f"second); {collectives['calls']} all-reduces over the 2 steps "
+          f"({collectives['bytes'] / 1e6:.1f} MB), so {out['a']['extra_us_per_all_reduce']:.0f} "
+          f"us of step time each; #3 launches {conv_launches} a step [{smi}]", flush=True)
+    del first, alone, grouped, grouped_timed
+
+    # (b) one process at the whole batch, then two ranks on the card over gloo
+    one = {name: dist_steps(name, dev, seed) for name in KERNEL_CONFIGS}
+    one["B_f32"] = dist_steps("B", dev, seed, torch.float32)
+    one_infer = dist_inference(dev, seed)
+    root = pathlib.Path("chiprun_out/dist_corpus").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    procs = []
+    try:
+        write_cil_corpus(root, seed)
+        dist_cil_config(root)
+        port = _free_port()
+        logs = [open(root / f"rank{r}.log", "w") for r in range(DIST_WORLD)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(rank_command(r, port, root, seed), stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(DIST_WORLD)]
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0))))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+        ranks_s = time.perf_counter() - t0
+        for f in logs:
+            f.close()
+        if codes != [0] * DIST_WORLD:
+            tails = "\n".join(f"--- rank {r}:\n" + (root / f"rank{r}.log").read_text()[-4000:]
+                              for r in range(DIST_WORLD))
+            raise AssertionError(f"distributed (b): rank exit codes {codes}\n{tails}")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    b = dict(ranks_s=ranks_s)
+    for name, (loss_rtol, update_tol, running_tol) in DIST_TOLS.items():
+        r0 = ranks[0][name]
+        differ = [k for r in ranks[1:] for k in r0["state"]
+                  if not torch.equal(r0["state"][k], r[name]["state"][k])]
+        got = [x["loss"] for x in r0["records"]]
+        want = [x["loss"] for x in one[name]["records"]]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        start = _initial_backbone(name[0], seed)
+        gap = _backbone_update_gap(r0["state0"], one[name]["state0"], start)
+        gap2 = _backbone_update_gap(r0["state"], one[name]["state"], start)
+        running = _backbone_update_gap(r0["state0"], one[name]["state0"], start, running=True)
+        per_rank = [[x["launches"] for x in r[name]["records"]] for r in ranks]
+        if name == "A":
+            bad = [c for rank in per_rank for c in rank if c.get(CONV) != 32]
+        else:  # #1 once a block a forward (the previous model's too at task 1), #2 a backward
+            bad = [c for rank in per_rank for c, f in zip(rank, (1, 2))
+                   if c.get(FWD) != CIL_BLOCKS * f or c.get(BWD) != CIL_BLOCKS]
+        if (differ or max(rel) > loss_rtol or (update_tol is not None and gap > update_tol)
+                or not running <= running_tol or bad
+                or not all(math.isfinite(v) for v in got)):
+            raise AssertionError(f"distributed (b) {name}: {len(differ)} leaves differ between "
+                                 f"the ranks (e.g. {differ[:3]}), losses {got} vs one process "
+                                 f"{want} (rel {rel}, tol {loss_rtol}), backbone update gap "
+                                 f"{gap} (tol {update_tol}), running statistics gap {running} "
+                                 f"(tol {running_tol}), launches {per_rank}")
+        b[name] = dict(losses=got, one_process_losses=want, rel=rel, update_gap=gap,
+                       update_gap_two_steps=gap2, running_gap=running,
+                       launches_per_rank=per_rank,
+                       ms_ranks=[[x["ms"] for x in r[name]["records"]] for r in ranks],
+                       ms_one=[x["ms"] for x in one[name]["records"]])
+        ms_r, ms_1 = [x["ms"] for x in r0["records"]], b[name]["ms_one"]
+        held = (f"tol {update_tol}" if update_tol is not None else
+                "not bounded in bf16: the float32 run bounds it")
+        print(f"distributed (b) config {name}, 2 gloo ranks on one card (8 rows each) vs one "
+              f"process (16 rows): losses {got} vs {want} (rel {max(rel):.3g}, tol "
+              f"{loss_rtol}); backbone update gap {gap:.3g} of its norm after the task-0 step "
+              f"({held}), {gap2:.3g} after both; BatchNorm running statistics' task-0 step "
+              f"off by {running:.3g} of its norm (tol {running_tol}); ranks hold equal weights "
+              f"and buffers; launches per rank and step {per_rank[0]}; step ms rank 0 "
+              f"{ms_r[0]:.1f}, {ms_r[1]:.1f} vs one process {ms_1[0]:.1f}, {ms_1[1]:.1f} "
+              f"[{smi}]", flush=True)
+        del r0
+
+    errs = {}
+    for r, rank in enumerate(ranks):
+        got = rank["infer"]
+        if not torch.equal(got["labels"], one_infer["labels"]):
+            raise AssertionError(f"distributed (b) rank {r}: gathered labels {got['labels']}")
+        for key in ("cls_score", "repr"):
+            ref = one_infer[key]
+            if got[key].shape != ref.shape or got[key].shape[0] != DIST_EVAL_VIDEOS:
+                raise AssertionError(f"distributed (b): gathered {key} {tuple(got[key].shape)}")
+            row_err = (got[key] - ref).abs().reshape(DIST_EVAL_VIDEOS, -1).amax(1)
+            tol = DIST_EVAL_TOL * float(ref.abs().max())
+            errs[key] = max(errs.get(key, 0.0), float(row_err.max()) / float(ref.abs().max()))
+            if float(row_err.max()) > tol:
+                raise AssertionError(f"distributed (b) rank {r}: {key} rows off by "
+                                     f"{row_err.tolist()} (tol {tol})")
+    b["infer"] = errs
+    print(f"distributed (b) run_inference, 2 gloo ranks ({DIST_EVAL_BATCH // DIST_WORLD} rows "
+          f"each, {DIST_EVAL_VIDEOS} videos, padded) vs one process: every gathered row within "
+          f"cls_score {errs['cls_score']:.3g}, repr {errs['repr']:.3g} of the largest entry (tol "
+          f"{DIST_EVAL_TOL}) [{smi}]", flush=True)
+
+    cils = [rank["cil"] for rank in ranks]
+    c0 = cils[0]
+    if any(c["cnn"] != c0["cnn"] or c["nme"] != c0["nme"] for c in cils[1:]):
+        raise AssertionError(f"distributed (b) cil: the ranks' matrices differ: "
+                             f"{[(c['cnn'], c['nme']) for c in cils]}")
+    if c0["tables"] != c0["test_cil_tables"] or c0["ckpts"] != [
+            f"ckpt_task_{t}.pt" for t in range(len(DIST_CIL_SPLITS))]:
+        raise AssertionError(f"distributed (b) cil: test_cil tables equal "
+                             f"{c0['tables'] == c0['test_cil_tables']}, checkpoints {c0['ckpts']}")
+    for row_set in (c0["cnn"], c0["nme"]):
+        for t, row in enumerate(row_set):
+            if len(row) != t + 1 or not all(math.isfinite(a) and 0 <= a <= 100 for a in row):
+                raise AssertionError(f"distributed (b) cil: accuracy row {row}")
+    b["cil"] = dict(cnn=c0["cnn"], nme=c0["nme"], train_s=[c["train_s"] for c in cils],
+                    launches=[c["launches"] for c in cils], tables=c0["tables"])
+    print(f"distributed (b) cil: train_cil on 2 gloo ranks, {len(DIST_CIL_SPLITS)} tasks at "
+          f"phase 10's cut ({CIL_BATCH // DIST_WORLD} videos a rank): CNN {c0['cnn']} NME "
+          f"{c0['nme']}, equal on both ranks; test_cil on rank 0's checkpoints gives the "
+          f"trainer's cil_testing tables; train {c0['train_s']:.1f} s; #1/#2 launches per rank "
+          f"{[{k: c['launches'].get(k) for k in (FWD, BWD)} for c in cils]}; the ranks took "
+          f"{ranks_s:.1f} s [{smi}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    out["b"] = b
+    out["c"] = modes_forward(dev, seed, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"distributed phase: {out['phase_s']:.1f} s [{smi}]", flush=True)
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -1653,6 +2177,11 @@ def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    # phase 12's rank processes: the script starts itself with these
+    parser.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1661,6 +2190,8 @@ def main(argv=None) -> int:
     # cuBLAS's workspace for the loop phase's deterministic resume (set before
     # the first cuBLAS call; the size is PyTorch's default on Hopper)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if args.rank is not None:
+        return rank_main(args)
     from bdvcil_torch.ops import _build
     from bdvcil_torch.ops import block_fused as bf
     from bdvcil_torch.ops import conv1x1_bn as conv
@@ -1685,7 +2216,7 @@ def main(argv=None) -> int:
     shift_shapes = [(s, torch.bfloat16) for s in sorted(shifted)] + [
         ((64, 28, 28, 512), torch.float32)]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = kernel_phase(dev, gen, fused_paths(), gemm_shapes, tsm, conv)
+    rows = kernel_phase(dev, gen, fused_paths(), gemm_paths(), tsm, conv)
     torch.cuda.empty_cache()
     rows += kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf)
     for r in rows:
@@ -1735,6 +2266,7 @@ def main(argv=None) -> int:
     loop = loop_phase(dev, args.seed, smi, sum(gemm_shapes.values()))
     cil = cil_phase(dev, args.seed, smi)
     acm = acm_phase(dev, args.seed, smi)
+    dist = distributed_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
@@ -1766,7 +2298,7 @@ def main(argv=None) -> int:
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
                   loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
-                  kernels=kernels,
+                  distributed=dist, kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
                        "one forward and one backward of phase 10's batch 8 (its train shapes), "

@@ -172,14 +172,6 @@ def test_run_inference_matches_jax(models, k):
     assert_outputs_match(out, ref)
 
 
-def test_run_inference_refuses_several_processes(models):
-    _, _, spec, module = models[(18, "default")]
-    loader = ListLoader([], 3)
-    loader.process_count = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        run_inference(make_eval_step(spec, NC), module, loader, device="cpu")
-
-
 @pytest.fixture(scope="module")
 def corpus_infos(tmp_path_factory):
     if not native.available():

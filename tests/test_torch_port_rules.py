@@ -4,9 +4,8 @@
     anything of bdvcil_tpu;
   * entry points run on the card unless told otherwise: with no CUDA device
     and no ``device`` they raise;
-  * switches, methods and options that are not ported yet raise
-    NotImplementedError naming the ROADMAP item, and so does every tool
-    started as one of several processes (WORLD_SIZE > 1);
+  * switches, methods and options that are not ported raise
+    NotImplementedError naming the ROADMAP item;
   * the package's layout docstrings name every module;
   * chip_smoke.py fails, and prints no result, without a GPU or without the
     rest of the repo.
@@ -26,8 +25,7 @@ import importlib
 
 from bdvcil_torch.models import build_model, init_model_params
 from bdvcil_torch.optim import build_optimizer
-from bdvcil_torch.runtime import make_eval_step, make_train_step
-from bdvcil_torch.runtime.loops import run_inference
+from bdvcil_torch.runtime import make_train_step
 from tests.torch_port_helpers import model_cfg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -74,10 +72,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         build_model(model_cfg(18, "pad", "xla", 3, in_channels=512))
 
 
-@pytest.mark.parametrize("backbone", [
-    dict(shift_mode="fused"), dict(stem_mode="s2d"), dict(conv1x1_mode="pallas_gemm"),
-    dict(bn_groups=2), dict(bn_stats_rows=4),
-])
+@pytest.mark.parametrize("backbone", [dict(conv1x1_mode="pallas_gemm")])
 def test_unported_switches_raise_naming_the_roadmap(backbone):
     cfg = model_cfg(18, "pad", "xla", 3, in_channels=512)
     cfg["backbone"].update(backbone)
@@ -86,10 +81,6 @@ def test_unported_switches_raise_naming_the_roadmap(backbone):
 
 
 def test_unported_options_raise():
-    cfg = model_cfg(18, "pad", "xla", 3, in_channels=512)
-    cfg["backbone"]["bn_groups"] = "per_device"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
     spec = build_model(model_cfg(18, "pad", "xla", 3, in_channels=512), device="cpu")
     model = init_model_params(spec, 0)
     # gradient accumulation is ported (optim.py); 'finetune' and 'oracle' are
@@ -98,28 +89,6 @@ def test_unported_options_raise():
     tx = build_optimizer(model, dict(type="SGD", lr=0.1))
     with pytest.raises(ValueError, match="trainer maps"):
         make_train_step(spec, tx, 3, method="finetune")
-
-
-TOOLS = ("bdvcil_torch.cil_tools.train_cil", "bdvcil_torch.cil_tools.test_cil",
-         "bdvcil_torch.cil_tools.test_single_ckpt", "bdvcil_torch.cil_tools.predict",
-         "bdvcil_torch.cil_tools.extract_features", "bdvcil_torch.cil_tools.extract_background",
-         "bdvcil_torch.cil_tools.create_annotation_files", "bdvcil_torch.tools.train")
-
-
-def test_deferred_items_raise_naming_the_roadmap(monkeypatch):
-    class TwoProcessLoader(list):
-        process_count, batch_size = 2, 1
-
-    spec = build_model(model_cfg(18, "pad", "xla", 3, in_channels=512), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        run_inference(make_eval_step(spec, 3), init_model_params(spec, 0), TwoProcessLoader(),
-                      device="cpu")
-    # every tool runs in one process: under a launcher with WORLD_SIZE > 1 it
-    # raises before it reads its arguments
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    for tool in TOOLS:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            importlib.import_module(tool).main([])
 
 
 def test_train_cil_refuses_to_fall_back_to_the_cpu(tmp_path):
@@ -141,7 +110,8 @@ def _module_names(package: pathlib.Path):
 
 
 @pytest.mark.parametrize("package", ["bdvcil_torch", "bdvcil_torch/data",
-                                     "bdvcil_torch/cil_tools", "bdvcil_torch/tools"])
+                                     "bdvcil_torch/cil_tools", "bdvcil_torch/tools",
+                                     "bdvcil_torch/parallel"])
 def test_layout_docstrings_name_every_module(package):
     doc = importlib.import_module(package.replace("/", ".")).__doc__
     names = [n for n in _module_names(ROOT / package) if not n.startswith("_")]
