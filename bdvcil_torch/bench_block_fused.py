@@ -13,8 +13,11 @@ plus the statistics reduction (``bench_parts`` of the JAX tool):
 ``torch.matmul`` + two sums for the 1x1 convs, ``F.conv2d`` on channels_last
 + two sums for the 3x3, and the statistics reduction alone. As in the JAX
 tool, the parts take a = 1, b = 0 and the library counterparts apply relu
-only. It also times the block's last elementwise pass, relu(y3 * a3 + b3 +
-x), which stays eager PyTorch in the fused schedule.
+only. It also times the block's tail: the last elementwise pass, relu(y3 *
+a3 + b3 + x), as the kernel the fused schedule launches
+(``affine_residual_relu``, ``epilogue_kernel``) and as its eager plain
+version (``epilogue_plain``), and one BatchNorm finalize at C likewise
+(``bn_finalize_kernel``, ``bn_finalize_plain``).
 
 The geometry comes from flags (the JAX defaults: 16 clips x 8 frames at
 layer1, 56x56, 256 -> 64 -> 64 -> 256). Three knobs of the TPU tool are not
@@ -121,6 +124,9 @@ def time_parts(x, p, device: torch.device, reps: int = 10):
     zeros = torch.zeros((cm,), device=device)
     gen = torch.Generator().manual_seed(2)
     y1 = torch.randn((rows, hw, hw, cm), generator=gen).to(x.dtype).to(device)
+    y3 = torch.randn(x.shape, generator=gen).to(x.dtype).to(device)
+    s3, q3 = _stats(y3)
+    count = float(rows * hw * hw)
 
     def lib_conv2():
         y = F.conv2d(torch.relu(y1).permute(0, 3, 1, 2), w2_oihw, padding=1)
@@ -134,10 +140,12 @@ def time_parts(x, p, device: torch.device, reps: int = 10):
         "fused_conv3_1x1": lambda: bf.conv1x1_affine_relu_stats(y1, ones, zeros, w3),
         "lib_conv3_1x1": lambda: _stats(torch.matmul(torch.relu(y1), w3)),
         "lib_bn_stats_only": lambda: _stats(y1),
-        # the fused block's last pass, relu(y3 * a3 + b3 + x), eager PyTorch
-        # (x stands in for y3: the same shape and dtype)
-        "epilogue_elementwise": lambda: torch.relu(
-            x.float() * p.g3 + p.b3 + x.float()).to(x.dtype),
+        # the fused block's last pass, relu(y3 * a3 + b3 + x), and its last
+        # BatchNorm finalize
+        "epilogue_kernel": lambda: bf.affine_residual_relu(y3, p.g3, p.b3, x),
+        "epilogue_plain": lambda: bf.affine_residual_relu_plain(y3, p.g3, p.b3, x),
+        "bn_finalize_kernel": lambda: bf.bn_finalize(s3, q3, p.g3, p.b3, count, 1e-5),
+        "bn_finalize_plain": lambda: bf.bn_finalize_plain(s3, q3, p.g3, p.b3, count, 1e-5),
     }
     return {f"{name}_ms": median_ms(fn, device, reps) for name, fn in parts.items()}
 

@@ -7,7 +7,8 @@ PyTorch version.
   conv1x1_bn   conv1x1_with_stats and gemm_with_stats (GEMM + BatchNorm-statistics
                kernel), conv1x1_bn (the sums all-reduced under a process group)
   block_fused  the whole-block fused bottleneck forward: conv1x1_stats,
-               conv3x3_affine_relu_stats, conv1x1_affine_relu_stats (kernels),
+               conv3x3_affine_relu_stats, conv1x1_affine_relu_stats,
+               bn_finalize, affine_residual_relu (kernels),
                fused_bottleneck_fwd, plain_bottleneck_fwd
   _build       nvcc build, ctypes loading, launch counts, CPU/CUDA dispatch
 

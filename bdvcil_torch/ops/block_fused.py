@@ -7,13 +7,14 @@ pass (layer1 geometry: 56x56, 256 -> 64 -> 64 -> 256):
   y1 = conv1x1(x)                 + BN1 statistics      conv1x1_stats
   y2 = conv3x3(relu(bn1(y1)))     + BN2 statistics      conv3x3_affine_relu_stats
   y3 = conv1x1(relu(bn2(y2)))     + BN3 statistics      conv1x1_affine_relu_stats
-  out = relu(bn3(y3) + x)         one plain elementwise pass
+  out = relu(bn3(y3) + x)         one elementwise pass  affine_residual_relu
 
 Each kernel reads its input activation once (the previous BatchNorm's
 normalize and relu run as a prologue on the tile already loaded) and writes
 its output once (the per-channel sum and sum of squares come out of the
-epilogue). Between kernels the statistics become an affine (a, b) in
-``_finalize``, (C,)-sized math.
+epilogue). Between kernels ``bn_finalize`` turns each BatchNorm's statistics
+into its affine (a, b) and its (mean, var), (C,)-sized math: seven launches
+a block in all.
 
 On a CUDA tensor each stats op is its hand-written kernel:
 ``csrc/conv1x1_stats.cu`` for the two 1x1 GEMMs (the second with its
@@ -23,7 +24,9 @@ ways of tiling the TPU's matrix unit). All three run on the persistent wgmma
 core of ``csrc/gemm_stats_sm90.cuh``, which applies the prologue to the A
 tile in shared memory. On a CPU tensor each is its ``_plain`` version; the
 plain 3x3 mirrors each variant's summation (nine f32 tap products
-accumulated in order, or one K=9C product).
+accumulated in order, or one K=9C product). ``bn_finalize`` and
+``affine_residual_relu`` are ``csrc/block_epilogue.cu``'s two kernels, bit
+for bit against their plain versions, the eager expressions they replace.
 
 Forward-only, as the JAX ops are (they have no VJP): the ops raise if an input
 requires grad rather than letting autograd reach the plain versions.
@@ -49,6 +52,8 @@ from .conv1x1_bn import (check_affine, gemm_stats_cuda, gemm_stats_plain, sm_cou
 CONV1 = "block_conv1x1_stats"
 CONV2 = "conv3x3_affine_relu_stats"
 CONV3 = "conv1x1_affine_relu_stats"
+FINALIZE = "block_bn_finalize"
+EPILOGUE = "block_affine_residual_relu"
 VARIANTS = ("taps", "im2col")
 # the 3x3 kernel reads each channel slice of a 128-pixel tile as one TMA box of
 # 128 + 2 W + 2 rows of x, and a box has at most 256
@@ -109,6 +114,21 @@ def make_params(generator: Optional[torch.Generator] = None, c: int = 256, cm: i
 def affine_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16(relu(f32(x) * a + b)): a product and a sum, each rounded to f32."""
     return torch.relu(x.float() * a + b).to(x.dtype)
+
+
+def bn_finalize_plain(s, q, gamma, beta, count, eps):
+    """Batch statistics -> (4, C) f32 rows: the normalize affine a = gamma /
+    sqrt(var + eps), b = beta - mean * a, then mean and var."""
+    mean = s / count
+    var = q / count - mean * mean
+    inv = gamma / torch.sqrt(var + eps)
+    return torch.stack((inv, beta - mean * inv, mean, var))
+
+
+def affine_residual_relu_plain(y, a, b, x):
+    """bf16(relu(f32(y) * a + b + f32(x))): the block's last pass, each
+    operation rounded to f32 in that order."""
+    return torch.relu(y.float() * a + b + x.float()).to(x.dtype)
 
 
 def conv1x1_affine_relu_stats_plain(x, a, b, w):
@@ -188,6 +208,71 @@ def _conv3x3_cuda(x, a, b, w, variant):
     return y, stats[0], stats[1]
 
 
+def _epilogue_lib() -> ctypes.CDLL:
+    lib = _build.library("block_epilogue")
+    if not getattr(lib, "_bdv_typed", False):
+        lib.bdv_bn_finalize.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        lib.bdv_affine_residual_relu.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.bdv_block_epilogue_max_channels.argtypes = []
+        for fn in (lib.bdv_bn_finalize, lib.bdv_affine_residual_relu,
+                   lib.bdv_block_epilogue_max_channels):
+            fn.restype = ctypes.c_int
+        lib.max_channels = lib.bdv_block_epilogue_max_channels()  # a, b in shared memory
+        lib._bdv_typed = True
+    return lib
+
+
+def _check_packs(name: str, c: int, *tensors: torch.Tensor) -> None:
+    """The tail kernels move 16-byte packs: C % 8 == 0 and every operand
+    16-byte aligned."""
+    if c % 8:
+        raise ValueError(f"{name}: needs C % 8 == 0, got C={c}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every operand must start on a 16-byte boundary (a "
+                         "channel-sliced view does not)")
+
+
+def _bn_finalize_cuda(s, q, gamma, beta, count, eps):
+    c = s.numel()
+    check_affine(FINALIZE, c, s, q, s.device)
+    check_affine(FINALIZE, c, gamma, beta, s.device)
+    _check_packs(FINALIZE, c, s, q, gamma, beta)
+    out = torch.empty((4, c), dtype=torch.float32, device=s.device)
+    lib = _epilogue_lib()
+    code = lib.bdv_bn_finalize(s.data_ptr(), q.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                               out.data_ptr(), c, count, eps,
+                               torch.cuda.current_stream(s.device).cuda_stream)
+    _build.check(lib, code, FINALIZE)
+    _build.LAUNCHES[FINALIZE] += 1
+    return out
+
+
+def _affine_residual_relu_cuda(y, a, b, x):
+    if y.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        raise TypeError(f"{EPILOGUE}: the kernel takes bfloat16, got {y.dtype} + {x.dtype}")
+    if y.shape != x.shape or y.dim() == 0:
+        raise ValueError(f"{EPILOGUE}: shapes {tuple(y.shape)} + {tuple(x.shape)}")
+    if x.device != y.device:
+        raise ValueError(f"{EPILOGUE}: operands on {y.device} and {x.device}")
+    if not (y.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{EPILOGUE}: operands must be contiguous (NHWC)")
+    c = y.shape[-1]
+    check_affine(EPILOGUE, c, a, b, y.device)
+    _check_packs(EPILOGUE, c, y, x, a, b)
+    lib = _epilogue_lib()
+    if c > lib.max_channels:
+        raise ValueError(f"{EPILOGUE}: needs C <= {lib.max_channels}, got C={c}")
+    out = torch.empty_like(y)
+    code = lib.bdv_affine_residual_relu(
+        y.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), c,
+        sm_count(y.device), torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, code, EPILOGUE)
+    _build.LAUNCHES[EPILOGUE] += 1
+    return out
+
+
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
     if any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is forward-only (the JAX op has no VJP): an input "
@@ -224,18 +309,29 @@ def conv3x3_affine_relu_stats(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                            x, a, b, w, variant)
 
 
+def bn_finalize(s: torch.Tensor, q: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                count: float, eps: float) -> torch.Tensor:
+    """One BatchNorm's batch statistics (sum s and sum of squares q over
+    ``count`` rows) -> (4, C) f32: rows a, b (the normalize affine), mean,
+    var. All inputs f32 (C,)."""
+    _forward_only(FINALIZE, s, q, gamma, beta)
+    return _build.dispatch(FINALIZE, s, _bn_finalize_cuda, bn_finalize_plain,
+                           s, q, gamma, beta, count, eps)
+
+
+def affine_residual_relu(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """bf16(relu(f32(y) * a + b + f32(x))) over NHWC bf16 y and x, with a, b
+    f32 (C,) per channel: the block's last pass."""
+    _forward_only(EPILOGUE, y, a, b, x)
+    return _build.dispatch(EPILOGUE, y, _affine_residual_relu_cuda, affine_residual_relu_plain,
+                           y, a, b, x)
+
+
 # --- the block ----------------------------------------------------------------
 
 
-def _finalize(s1, s2, count, gamma, beta, eps):
-    """Batch statistics -> the normalize affine (inv, beta - mean * inv), in f32."""
-    mean = s1 / count
-    var = s2 / count - mean * mean
-    inv = gamma / torch.sqrt(var + eps)
-    return inv, beta - mean * inv
-
-
-def _bottleneck(x, p: BlockParams, eps, conv1, conv2, conv3):
+def _bottleneck(x, p: BlockParams, eps, conv1, conv2, conv3, finalize, epilogue):
     nt, h, w_, c = x.shape
     w1 = p.w1.reshape(c, -1).to(x.dtype).contiguous()
     w3 = p.w3.reshape(p.w3.shape[-2], p.w3.shape[-1]).to(x.dtype).contiguous()
@@ -243,36 +339,33 @@ def _bottleneck(x, p: BlockParams, eps, conv1, conv2, conv3):
     cnt = float(nt * h * w_)
 
     y1, s1, q1 = conv1(x, w1)
-    a1, b1 = _finalize(s1, q1, cnt, p.g1, p.b1, eps)
-    y2, s2, q2 = conv2(y1, a1, b1, w2)
-    a2, b2 = _finalize(s2, q2, cnt, p.g2, p.b2, eps)
-    y3, s3, q3 = conv3(y2, a2, b2, w3)
-    a3, b3 = _finalize(s3, q3, cnt, p.g3, p.b3, eps)
-    out = torch.relu(y3.float() * a3 + b3 + x.float()).to(x.dtype)
-
-    def mv(s, q):
-        m = s / cnt
-        return m, q / cnt - m * m
-
-    return out, (mv(s1, q1), mv(s2, q2), mv(s3, q3))
+    f1 = finalize(s1, q1, p.g1, p.b1, cnt, eps)
+    y2, s2, q2 = conv2(y1, f1[0], f1[1], w2)
+    f2 = finalize(s2, q2, p.g2, p.b2, cnt, eps)
+    y3, s3, q3 = conv3(y2, f2[0], f2[1], w3)
+    f3 = finalize(s3, q3, p.g3, p.b3, cnt, eps)
+    out = epilogue(y3, f3[0], f3[1], x)
+    return out, tuple((f[2], f[3]) for f in (f1, f2, f3))
 
 
 def fused_bottleneck_fwd(x: torch.Tensor, p: BlockParams, eps: float = 1e-5,
                          conv3x3_variant: str = "taps"):
-    """Training-mode bottleneck forward as three fused stats kernels and one
-    elementwise pass. x (NT, H, W, C) NHWC, contiguous. Returns (out,
-    ((mean, var) per BN)): the statistics a full integration would feed the
-    running averages."""
+    """Training-mode bottleneck forward as three fused stats kernels, three
+    BatchNorm finalizes and one elementwise pass. x (NT, H, W, C) NHWC,
+    contiguous. Returns (out, ((mean, var) per BN)): the statistics a full
+    integration would feed the running averages."""
     conv2 = partial(conv3x3_affine_relu_stats, variant=conv3x3_variant)
-    return _bottleneck(x.contiguous(), p, eps, conv1x1_stats, conv2, conv1x1_affine_relu_stats)
+    return _bottleneck(x.contiguous(), p, eps, conv1x1_stats, conv2, conv1x1_affine_relu_stats,
+                       bn_finalize, affine_residual_relu)
 
 
 def fused_bottleneck_fwd_plain(x: torch.Tensor, p: BlockParams, eps: float = 1e-5,
                                conv3x3_variant: str = "taps"):
-    """``fused_bottleneck_fwd`` over the stats ops' plain versions, on any device."""
+    """``fused_bottleneck_fwd`` over the ops' plain versions, on any device."""
     conv2 = partial(conv3x3_affine_relu_stats_plain, variant=conv3x3_variant)
     return _bottleneck(x.contiguous(), p, eps, gemm_stats_plain, conv2,
-                       conv1x1_affine_relu_stats_plain)
+                       conv1x1_affine_relu_stats_plain, bn_finalize_plain,
+                       affine_residual_relu_plain)
 
 
 def plain_bottleneck_fwd(x: torch.Tensor, p: BlockParams, eps: float = 1e-5):

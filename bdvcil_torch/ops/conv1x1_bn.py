@@ -85,13 +85,14 @@ def stats_scratch(part_shape, n: int, device):
 
 
 def check_affine(name: str, k: int, a: torch.Tensor, b: torch.Tensor, device) -> None:
-    """The prologue's (a, b): contiguous f32 (K,) vectors on the operand's device."""
+    """The prologue's (a, b), or any two per-channel operands: contiguous f32
+    (K,) vectors on the operand's device."""
     for v in (a, b):
         if v.shape != (k,) or v.dtype != torch.float32 or v.device != device:
-            raise ValueError(f"{name}: a, b must be ({k},) float32 on {device}, got "
+            raise ValueError(f"{name}: vectors must be ({k},) float32 on {device}, got "
                              f"{tuple(v.shape)} {v.dtype} on {v.device}")
         if not v.is_contiguous():
-            raise ValueError(f"{name}: a, b must be contiguous")
+            raise ValueError(f"{name}: vectors must be contiguous")
 
 
 def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,

@@ -2,14 +2,17 @@
 
 Runs ``conv1x1_with_stats`` (#3, the kernel that also serves #4 and #6) at
 the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A,
-``conv3x3_affine_relu_stats`` (#8) and ``conv1x1_affine_relu_stats`` (#7,
-the block's conv3) at the four stride-1 bottleneck widths, each ``--reps``
-times under ``torch.profiler``. Prints, per shape, the device
-time per launch of every CUDA kernel the wrapper starts (the GEMM and the
-statistics finish), the wrapper's host time per call (``host``: the host
-clock over ``--reps`` calls issued back to back, the card running behind),
-and, from the build's ``nvcc -Xptxas -v`` logs, each kernel's registers,
-shared memory and spills.
+``conv3x3_affine_relu_stats`` (#8), ``conv1x1_affine_relu_stats`` (#7,
+the block's conv3), the block's tail (``bn_finalize`` at C and Cm,
+``affine_residual_relu``) and the whole block forward
+(``fused_bottleneck_fwd``, 128 frames) at the four stride-1 bottleneck
+widths, each ``--reps`` times under ``torch.profiler``. Prints, per shape,
+the device time per launch of every CUDA kernel the wrapper starts (the GEMM
+and the statistics finish), the wrapper's host time per call (``host``: the
+host clock over ``--reps`` calls issued back to back, the card running
+behind; for the block, the host time of its seven wrapper calls), and, from
+the build's ``nvcc -Xptxas -v`` logs, each kernel's registers, shared
+memory and spills.
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
@@ -124,6 +127,26 @@ def main(argv=None) -> int:
         rows.append(dict(kernel="conv1x1_affine_relu_stats", shape=[m, k, n],
                          plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
         del x, a, b, w
+    for nt, h, w_, cm, _ in gemm_plan.R50_3X3_SHAPES:  # the block's tail and the block
+        c = 4 * cm
+        x = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
+        y = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
+        a = torch.rand((c,), generator=gen, device=dev) + 0.5
+        b = torch.randn((c,), generator=gen, device=dev) * 0.5
+        split = kernel_split(lambda: bf.affine_residual_relu(y, a, b, x), args.reps)
+        rows.append(dict(kernel=bf.EPILOGUE, shape=[nt, h, w_, c], us=split))
+        yf = x.float()
+        for width in (c, cm):
+            s, q = yf[..., :width].sum((0, 1, 2)), (yf[..., :width] ** 2).sum((0, 1, 2))
+            split = kernel_split(lambda: bf.bn_finalize(s, q, a[:width], b[:width],
+                                                        float(nt * h * w_), 1e-5), args.reps)
+            rows.append(dict(kernel=bf.FINALIZE, shape=[width], us=split))
+        del y, yf
+        p = bf.make_params(torch.Generator().manual_seed(0), c=c, cm=cm, device=dev)
+        with torch.no_grad():
+            split = kernel_split(lambda: bf.fused_bottleneck_fwd(x, p), args.reps)
+        rows.append(dict(kernel="fused_bottleneck_fwd", shape=[nt, h, w_, c, cm], us=split))
+        del x, a, b, p
     for r in rows:
         parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(r["us"].items()))
         print(f"{r['kernel']} {r['shape']}: {parts}", flush=True)

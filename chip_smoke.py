@@ -25,9 +25,11 @@ command-line entry points.
 The other entry points, each with its own kernels:
 
   block  fused_bottleneck_fwd at TSM-R50 layer1 width (16 clips x 8 frames,
-         56x56, 256 -> 64 -> 64 -> 256), both conv3x3 variants
+         56x56, 256 -> 64 -> 64 -> 256), both conv3x3 variants, and once at
+         each of the other three stride-1 widths
          -> block_conv1x1_stats, conv3x3_affine_relu_stats,
-            conv1x1_affine_relu_stats, one each per block forward
+            conv1x1_affine_relu_stats and block_affine_residual_relu, one
+            each per block forward, block_bn_finalize three
   gemm   gemm_with_stats, forward and VJP, at the eight ResNet-50 1x1 shapes
          -> gemm_with_stats
   shift  temporal_shift_kernel, forward and VJP, at the block inputs of the
@@ -40,7 +42,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the plain version and, where one exists, the library call and its bare
      product (no statistics); the wgmma kernels' tile plan per shape; the
      block kernels' statistics on a second run, bit for bit; the block's
-     conv3 (#7) also at a ragged M with b > 0; #1 and #2, bit for bit, at the
+     conv3 (#7) also at a ragged M with b > 0; the block's tail
+     (block_bn_finalize at C and Cm, block_affine_residual_relu) bit for
+     bit at the four stride-1 widths; #1 and #2, bit for bit, at the
      shapes of every path that runs them: the bench's batch 16 (128 frames
      at 224, forward and backward), phase 10's batch 8 (64 frames at 224,
      forward and backward: train, KD, CBF, features, class means and the
@@ -66,7 +70,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      'icarl_video_mix' (tube-CutMix) on the card against the CPU;
   8. the block, gemm and shift paths, each with its launch counts set to 0
      before and read after: outputs against the plain compositions, the
-     block against the library-convolution block, chained ms per block;
+     block against the library-convolution block at layer1 and against its
+     plain composition at the other three widths, chained ms per block;
   9. loop, the main path end to end: the native decoder and JPEG writer built
      (``loader: native decoder built`` or ``... unavailable: <first error
      line>``), a corpus of 128 UCF101-shaped videos written under
@@ -166,6 +171,7 @@ import torch.nn.functional as F
 # published peaks of one H100 SXM (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores: the block tail's arithmetic
 
 NT = 128  # 16 clips x 8 frames
 BATCH, SEGMENTS, SIZE = 16, 8, 224
@@ -175,6 +181,7 @@ FWD, BWD, CONV = ("fused_residual_relu_shift_fwd", "fused_residual_relu_shift_bw
 GEMM, SHIFT = "gemm_with_stats", "temporal_shift"
 CONV1, CONV2, CONV3 = ("block_conv1x1_stats", "conv3x3_affine_relu_stats",
                        "conv1x1_affine_relu_stats")
+FINALIZE, EPILOGUE = "block_bn_finalize", "block_affine_residual_relu"
 # per kernel: its source, the TPU kernel it replaces, and what its library
 # yardstick computes (None: no one PyTorch call computes the same function)
 MATMUL_SUMS = "torch.matmul + two f32 sums"
@@ -191,6 +198,10 @@ KERNEL_META = {
     CONV2: ("bdvcil_torch/csrc/conv3x3_stats.cu", "bdvcil_tpu/ops/block_fused.py:110",
             "F.conv2d (channels_last) + two f32 sums without the prologue: less work than "
             "the kernel"),
+    EPILOGUE: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:290",
+               None),
+    FINALIZE: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:262",
+               None),
 }
 # the 1x1 shapes of tools/bench_gemm_stats.py (M = 16 clips x 8 frames x H x W)
 GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 512, 128),
@@ -250,8 +261,8 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -422,15 +433,16 @@ def assert_block_close(what, out, ref, terms):
 
 
 def timed_row(kernel, shape, per_path, fn, plain, library, nbytes, flops, err, product=None,
-              tile=None):
+              tile=None, peak=PEAK_BF16_FLOPS):
     """One kernel row; ``product`` is the bare library product (no statistics),
-    ``tile`` the wgmma core's plan for the shape."""
-    b_ms, b_by = bound_ms(nbytes, flops)
+    ``tile`` the wgmma core's plan for the shape, ``peak`` the card's rate for
+    the type of ``flops``."""
+    b_ms, b_by = bound_ms(nbytes, flops, peak)
     return dict(kernel=kernel, shape=list(shape), per_path=per_path, ms=cuda_ms(fn),
                 plain_ms=cuda_ms(plain), library_ms=None if library is None else cuda_ms(library),
                 product_ms=None if product is None else cuda_ms(product),
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops,
-                tile=tile)
+                peak_flops=peak, tile=tile)
 
 
 def tile_of(m, n):
@@ -451,7 +463,8 @@ def stats_of(y):
 
 
 def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
-    """Kernels #4-#8 against their plain versions at the shapes of their paths."""
+    """Kernels #4-#8 and the block's tail against their plain versions at the
+    shapes of their paths."""
     rows = []
     bf16 = torch.bfloat16
 
@@ -536,7 +549,9 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
             rows.append(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
                                   product=product, tile=tile))
             del first, again
-        del x, y, w1, w2, w3, w2_lib, y_nchw
+        del y, w1, w2, w3, w2_lib, y_nchw
+        rows += block_tail_rows(dev, gen, x, cm, per, bf)
+        del x
         torch.cuda.empty_cache()
 
     # #7 at a ragged M (rows past M in the last tile), b > 0 on every channel:
@@ -556,9 +571,62 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
     return rows
 
 
+def bits_differ(got, ref):
+    """Elements whose bits differ (NaN against NaN counts as equal), and the
+    largest |got - ref| over the rest."""
+    nan = got.isnan()
+    if not torch.equal(nan, ref.isnan()):
+        return int((nan != ref.isnan()).sum()), math.inf
+    ibits = torch.int16 if got.element_size() == 2 else torch.int32
+    differ = (got.view(ibits) != ref.view(ibits)) & ~nan
+    err = (got.float() - ref.float()).abs().masked_fill(nan, 0.0)
+    return int(differ.sum()), float(err.max())
+
+
+def block_tail_rows(dev, gen, x, cm, per, bf):
+    """The block's tail at one width, bit for bit against the plain versions:
+    block_bn_finalize at C and Cm on the sums of x (its C channels and its
+    first Cm), block_affine_residual_relu on y3 and x with a NaN pack in y3. At
+    layer1 (``per`` = 1) a block runs the finalize twice at Cm and once at
+    C, the pass once."""
+    nt, hw, _, c = x.shape
+    m = nt * hw * hw
+    y3 = (torch.randn(x.shape, generator=gen, device=dev) * 3).to(torch.bfloat16)
+    y3.view(-1, c)[1, :8] = float("nan")
+    a = torch.rand((c,), generator=gen, device=dev) + 0.5
+    b = torch.randn((c,), generator=gen, device=dev) * 0.5
+    rows = []
+    n, err = bits_differ(bf.affine_residual_relu(y3, a, b, x),
+                         bf.affine_residual_relu_plain(y3, a, b, x))
+    if n:
+        raise AssertionError(f"{EPILOGUE} {tuple(x.shape)}: {n} elements differ from the "
+                             f"plain version (max abs err {err})")
+    rows.append(timed_row(EPILOGUE, list(x.shape), per,
+                          lambda: bf.affine_residual_relu(y3, a, b, x),
+                          lambda: bf.affine_residual_relu_plain(y3, a, b, x), None,
+                          3 * m * c * 2 + 2 * c * 4, 4 * m * c, err, peak=PEAK_F32_FLOPS))
+    for width, src, weight in ((c, x, per), (cm, x[..., :cm], 2 * per)):
+        s, q = stats_of(src)
+        g = torch.rand((width,), generator=gen, device=dev) + 0.5
+        beta = torch.randn((width,), generator=gen, device=dev) * 0.1
+        n, err = bits_differ(bf.bn_finalize(s, q, g, beta, float(m), 1e-5),
+                             bf.bn_finalize_plain(s, q, g, beta, float(m), 1e-5))
+        if n:
+            raise AssertionError(f"{FINALIZE} C={width}: {n} elements differ from the plain "
+                                 f"version (max abs err {err})")
+        rows.append(timed_row(FINALIZE, [width], weight,
+                              lambda: bf.bn_finalize(s, q, g, beta, float(m), 1e-5),
+                              lambda: bf.bn_finalize_plain(s, q, g, beta, float(m), 1e-5), None,
+                              8 * width * 4, 10 * width, err, peak=PEAK_F32_FLOPS))
+    del y3
+    return rows
+
+
 def block_path(dev, seed, smi):
     """fused_bottleneck_fwd at TSM-R50 layer1 width, both variants, against
-    its plain composition and the library-convolution block; chained ms."""
+    its plain composition and the library-convolution block; once at each
+    other stride-1 width against its plain composition; chained ms at
+    layer1."""
     from bdvcil_torch import bench_block_fused as bench
     from bdvcil_torch.ops import _build
     from bdvcil_torch.ops import block_fused as bf
@@ -595,8 +663,24 @@ def block_path(dev, seed, smi):
         del lib, lib_stats
         blocks = bench.time_blocks(x, p, BLOCK_ITERS, dev)
         forwards += 2 * (BLOCK_ITERS + 2)  # two fused schedules, warm-up and chain
+        for hw_o, c_o, cm_o in BLOCKS[1:]:
+            key = f"{NT}x{hw_o}x{hw_o}x{c_o}/{cm_o}"
+            xo, po = bench.block_inputs(NT, hw_o, c_o, cm_o, seed, dev)
+            out, stats = bf.fused_bottleneck_fwd(xo, po)
+            forwards += 1
+            torch.cuda.synchronize()
+            ref, ref_stats = bf.fused_bottleneck_fwd_plain(xo, po)
+            for g, w in zip(stats, ref_stats):
+                for u, v in zip(g, w):
+                    torch.testing.assert_close(u, v, rtol=1e-3, atol=1e-4,
+                                               msg=lambda s: f"block {key} stats vs plain: {s}")
+            checks[key] = assert_block_close(f"block {key} vs plain composition", out, ref,
+                                             (xo, po.b3))
+            print(f"block {key} checks: {checks[key]}", flush=True)
+            del xo, po, out, stats, ref, ref_stats
     launches = dict(_build.LAUNCHES)
-    want = {CONV1: forwards, CONV2: forwards, CONV3: forwards}
+    want = {CONV1: forwards, CONV2: forwards, CONV3: forwards, FINALIZE: 3 * forwards,
+            EPILOGUE: forwards}
     if launches != want:
         raise AssertionError(f"block path: kernel launches {launches}, expected {want}")
     result = dict(shape=[NT, hw, hw, c, cm], checks=checks, launches=launches,
@@ -2277,7 +2361,8 @@ def main(argv=None) -> int:
         mine = [r for r in rows if r["kernel"] == kname and r.get("path", CIL_PATH) == CIL_PATH]
         per_path = lambda key: sum(r[key] * r["per_path"] for r in mine)  # noqa: E731
         t_bytes = sum(r["bytes"] * r["per_path"] for r in mine) / PEAK_HBM_BYTES * 1e3
-        t_ops = sum(r["flops"] * r["per_path"] for r in mine) / PEAK_BF16_FLOPS * 1e3
+        t_ops = sum(r["flops"] * r["per_path"] / r.get("peak_flops", PEAK_BF16_FLOPS)
+                    for r in mine) * 1e3
         if not launches.get(kname):
             raise AssertionError(f"{kname}: launched no time on its path")
         kernels.append(dict(

@@ -7,7 +7,9 @@ PyTorch; there run it without the suite's conftest (which sets JAX up):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: the fused epilogue kernels are bit-exact (f32 add rounded once,
-as a bf16 add is), and so is the plain shift (an index copy); the GEMM and
+as a bf16 add is), and so are the plain shift (an index copy) and the
+block's tail, bn_finalize and affine_residual_relu (every f32 operation
+rounded once, in eager PyTorch's order); the GEMM and
 convolution kernels with the statistics epilogue (conv1x1_with_stats,
 gemm_with_stats, the block's three stats ops): y within one bf16 ulp
 (accumulation order; near zero the ulp is taken at 1/256 of the tensor's
@@ -218,7 +220,8 @@ def test_fused_block_on_the_card_matches_its_plain_composition(cuda):
         _build.LAUNCHES.clear()
         out, stats = port_bf.fused_bottleneck_fwd(x, p, conv3x3_variant=variant)
         torch.cuda.synchronize()
-        assert _build.LAUNCHES == {port_bf.CONV1: 1, port_bf.CONV2: 1, port_bf.CONV3: 1}
+        assert _build.LAUNCHES == {port_bf.CONV1: 1, port_bf.CONV2: 1, port_bf.CONV3: 1,
+                                   port_bf.FINALIZE: 3, port_bf.EPILOGUE: 1}
         ref, ref_stats = port_bf.fused_bottleneck_fwd_plain(x, p, conv3x3_variant=variant)
         assert_close_to_terms(out, ref, (x, p.b3))
         for got, want in zip(stats, ref_stats):
@@ -229,6 +232,92 @@ def test_fused_block_on_the_card_matches_its_plain_composition(cuda):
         for got, want in zip(stats, lib_stats):
             for u, v in zip(got, want):
                 torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-4)
+
+
+def _same_bits(got, ref):
+    """Equal bit for bit, NaN where the other is NaN."""
+    nan = got.isnan()
+    ibits = torch.int16 if got.element_size() == 2 else torch.int32
+    return (torch.equal(nan, ref.isnan())
+            and torch.equal(got.view(ibits)[~nan], ref.view(ibits)[~nan]))
+
+
+# the stride-1 bottleneck widths of ResNet-50, (frames, H = W, C, Cm), and a
+# ragged row count (315 rows of 17 packs: no whole chunk of the grid)
+TAIL_GEOMETRIES = [(8, 56, 256, 64), (8, 28, 512, 128), (8, 14, 1024, 256), (8, 7, 2048, 512),
+                   (5, 7, 136, 64)]
+
+
+@pytest.mark.parametrize("geometry", TAIL_GEOMETRIES,
+                         ids=[f"{n}x{h}x{h}x{c}" for n, h, c, _ in TAIL_GEOMETRIES])
+def test_block_tail_kernels_bit_exact_at_r50_widths(cuda, geometry):
+    nt, hw, c, cm = geometry
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((nt, hw, hw, c), generator=g, device=cuda).to(torch.bfloat16)
+    y = (torch.randn((nt, hw, hw, c), generator=g, device=cuda) * 3).to(torch.bfloat16)
+    y.view(-1, c)[1, :8] = float("nan")
+    a = torch.rand((c,), generator=g, device=cuda) + 0.5
+    b = torch.randn((c,), generator=g, device=cuda) * 0.5
+    count = float(nt * hw * hw)
+    _build.LAUNCHES.clear()
+    out = port_bf.affine_residual_relu(y, a, b, x)
+    fins = {}
+    for width in (c, cm):
+        xf = x[..., :width].float()
+        s, q = xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))
+        gamma = torch.rand((width,), generator=g, device=cuda) + 0.5
+        beta = torch.randn((width,), generator=g, device=cuda) * 0.1
+        fins[width] = (port_bf.bn_finalize(s, q, gamma, beta, count, 1e-5),
+                       port_bf.bn_finalize_plain(s, q, gamma, beta, count, 1e-5))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.EPILOGUE: 1, port_bf.FINALIZE: 2}
+    assert _same_bits(out, port_bf.affine_residual_relu_plain(y, a, b, x))
+    assert bool(out.view(-1, c)[1, :8].isnan().all()) and bool((out[~out.isnan()] >= 0).all())
+    for width, (got, ref) in fins.items():
+        assert got.shape == (4, width) and _same_bits(got, ref), width
+        assert bool(torch.isfinite(got).all())
+
+
+def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    bf16 = torch.bfloat16
+    y = torch.zeros((2, 3, 3, 16), device=cuda, dtype=bf16)
+    v = torch.ones((16,), device=cuda)
+    _build.LAUNCHES.clear()
+    with pytest.raises(TypeError):
+        port_bf.affine_residual_relu(y.half(), v, v, y.half())
+    with pytest.raises(ValueError, match="float32"):
+        port_bf.affine_residual_relu(y, v.double(), v, y)
+    with pytest.raises(ValueError, match="shapes"):
+        port_bf.affine_residual_relu(y, v, v, y[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        port_bf.affine_residual_relu(y.transpose(1, 2), v, v, y)
+    with pytest.raises(ValueError):
+        port_bf.affine_residual_relu(y, v.cpu(), v, y)
+    with pytest.raises(ValueError, match="C % 8"):
+        y12 = torch.zeros((2, 12), device=cuda, dtype=bf16)
+        port_bf.affine_residual_relu(y12, v[:12], v[:12], y12)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(2 * 16 + 1, device=cuda, dtype=bf16)
+        port_bf.affine_residual_relu(flat[1:].view(2, 16), v, v, flat[:32].view(2, 16))
+    with pytest.raises(ValueError, match="16-byte"):
+        port_bf.affine_residual_relu(y, torch.ones((17,), device=cuda)[1:], v, y)
+    with pytest.raises(ValueError, match="C <="):
+        wide = torch.zeros((1, 6152), device=cuda, dtype=bf16)
+        av = torch.ones((6152,), device=cuda)
+        port_bf.affine_residual_relu(wide, av, av, wide)
+    with pytest.raises(ValueError, match="float32"):
+        port_bf.bn_finalize(v.double(), v, v, v, 4.0, 1e-5)
+    with pytest.raises(ValueError):
+        port_bf.bn_finalize(v, v[:8], v, v, 4.0, 1e-5)
+    with pytest.raises(ValueError):
+        port_bf.bn_finalize(v, v.cpu(), v, v, 4.0, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_bf.bn_finalize(v, torch.ones((32,), device=cuda)[::2], v, v, 4.0, 1e-5)
+    with pytest.raises(ValueError, match="16-byte"):
+        port_bf.bn_finalize(v, torch.ones((17,), device=cuda)[1:], v, v, 4.0, 1e-5)
+    with pytest.raises(ValueError, match="C % 8"):
+        port_bf.bn_finalize(v[:12], v[:12], v[:12], v[:12], 4.0, 1e-5)
+    assert _build.LAUNCHES[port_bf.FINALIZE] == 0 and _build.LAUNCHES[port_bf.EPILOGUE] == 0
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
