@@ -2,6 +2,7 @@ from .builder import ModelSpec, build_model, init_model_params
 from .convert import from_jax_variables, to_jax_variables
 from .heads import IncrementalTSMHead, head_param_path, update_fc
 from .norm import BatchNorm, GroupedBatchNorm
+from .pretrained import load_reference_cil_checkpoint
 from .recognizer import KD_TAPS, CILRecognizer2D, average_clips
 from .resnet_tsm import ARCH, ResNetTSM
 
@@ -19,6 +20,7 @@ __all__ = [
     "from_jax_variables",
     "head_param_path",
     "init_model_params",
+    "load_reference_cil_checkpoint",
     "to_jax_variables",
     "update_fc",
 ]

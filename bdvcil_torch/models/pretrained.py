@@ -1,4 +1,4 @@
-"""ImageNet ResNet weights for the backbone, from local files (the port of
+"""Weights from the reference's files, read locally (the port of
 ``bdvcil_tpu/models/pretrained.py``).
 
 The reference starts its TSM backbone from torchvision's ImageNet weights
@@ -8,10 +8,32 @@ modules use torchvision's names, so a torchvision ``state_dict`` maps onto
 ``num_batches_tracked`` are dropped. Only local files are read; the trainer
 trains from scratch when the configured file is not there, as the JAX
 trainer does, and nothing is downloaded.
+
+``load_reference_cil_checkpoint`` renames a reference CIL checkpoint
+(``ckpt_task_{t}.pt``: the raw ``state_dict`` of ``CILRecognizer2D``, an
+mmaction2 ResNetTSM backbone and the IncrementalTSMHead) into the port's
+``state_dict``, which ``load_state_dict(strict=True)`` takes into the
+recognizer ``build_model`` makes for the same config, under every
+``shift_mode``:
+
+  ``current_model.`` (optional prefix)     -> taken off
+  ``backbone.layerL.B.conv1.net.weight``   -> ``backbone.layerL.B.conv1.weight``
+  (TemporalShift wraps each block's conv1 as ``.net``; other backbone names
+  are torchvision's, as the port's)
+  ``cls_head.fc_cls.weights`` (LSC)        -> ``cls_head.fc_weights``
+  ``cls_head.fc_cls.{weight,bias}``        -> ``cls_head.fc_weight`` / ``fc_bias``
+  ``cls_head.loss_cls.eta``                -> ``cls_head.eta``, shape (1,)
+  ``prev_model.*``, ``num_batches_tracked``, other buffers -> dropped
+
+The eta is the current model's only. The JAX function matches any key that
+ends in ``loss_cls.eta``, so in a checkpoint that holds both models it takes
+``prev_model``'s, the later one in the reference's order; its docstring says
+``prev_model.*`` is ignored, which is what this function does.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Mapping
 
 import numpy as np
@@ -44,6 +66,32 @@ def load_torch_resnet_backbone(state_dict: Mapping[str, torch.Tensor]) -> Dict[s
         if key.startswith("fc.") or "num_batches_tracked" in key:
             continue
         out[key] = torch.as_tensor(value)
+    return out
+
+
+_HEAD_NAMES = {"cls_head.fc_cls.weights": "cls_head.fc_weights",
+               "cls_head.fc_cls.weight": "cls_head.fc_weight",
+               "cls_head.fc_cls.bias": "cls_head.fc_bias"}
+
+
+def load_reference_cil_checkpoint(
+        state_dict: Mapping[str, torch.Tensor]) -> "OrderedDict[str, torch.Tensor]":
+    """A reference CIL checkpoint's ``state_dict`` (tensors or arrays) -> the
+    port's recognizer ``state_dict``, by the mapping in the module docstring."""
+    if isinstance(state_dict.get("state_dict"), Mapping):
+        state_dict = state_dict["state_dict"]
+    backbone, head = {}, OrderedDict()
+    for key, value in state_dict.items():
+        if key.startswith("current_model."):
+            key = key[len("current_model."):]
+        if key.startswith("backbone."):
+            backbone[key.replace(".net.", ".")] = value
+        elif key in _HEAD_NAMES:
+            head[_HEAD_NAMES[key]] = torch.as_tensor(value)
+        elif key == "cls_head.loss_cls.eta":
+            head["cls_head.eta"] = torch.as_tensor(value).reshape(1)
+    out = OrderedDict(("backbone." + k, v) for k, v in load_torch_resnet_backbone(backbone).items())
+    out.update(head)
     return out
 
 

@@ -20,11 +20,13 @@ Switches, as in the JAX package:
     ``ops/tsm_shift.shifted_conv``: three convolutions, no shifted copy) or
     ``'fused_block'`` (each block's epilogue kernel emits its successor's
     shifted input, ``ops/tsm_shift.fused_residual_relu_shift``);
-  * ``conv1x1_mode``: ``'xla'`` (plain conv, the default) or
+  * ``conv1x1_mode``: ``'xla'`` (plain conv, the default),
     ``'pallas_stats'`` (bottleneck conv1/conv3 as the GEMM kernel with a
     BatchNorm-statistics epilogue, ``ops/conv1x1_bn``; needs ``shift_mode ==
-    'pad'``, ``bn_groups == 1`` and ``bn_stats_rows == 0``). The names follow
-    the JAX package's configs;
+    'pad'``, ``bn_groups == 1`` and ``bn_stats_rows == 0``) or
+    ``'pallas_stats_interpret'`` (the same path with the GEMM's plain
+    version on every device, as JAX runs the Pallas kernel in its
+    interpreter). The names follow the JAX package's configs;
   * ``stem_mode``: ``'conv'`` (the 7x7/s2 stem) or ``'s2d'`` (a 2x2
     space-to-depth and the equivalent 4x4/s1 conv, ``S2DStem``; the same
     parameter);
@@ -53,7 +55,7 @@ ARCH = {
 }
 
 SHIFT_MODES = ("pad", "fused", "fused_block")
-CONV1X1_MODES = ("xla", "pallas_stats")
+CONV1X1_MODES = ("xla", "pallas_stats", "pallas_stats_interpret")
 STEM_MODES = ("conv", "s2d")
 
 
@@ -203,8 +205,10 @@ class Bottleneck(nn.Module):
         # the GEMM-with-stats path replaces conv1/bn1 and conv3/bn3 when the
         # shift is materialised and BatchNorm is the global one (the JAX
         # package's condition)
-        self.use_stats_gemm = (conv1x1_mode == "pallas_stats" and shift_mode == "pad"
-                               and bn_groups == 1 and bn_stats_rows == 0)
+        self.use_stats_gemm = (conv1x1_mode in ("pallas_stats", "pallas_stats_interpret")
+                               and shift_mode == "pad" and bn_groups == 1
+                               and bn_stats_rows == 0)
+        self.interpret_stats_gemm = conv1x1_mode == "pallas_stats_interpret"
         self.dtype, self.norm_dtype = dtype, norm_dtype
         out_planes = planes * self.expansion
         bn = lambda c: _make_bn(c, norm_dtype, bn_groups, bn_stats_rows, device)  # noqa: E731
@@ -223,7 +227,8 @@ class Bottleneck(nn.Module):
 
     def _conv_bn(self, h, conv, bn, train):
         if self.use_stats_gemm:
-            out = conv1x1_bn(nhwc(h), conv.weight, bn, train, self.dtype, self.norm_dtype)
+            out = conv1x1_bn(nhwc(h), conv.weight, bn, train, self.dtype, self.norm_dtype,
+                             self.interpret_stats_gemm)
             return nchw(out)
         return bn(conv(h), train)
 
@@ -266,8 +271,9 @@ class ResNetTSM(nn.Module):
             raise ValueError(f"unknown shift_mode {shift_mode!r}, not one of {SHIFT_MODES}")
         if conv1x1_mode not in CONV1X1_MODES:
             raise NotImplementedError(
-                f"conv1x1_mode={conv1x1_mode!r} is not ported (ROADMAP A.1: the port has "
-                f"{CONV1X1_MODES})")
+                f"unknown conv1x1_mode {conv1x1_mode!r}: the port has the JAX package's "
+                f"{CONV1X1_MODES} (ROADMAP, 'Deliberately not carried', lists what it leaves "
+                f"out)")
         if stem_mode not in STEM_MODES:
             raise ValueError(f"unknown stem_mode {stem_mode!r}, not one of {STEM_MODES}")
         block_kind, stage_sizes, expansion = ARCH[depth]

@@ -11,9 +11,11 @@ tensor. ``gemm_with_stats`` is the same function on a 2-D (M, K) operand.
 On a CUDA tensor the forward is the hand-written kernel of
 ``csrc/conv1x1_stats.cu``, on the persistent wgmma core of
 ``csrc/gemm_stats_sm90.cuh`` with or without the block's prologue; on a CPU
-tensor it is ``gemm_stats_plain``. The backward is plain PyTorch on both, as
-the JAX package leaves it to XLA: the cotangents of s1/s2 are folded into dy
-(``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward. Under a process
+tensor it is ``gemm_stats_plain``; ``interpret=True`` names the plain version
+on every device, the counterpart of JAX's Pallas interpreter
+(``conv1x1_mode='pallas_stats_interpret'``). The backward is plain PyTorch on
+both, as the JAX package leaves it to XLA: the cotangents of s1/s2 are folded
+into dy (``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward. Under a process
 group ``conv1x1_bn`` all-reduces the kernel's s1, s2 and row count before
 ``bn_affine_from_sums``; the kernel itself sees only the rank's rows.
 """
@@ -176,10 +178,12 @@ class _GemmWithStats(torch.autograd.Function):
         return dx, dw, None
 
 
-def conv1x1_with_stats(x4: torch.Tensor, w: torch.Tensor):
+def conv1x1_with_stats(x4: torch.Tensor, w: torch.Tensor, interpret: bool = False):
     """y = 1x1-conv(x4, w) (NHWC, f32 accumulate) + per-channel sum(y) and
-    sum(y^2) in f32, one pass. x4 (N*T, H, W, K), w (K, N)."""
-    return _GemmWithStats.apply(x4, w, conv1x1_with_stats_fwd)
+    sum(y^2) in f32, one pass. x4 (N*T, H, W, K), w (K, N). ``interpret``
+    names the plain version as the forward on every device (JAX's Pallas
+    interpreter); the backward is the same either way."""
+    return _GemmWithStats.apply(x4, w, gemm_stats_plain if interpret else conv1x1_with_stats_fwd)
 
 
 def gemm_with_stats(x: torch.Tensor, w: torch.Tensor):
@@ -223,21 +227,24 @@ def conv1x1_bn(
     train: bool,
     dtype: torch.dtype,
     norm_dtype: torch.dtype,
+    interpret: bool = False,
 ) -> torch.Tensor:
     """``conv(1x1) -> BatchNorm`` on an NHWC tensor, with the statistics from
     the GEMM's epilogue in train mode.
 
     x: (N*T, H, W, K); conv_weight: the conv's (N, K, 1, 1) OIHW parameter;
     ``bn``: the BatchNorm module that owns the affine and running statistics.
-    Eval mode uses the plain 1x1 conv and the running statistics. Returns
-    (N*T, H, W, N) in ``norm_dtype``.
+    Eval mode uses the plain 1x1 conv and the running statistics. With
+    ``interpret`` the train-mode GEMM is ``gemm_stats_plain`` on every device
+    (``conv1x1_mode='pallas_stats_interpret'``). Returns (N*T, H, W, N) in
+    ``norm_dtype``.
     """
     nt, h, w_, k = x.shape
     features = conv_weight.shape[0]
     x4 = x.to(dtype).contiguous()
     wmat = conv_weight.reshape(features, k).t().to(dtype).contiguous()
     if train:
-        y, s1, s2 = conv1x1_with_stats(x4, wmat)
+        y, s1, s2 = conv1x1_with_stats(x4, wmat, interpret)
         scale, bias, mean, var = bn_affine_from_sums(bn, s1, s2, float(nt * h * w_), True)
     else:
         y = x4 @ wmat

@@ -1,4 +1,4 @@
-"""Split the GEMM-with-statistics kernels' device time by CUDA kernel, on the card.
+"""Split every hand-written kernel's device time by CUDA kernel, on the card.
 
 Runs ``conv1x1_with_stats`` (#3, the kernel that also serves #4 and #6) at
 the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A,
@@ -6,13 +6,21 @@ the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A,
 the block's conv3), the block's tail (``bn_finalize`` at C and Cm,
 ``affine_residual_relu``) and the whole block forward
 (``fused_bottleneck_fwd``, 128 frames) at the four stride-1 bottleneck
-widths, each ``--reps`` times under ``torch.profiler``. Prints, per shape,
+widths, the fused epilogue forward and backward (#1, #2) at the 4 shapes of
+one configuration-B train forward (128 frames at 224², bf16), and the
+temporal shift, forward and reverse (#5), at the pad path's 5 shifted block
+inputs (bf16) and at (64, 28, 28, 512) f32, each ``--reps`` times under
+``torch.profiler``. Prints, per shape,
 the device time per launch of every CUDA kernel the wrapper starts (the GEMM
 and the statistics finish), the wrapper's host time per call (``host``: the
 host clock over ``--reps`` calls issued back to back, the card running
 behind; for the block, the host time of its seven wrapper calls), and, from
 the build's ``nvcc -Xptxas -v`` logs, each kernel's registers, shared
-memory and spills.
+memory and spills; then one ``device`` line per kernel of the kernel table
+(#1-#9b), its device ms summed over the same run of its path as
+``chip_smoke.py``'s kernels line times: #1-#3 one train forward (#2 its
+backward) of batch 16, #4 and #5 one call a shape (#5 forward and reverse),
+#6-#9b one layer1 block.
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
@@ -38,6 +46,34 @@ from .ops import _build
 from .ops import block_fused as bf
 from .ops import conv1x1_bn as conv
 from .ops import gemm_plan
+from .ops import tsm_shift as tsm
+
+SEGMENTS = 8
+# the 1x1 shapes of tools/bench_gemm_stats.py, #4's path (M = 128 frames x H x W)
+GEMM_SHAPES = ((128 * 56 * 56, 256, 64), (128 * 56 * 56, 64, 256), (128 * 28 * 28, 512, 128),
+               (128 * 28 * 28, 128, 512), (128 * 14 * 14, 1024, 256), (128 * 14 * 14, 256, 1024),
+               (128 * 7 * 7, 2048, 512), (128 * 7 * 7, 512, 2048))
+
+
+def r50_block_shapes(nt: int = 128, size: int = 56):
+    """Per TSM-ResNet-50 forward: the fused epilogue's (N*T, H, W, C) shapes
+    (configuration B, one a block) and the pad path's shifted block inputs,
+    each with its count."""
+    fused, shifted = defaultdict(int), defaultdict(int)
+    inplanes, planes = 64, 64
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            shifted[(nt, size, size, inplanes)] += 1
+            size //= 2 if stage > 0 and b == 0 else 1
+            fused[(nt, size, size, 4 * planes)] += 1
+            inplanes = 4 * planes
+        planes *= 2
+    return fused, shifted
+
+
+def device_ms(row) -> float:
+    """A row's device ms per call: every CUDA kernel its wrapper starts."""
+    return sum(v for k, v in row["us"].items() if k != "host") / 1e3
 
 
 def ptxas_report(build_dir: pathlib.Path):
@@ -87,6 +123,34 @@ def kernel_split(fn, reps: int):
     return {**{k: v / reps for k, v in per.items()}, "host": host}
 
 
+def kernel_table(rows):
+    """Device ms of each kernel-table row over its path (see the module docstring)."""
+    def of(kernel, **match):
+        return [r for r in rows if r["kernel"] == kernel
+                and all(r.get(k) == v for k, v in match.items())]
+
+    def per_path(kernel):
+        return sum(device_ms(r) * r["per_forward"] for r in of(kernel))
+
+    layer1 = dict(hw=56)
+    conv = {tuple(r["shape"]): device_ms(r) for r in of("conv1x1_with_stats")}
+    finalize = {r["shape"][0]: device_ms(r) for r in of(bf.FINALIZE, **layer1)}
+    c, cm = max(finalize), min(finalize)
+    return {
+        "#1 fused_residual_relu_shift_fwd": per_path(tsm.FWD),
+        "#2 fused_residual_relu_shift_bwd": per_path(tsm.BWD),
+        "#3 conv1x1_with_stats": per_path("conv1x1_with_stats"),
+        "#4 gemm_with_stats": sum(conv[s] for s in GEMM_SHAPES),
+        "#5 temporal_shift": sum(device_ms(r) for r in of(tsm.SHIFT)),
+        "#6 block_conv1x1_stats": conv[GEMM_SHAPES[0]],
+        "#7 conv1x1_affine_relu_stats": device_ms(of("conv1x1_affine_relu_stats")[0]),
+        "#8 conv3x3_affine_relu_stats": device_ms(of("conv3x3_affine_relu_stats")[0]),
+        "#9 fused_bottleneck_fwd": device_ms(of("fused_bottleneck_fwd", **layer1)[0]),
+        "#9a block_bn_finalize x3": finalize[c] + 2 * finalize[cm],
+        "#9b block_affine_residual_relu": device_ms(of(bf.EPILOGUE, **layer1)[0]),
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
@@ -129,27 +193,49 @@ def main(argv=None) -> int:
         del x, a, b, w
     for nt, h, w_, cm, _ in gemm_plan.R50_3X3_SHAPES:  # the block's tail and the block
         c = 4 * cm
+        tail = dict(hw=h)
         x = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
         y = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
         a = torch.rand((c,), generator=gen, device=dev) + 0.5
         b = torch.randn((c,), generator=gen, device=dev) * 0.5
         split = kernel_split(lambda: bf.affine_residual_relu(y, a, b, x), args.reps)
-        rows.append(dict(kernel=bf.EPILOGUE, shape=[nt, h, w_, c], us=split))
+        rows.append(dict(kernel=bf.EPILOGUE, shape=[nt, h, w_, c], us=split, **tail))
         yf = x.float()
         for width in (c, cm):
             s, q = yf[..., :width].sum((0, 1, 2)), (yf[..., :width] ** 2).sum((0, 1, 2))
             split = kernel_split(lambda: bf.bn_finalize(s, q, a[:width], b[:width],
                                                         float(nt * h * w_), 1e-5), args.reps)
-            rows.append(dict(kernel=bf.FINALIZE, shape=[width], us=split))
+            rows.append(dict(kernel=bf.FINALIZE, shape=[width], us=split, **tail))
         del y, yf
         p = bf.make_params(torch.Generator().manual_seed(0), c=c, cm=cm, device=dev)
         with torch.no_grad():
             split = kernel_split(lambda: bf.fused_bottleneck_fwd(x, p), args.reps)
-        rows.append(dict(kernel="fused_bottleneck_fwd", shape=[nt, h, w_, c, cm], us=split))
+        rows.append(dict(kernel="fused_bottleneck_fwd", shape=[nt, h, w_, c, cm], us=split,
+                         **tail))
         del x, a, b, p
+    fused, shifted = r50_block_shapes()
+    for shape, count in sorted(fused.items()):  # #1 and #2 at configuration B's shapes
+        h, idt, g_out, g_sh = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                               for _ in range(4))
+        out, _ = tsm.fused_fwd(h, idt, SEGMENTS, 8)
+        split = kernel_split(lambda: tsm.fused_fwd(h, idt, SEGMENTS, 8), args.reps)
+        rows.append(dict(kernel=tsm.FWD, shape=list(shape), per_forward=count, us=split))
+        split = kernel_split(lambda: tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8), args.reps)
+        rows.append(dict(kernel=tsm.BWD, shape=list(shape), per_forward=count, us=split))
+        del h, idt, g_out, g_sh, out
+    shift_shapes = [(s, bf16) for s in sorted(shifted)] + [((64, 28, 28, 512), torch.float32)]
+    for shape, dtype in shift_shapes:  # #5, forward and reverse, one call each
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        split = kernel_split(lambda: (tsm.shift_fwd(x, SEGMENTS, 8),
+                                      tsm.shift_fwd(x, SEGMENTS, 8, reverse=True)), args.reps)
+        rows.append(dict(kernel=tsm.SHIFT, shape=list(shape), dtype=str(dtype), us=split))
+        del x
     for r in rows:
         parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(r["us"].items()))
         print(f"{r['kernel']} {r['shape']}: {parts}", flush=True)
+    table = kernel_table(rows)
+    for name, ms in table.items():
+        print(f"device {name}: {ms:.4f} ms [{card}]", flush=True)
     report = ptxas_report(_build.build_all())
     for src, funcs in report.items():
         for fn, lines in funcs.items():
@@ -157,7 +243,8 @@ def main(argv=None) -> int:
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "profile_kernels.json").write_text(json.dumps(
-        dict(card=card, sm_count=sms, reps=args.reps, rows=rows, ptxas=report), indent=1))
+        dict(card=card, sm_count=sms, reps=args.reps, rows=rows, table=table, ptxas=report),
+        indent=1))
     print(card, flush=True)
     return 0
 

@@ -141,6 +141,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      tables; (c) one train-mode forward of TSM-R50 under ``stem_mode='s2d'``,
      ``shift_mode='fused'``, ``bn_groups=2`` and ``bn_stats_rows=4``, card
      against CPU in f32 and bf16.
+ 13. reference, the model layer's two entry points no other phase drives:
+     (a) config B's TSM-R50 (bf16, LSC with eta) written as the reference
+     writes ``ckpt_task_{t}.pt`` (``.net`` inside each block's conv1, the
+     head as ``fc_cls.weights`` / ``loss_cls.eta``, under ``current_model.``,
+     with a ``prev_model.`` copy of another eta and a ``num_batches_tracked``)
+     under chiprun_out/ (removed after), read back through
+     ``load_checkpoint_file`` and ``load_reference_cil_checkpoint`` into a
+     fresh model with a strict load: eval logits at 16 x 8 x 224² equal the
+     source's bit for bit, #1 16 launches a forward, the current model's eta;
+     (b) config A's train-mode forward at 16 x 8 x 224² under
+     ``conv1x1_mode='pallas_stats'`` and ``'pallas_stats_interpret'`` from
+     one seed: #3 32 and 0 launches, logits within 3e-2 of the largest entry
+     and losses within 3e-2 (phase 3's bf16 tolerance).
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -160,6 +173,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -2250,6 +2264,138 @@ def distributed_phase(dev, seed, smi):
     return out
 
 
+# --- phase 13: the reference's checkpoints and the interpret mode ----------------------
+
+# the port's head names -> the reference's (IncrementalTSMHead, LSCLoss)
+REFERENCE_HEAD = {"cls_head.fc_weights": "cls_head.fc_cls.weights",
+                  "cls_head.fc_weight": "cls_head.fc_cls.weight",
+                  "cls_head.fc_bias": "cls_head.fc_cls.bias",
+                  "cls_head.eta": "cls_head.loss_cls.eta"}
+REFERENCE_PREV_ETA = 7.0  # the previous model's eta in (a)'s checkpoint: must not be taken
+
+
+def reference_checkpoint(state_dict):
+    """A port ``state_dict`` as the reference writes ``ckpt_task_{t}.pt``:
+    ``.net`` inside each block's conv1 (TemporalShift's wrapper), the head's
+    reference names, under ``current_model.``; then a ``prev_model.`` copy with
+    another eta, and a ``num_batches_tracked``, which the importer drops."""
+    out = collections.OrderedDict()
+    for key, value in state_dict.items():
+        key = REFERENCE_HEAD.get(key, re.sub(r"^(backbone\.layer\d+\.\d+\.conv1)\.weight$",
+                                             r"\1.net.weight", key))
+        out["current_model." + key] = value.detach().cpu().clone()
+    out["current_model.backbone.bn1.num_batches_tracked"] = torch.tensor(3)
+    for key, value in list(out.items()):
+        out["prev_model." + key[len("current_model."):]] = value.clone()
+    out["prev_model.cls_head.loss_cls.eta"] = torch.tensor([REFERENCE_PREV_ETA])
+    return out
+
+
+def reference_ckpt_phase(dev, seed, smi):
+    """Phase 13: (a) a checkpoint in the reference's layout through
+    ``load_checkpoint_file`` and ``load_reference_cil_checkpoint`` into a fresh
+    config-B model, whose eval logits equal the source's bit for bit, #1 16
+    launches a forward; (b) config A's train-mode forward under
+    ``'pallas_stats'`` (#3, 32 launches) and ``'pallas_stats_interpret'`` (the
+    plain GEMM, none), logits and losses within phase 3's bf16 tolerance."""
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.models import build_model, init_model_params, load_reference_cil_checkpoint
+    from bdvcil_torch.models.pretrained import load_checkpoint_file
+    from bdvcil_torch.losses import lsc_nca_loss
+    from bdvcil_torch.ops import _build
+
+    out = {}
+    nc = presets.HMDB51_BASE_CLASSES
+    gen = torch.Generator().manual_seed(seed + 13)
+    x = torch.randn((BATCH, SEGMENTS, SIZE, SIZE, 3), generator=gen).to(dev)
+    labels = torch.randint(0, nc, (BATCH,), generator=gen).to(dev)
+
+    # (a) the importer, config B (shift_mode='fused_block'), bf16, LSC with eta
+    t0 = time.perf_counter()
+    cfg = presets.hmdb51_r50_cfg(nc, SEGMENTS, **presets.SWITCHES["B"])
+    source = init_model_params(build_model(cfg, dtype=torch.bfloat16, device=dev), seed)
+    with torch.no_grad():  # pinned running statistics and eta, so the eval forward reads them
+        for name, v in source.state_dict().items():
+            if name.endswith("running_var"):
+                v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+            elif name.endswith("running_mean"):
+                v.copy_(torch.randn(v.shape, generator=gen) * 0.2)
+        source.cls_head.eta.fill_(1.75)
+    path = pathlib.Path("chiprun_out") / "reference_ckpt_task_1.pt"
+    path.parent.mkdir(exist_ok=True)
+    torch.save(reference_checkpoint(source.state_dict()), path)
+    try:
+        imported = load_reference_cil_checkpoint(load_checkpoint_file(str(path)))
+    finally:
+        path.unlink()
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev).module()
+    model.load_state_dict(imported, strict=True)
+    launches = []
+    with torch.no_grad():
+        logits = []
+        for m in (source, model):
+            _build.LAUNCHES.clear()
+            logits.append(m(x, train=False)["cls_score"])
+            torch.cuda.synchronize()
+            launches.append(_build.LAUNCHES[FWD])
+    eta = float(model.cls_head.eta.detach())
+    diff = float((logits[0] - logits[1]).float().abs().max())
+    if not torch.equal(logits[0], logits[1]) or not torch.isfinite(logits[1]).all():
+        raise AssertionError(f"reference (a): imported logits differ from the source's by {diff}")
+    if launches != [CIL_BLOCKS, CIL_BLOCKS] or eta != 1.75:
+        raise AssertionError(f"reference (a): #1 launches {launches} (want {CIL_BLOCKS} a "
+                             f"forward), eta {eta} (want the current model's 1.75)")
+    out["a"] = dict(launches=launches[1], eta=eta, keys=len(imported), max_abs_err=diff,
+                    seconds=time.perf_counter() - t0)
+    print(f"reference (a): ckpt_task_1.pt in the reference's layout (current_model. + "
+          f"prev_model. with eta {REFERENCE_PREV_ETA} + num_batches_tracked) -> "
+          f"load_reference_cil_checkpoint -> strict load, {len(imported)} keys; config B eval "
+          f"logits {tuple(logits[1].shape)} equal the source's bit for bit (max abs err "
+          f"{diff}), #1 launches "
+          f"{launches[1]} a forward, eta {eta}, {out['a']['seconds']:.1f} s [{smi}]", flush=True)
+    del source, model, imported, logits
+
+    # (b) conv1x1_mode 'pallas_stats' (#3) against 'pallas_stats_interpret' (its plain twin)
+    t0 = time.perf_counter()
+    runs, state = {}, None
+    for mode in ("pallas_stats", "pallas_stats_interpret"):
+        cfg = presets.hmdb51_r50_cfg(nc, SEGMENTS, dropout_ratio=0.0, shift_mode="pad",
+                                     conv1x1_mode=mode)
+        spec = build_model(cfg, dtype=torch.bfloat16, device=dev)
+        model = init_model_params(spec, seed)
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state, strict=True)
+        _build.LAUNCHES.clear()
+        with torch.no_grad():
+            score = model(x, train=True)["cls_score"][:, 0, :]
+            loss = lsc_nca_loss(score, labels, model.cls_head.eta)  # LSCLoss's defaults
+        torch.cuda.synchronize()
+        runs[mode] = dict(score=score.float(), loss=float(loss), launches=_build.LAUNCHES[CONV])
+        del model
+    kern, plain = runs["pallas_stats"], runs["pallas_stats_interpret"]
+    err = float((kern["score"] - plain["score"]).abs().max())
+    tol = 3e-2 * float(plain["score"].abs().max())  # phase 3's bf16 tolerance
+    loss_err = abs(kern["loss"] - plain["loss"])
+    launches = [kern["launches"], plain["launches"]]
+    if launches != [32, 0]:
+        raise AssertionError(f"reference (b): #3 launches {launches}, want [32, 0]")
+    if not (err <= tol and loss_err <= 3e-2 * abs(plain["loss"])
+            and math.isfinite(kern["loss"]) and math.isfinite(plain["loss"])):
+        raise AssertionError(f"reference (b): logits off by {err} (tol {tol}), losses "
+                             f"{kern['loss']} vs {plain['loss']}")
+    out["b"] = dict(launches=launches, max_abs_err=err, tol=tol, loss=kern["loss"],
+                    loss_interpret=plain["loss"], seconds=time.perf_counter() - t0)
+    print(f"reference (b): config A train-mode forward {BATCH} x {SEGMENTS} x {SIZE}² bf16, #3 "
+          f"launches "
+          f"{launches[0]} under 'pallas_stats' and {launches[1]} under 'pallas_stats_interpret'"
+          f"; logits max abs err {err:.4g} (tol {tol:.4g}), loss {kern['loss']:.6f} vs "
+          f"{plain['loss']:.6f}, {out['b']['seconds']:.1f} s [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -2351,6 +2497,7 @@ def main(argv=None) -> int:
     cil = cil_phase(dev, args.seed, smi)
     acm = acm_phase(dev, args.seed, smi)
     dist = distributed_phase(dev, args.seed, smi)
+    refck = reference_ckpt_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
@@ -2383,7 +2530,7 @@ def main(argv=None) -> int:
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
                   loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
-                  distributed=dist, kernels=kernels,
+                  distributed=dist, reference_ckpt=refck, kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
                        "one forward and one backward of phase 10's batch 8 (its train shapes), "

@@ -125,6 +125,34 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_tsm.fused_fwd(x[..., ::2], x[..., ::2], 2, 8)
 
 
+def test_interpret_mode_launches_no_conv1x1_kernel(cuda):
+    """conv1x1_mode='pallas_stats_interpret' runs the GEMM's plain version on
+    the card; 'pallas_stats' launches the kernel for conv1 and conv3. The two
+    train-mode block outputs agree within 3e-2 of the largest entry (bf16)."""
+    from bdvcil_torch.models.resnet_tsm import Bottleneck, nchw
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((4 * T, 8, 8, 256), generator=g).to(cuda, torch.bfloat16)
+    launches, outs = {}, {}
+    for mode in ("pallas_stats", "pallas_stats_interpret"):
+        block = Bottleneck(256, 64, 1, T, 8, True, torch.bfloat16, torch.bfloat16,
+                           conv1x1_mode=mode)
+        pg = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if p.dim() == 4:
+                    p.copy_(torch.randn(p.shape, generator=pg) / p[0].numel() ** 0.5)
+        block.to(cuda)
+        _build.LAUNCHES.clear()
+        outs[mode] = block(nchw(x), True).float()
+        torch.cuda.synchronize()
+        launches[mode] = _build.LAUNCHES[port_conv.KERNEL]
+    assert launches == {"pallas_stats": 2, "pallas_stats_interpret": 0}
+    ref = outs["pallas_stats_interpret"]
+    err = float((outs["pallas_stats"] - ref).abs().max())
+    assert err <= 3e-2 * float(ref.abs().max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,segs", [((2 * 4, 4, 4, 16), 4), ((8, 2, 2, 8), 4),
                                         ((8 * T, 7, 7, 256), T), ((4, 3, 5, 12), T),
