@@ -16,16 +16,19 @@ value is the median window's clips/s.
 Printed, as one JSON line: the metric, its value and unit, the
 configuration, K, the window rates, wall times and producer waits (seconds
 the step loop waited for input), ``device_clips_per_sec`` (the same step on
-one staged chunk that stays on the card: the rate without the host),
-``host_decode_frames_per_sec`` (the decode pool alone at the bench's
-geometry), the host's CPU count, the loader's source, and the card's name
-and power limit.
+one staged chunk that stays on the card: the rate without the host), the
+steps run, the decoded-plane cache's counters after the windows
+(``decode_cache``: the corpus fits the 512 MB cache, so warm windows replay
+cached planes and resize), ``host_decode_frames_per_sec`` (the decode pool
+alone at the bench's geometry, cold: the cache off), the host's CPU count,
+the loader's source, and the card's name and power limit.
 
     python -m bdvcil_torch.bench_train --config A [--k 8] [--source jpeg|synthetic]
 
-``--source jpeg`` (the default) raises when the native decoder cannot be
-built; ``--source synthetic`` measures on in-memory wire batches instead and
-says so. ``--device cpu`` with small shapes rehearses it on the CPU.
+``--source jpeg`` (the default) decodes the corpus with the port's own JPEG
+codec (``csrc/host/jpeg_codec.h``), which needs only g++, and raises when it
+cannot be built; ``--source synthetic`` measures on in-memory wire batches
+instead and says so. ``--device cpu`` with small shapes rehearses it on the CPU.
 """
 
 from __future__ import annotations
@@ -97,17 +100,22 @@ def make_loader(args):
 
 
 def host_decode_rate(infos, size: int, frames: int) -> float:
-    """Frames/s of the decode pool alone, cold: the decoded-plane cache
-    cleared, then every frame of up to 8 videos decoded, short-side resized
-    and cropped to ``size`` on up to 8 threads. (``bench.py:666-675`` decodes
-    one video's frames 8 times, which the plane cache then serves.)"""
+    """Frames/s of the decode pool alone, cold: the decoded-plane cache off,
+    then every frame of up to 8 videos decoded, short-side resized and
+    cropped to ``size`` on up to 8 threads; the cache's budget is restored
+    after.
+    (``bench.py:666-675`` decodes one video's frames 8 times, which the plane
+    cache then serves.)"""
     paths = [os.path.join(info["frame_dir"], corpus.FILENAME_TMPL.format(t))
              for info in infos[:8] for t in range(1, frames + 1)]
-    native.decode_cache_clear()
-    t0 = time.perf_counter()
-    native.decode_resize_crop_batch(paths, int(round(size / 0.875)), size, size,
-                                    num_threads=min(8, host_cpus()))
-    return len(paths) / (time.perf_counter() - t0)
+    native.decode_cache_set_budget_mb(0)
+    try:
+        t0 = time.perf_counter()
+        native.decode_resize_crop_batch(paths, int(round(size / 0.875)), size, size,
+                                        num_threads=min(8, host_cpus()))
+        return len(paths) / (time.perf_counter() - t0)
+    finally:
+        native.decode_cache_set_budget_mb(int(os.environ.get("BDVC_DECODE_CACHE_MB", 512)))
 
 
 def run(args) -> dict:
@@ -183,6 +191,7 @@ def run(args) -> dict:
         call(staged)
     sync()
     device_rate = args.device_calls * k * args.batch / (time.perf_counter() - t0)
+    jpeg = infos is not None
 
     result = {
         "metric": METRIC,
@@ -198,10 +207,12 @@ def run(args) -> dict:
         "producer_wait_s": sum(waits),
         "warm_s": warm_s,
         "device_clips_per_sec": device_rate,
-        "host_decode_frames_per_sec": (None if infos is None
-                                       else host_decode_rate(infos, args.size, args.frames)),
+        "steps": done,
+        "decode_cache": native.decode_cache_stats() if jpeg else None,
+        "host_decode_frames_per_sec": (host_decode_rate(infos, args.size, args.frames)
+                                       if jpeg else None),
         "host_cpus": host_cpus(),
-        "source": "synthetic" if infos is None else "jpeg",
+        "source": "jpeg" if jpeg else "synthetic",
         "wire_format": loader.wire_format,
         "losses": losses,
         "shape": dict(batch=args.batch, segments=args.segments, size=args.size,

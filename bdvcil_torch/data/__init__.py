@@ -8,8 +8,10 @@ The fast path (native decode, then the rest on the device):
                    FastEvalLoader (centre crop, TenCrop, yuv420_full) and
                    their geometry planners, fed by the native decoder; the
                    trainer's gate of the fast path (fast_pipeline_mismatch)
-  native           ctypes binding of native/decoder.cpp and of the JPEG
-                   writer, built at first use into bdvcil_torch/_build/
+  native           ctypes binding of the decoder and the JPEG writer
+                   (csrc/host/decoder.cpp, jpeg_write.cpp) on the port's own
+                   JPEG codec (csrc/host/jpeg_codec.h, no libjpeg), built
+                   with g++ at first use into bdvcil_torch/_build/
 
 The slow host pipeline (numpy, cv2, PIL), which the trainer takes when the
 config does not ask for the fast path or the decoder is unavailable:

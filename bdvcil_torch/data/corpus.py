@@ -3,7 +3,8 @@ counterpart of ``bench.py:284-330``).
 
 ``num_videos`` videos of ``frames_per_video`` frames at UCF101's stored 320 x
 240, each frame a per-video base colour plus uniform noise (as the JAX bench's
-corpus), written as JPEG (4:2:0, quality 95) by the native writer, and one
+corpus), written as JPEG (4:2:0, quality 95) by the port's own writer (the same bytes
+on every machine), and one
 background per video: the temporal median of the video's decoded frames,
 truncated to uint8, as ``bg_extraction_tmf`` computes it
 (``bdvcil_tpu/data/datasets.py:127-146``). Needs no cv2 or PIL and downloads

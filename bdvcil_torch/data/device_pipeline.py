@@ -63,7 +63,7 @@ WIRE_FORMATS = ("rgb", "yuv420", "planes")
 
 def plane_resize_taps(sw, sh, dw, dh, cx, cy, out):
     """Per-axis taps of the windowed bilinear resize: the index and weight
-    math of native/decoder.cpp resize_plane_window + bilinear_resize_window_t
+    math of csrc/host/decoder.cpp resize_plane_window + bilinear_resize_window_t
     (f32 half-pixel-centre sampling, 8-bit fixed-point weights, clamped
     window) from a stored (sw, sh) plane resized to (dw, dh) and cropped at
     (cx, cy) to ``out`` x ``out``.

@@ -1,18 +1,21 @@
-"""ctypes binding for the native JPEG decoder (``native/decoder.cpp``) and the
-port's JPEG writer (``csrc/host/jpeg_write.cpp``): the port's counterpart of
+"""ctypes binding for the port's native JPEG decoder (``csrc/host/decoder.cpp``)
+and its JPEG writer (``csrc/host/jpeg_write.cpp``): the port's counterpart of
 ``bdvcil_tpu/data/native.py``.
 
-Both are host code. At first use they are compiled with the flags and
-libraries of ``native/Makefile:1-3`` (``g++ -O3 -march=native ... -ljpeg
--lpthread``, or ``$CXX``) into ``bdvcil_torch/_build/host-<hash>/``, where the
-hash covers both sources, the flags and this machine's CPU (``-march=native``
-makes the libraries good for this machine only). The decoder's source is read
-where it lies and never edited; ``make -C native`` is never run. Concurrent
-first uses in several processes build once, under a file lock.
+Both are host code on the port's own baseline JPEG codec
+(``csrc/host/jpeg_codec.h``), which reproduces libjpeg-turbo 2.1 bit for bit
+and needs no libjpeg: they build wherever g++ does, on one code path. At
+first use they are compiled (``g++ -O3 -march=native ... -lpthread``, or
+``$CXX``) into ``bdvcil_torch/_build/host-<hash>/``, where the hash covers the
+sources, the codec, the flags and this machine's CPU (``-march=native``
+makes the libraries good for this machine only). Concurrent first uses in
+several processes build once, under a file lock.
 
 When the build or the load fails, ``available()`` is False and
 ``build_error()`` holds the compiler's first error line. Nothing falls back to
-another decoder: every decode function raises, and so do the loaders.
+another decoder: every decode function raises, and so do the loaders. A file
+the codec refuses (progressive, arithmetic-coded, 12-bit, 4 components, other
+sampling, truncated or corrupt) fails its call with the codec's message.
 """
 
 from __future__ import annotations
@@ -30,11 +33,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-DECODER_SRC = _PKG.parent / "native" / "decoder.cpp"
+DECODER_SRC = _PKG / "csrc" / "host" / "decoder.cpp"
 WRITER_SRC = _PKG / "csrc" / "host" / "jpeg_write.cpp"
+CODEC_SRC = _PKG / "csrc" / "host" / "jpeg_codec.h"  # included by both
 BUILD_ROOT = _PKG / "_build"
 CXXFLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared", "-std=c++17")
-LDLIBS = ("-ljpeg", "-lpthread")
+LDLIBS = ("-lpthread",)
 BUILD_TIMEOUT_S = 600
 
 _c_int_p = ctypes.POINTER(ctypes.c_int)
@@ -67,6 +71,10 @@ _DECODER_API = {
     "bdvc_cache_clear": (None, []),
     "bdvc_cache_set_budget_mb": (None, [ctypes.c_long]),
 }
+# why a file does not decode (not part of the JAX package's ABI)
+_EXPLAIN_API = {
+    "bdvc_explain_failure": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
+}
 _WRITER_API = {
     "bdvc_write_jpeg_batch": (ctypes.c_int, [_c_str_p, ctypes.c_int, _c_u8_p, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_int, ctypes.c_int]),
@@ -94,7 +102,7 @@ def _cxx() -> str:
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join((_cxx(),) + CXXFLAGS + LDLIBS).encode())
     h.update(_cpu_id().encode())
-    for src in (DECODER_SRC, WRITER_SRC):
+    for src in (DECODER_SRC, WRITER_SRC, CODEC_SRC):
         h.update(src.read_bytes())
     return BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
 
@@ -112,7 +120,7 @@ def _first_error_line(log: str) -> str:
 def _build() -> Path:
     """Compile both libraries (two compiler processes at once) unless this
     machine has them already; return their directory."""
-    for src in (DECODER_SRC, WRITER_SRC):
+    for src in (DECODER_SRC, WRITER_SRC, CODEC_SRC):
         if not src.exists():
             raise BuildError(f"{src} not found")
     out = build_dir()
@@ -161,7 +169,8 @@ def _load() -> Optional[Tuple[ctypes.CDLL, ctypes.CDLL]]:
         if _libs is None and _error is None:
             try:
                 out = _build()
-                _libs = (_bind(out / f"lib{DECODER_SRC.stem}.so", _DECODER_API),
+                _libs = (_bind(out / f"lib{DECODER_SRC.stem}.so",
+                               {**_DECODER_API, **_EXPLAIN_API}),
                          _bind(out / f"lib{WRITER_SRC.stem}.so", _WRITER_API))
             except (BuildError, OSError, AttributeError) as e:
                 _error = _first_error_line(str(e))
@@ -233,9 +242,16 @@ def _threads(num_threads: int) -> int:
     return num_threads if num_threads > 0 else default_threads()
 
 
+def explain_failure(path: str) -> str:
+    """The codec's reason why ``path`` does not decode ("" when it does)."""
+    msg = ctypes.create_string_buffer(512)
+    _decoder().bdvc_explain_failure(path.encode(), msg, len(msg))
+    return msg.value.decode(errors="replace")
+
+
 def _check(rc: int, paths: Sequence[str], what: str = "decode") -> None:
     if rc != 0:
-        raise IOError(f"{what} failed for {paths[rc - 1]}")
+        raise IOError(f"{what} failed for {paths[rc - 1]}: {explain_failure(paths[rc - 1])}")
 
 
 def decode_file(path: str, max_bytes: int = 64 * 1024 * 1024) -> np.ndarray:
@@ -245,7 +261,7 @@ def decode_file(path: str, max_bytes: int = 64 * 1024 * 1024) -> np.ndarray:
     rc = _decoder().bdvc_decode_file(path.encode(), _ptr(buf, _c_u8_p), max_bytes,
                                      ctypes.byref(w), ctypes.byref(h))
     if rc != 0:
-        raise IOError(f"decode failed ({rc}) for {path}")
+        raise IOError(f"decode failed ({rc}) for {path}: {explain_failure(path)}")
     return buf[: h.value * w.value * 3].reshape(h.value, w.value, 3).copy()
 
 
@@ -393,7 +409,9 @@ def decode_cache_set_budget_mb(mb: int) -> None:
 
 def write_jpeg_batch(paths: Sequence[str], frames: np.ndarray, quality: int = 95,
                      num_threads: int = 0) -> None:
-    """Write (N, H, W, 3) uint8 RGB ``frames`` as JPEG files (4:2:0)."""
+    """Write (N, H, W, 3) uint8 RGB ``frames`` as JPEG files (4:2:0), the
+    bytes libjpeg-turbo writes after ``jpeg_set_defaults`` and
+    ``jpeg_set_quality(quality, TRUE)``."""
     libs = _load()
     if libs is None:
         raise RuntimeError(f"native JPEG writer unavailable: {_error}")
@@ -403,4 +421,5 @@ def write_jpeg_batch(paths: Sequence[str], frames: np.ndarray, quality: int = 95
     n, h, w, _ = frames.shape
     rc = libs[1].bdvc_write_jpeg_batch(_paths(paths), n, _ptr(frames, _c_u8_p), w, h, quality,
                                        _threads(num_threads))
-    _check(rc, paths, "JPEG write")
+    if rc != 0:
+        raise IOError(f"JPEG write failed for {paths[rc - 1]}")

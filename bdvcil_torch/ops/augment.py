@@ -118,7 +118,7 @@ def yuv420_to_rgb(y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def resize_plane_bilinear_taps(planes: torch.Tensor, taps: torch.Tensor, out: int) -> torch.Tensor:
     """Windowed bilinear resize of stored-resolution planes, bit-identical to
-    the host C++ fixed-point path (native/decoder.cpp
+    the host C++ fixed-point path (csrc/host/decoder.cpp
     bilinear_resize_window_t): two taps per axis with integer weights in
     [0, 256], one rounding ``(acc + 32768) >> 16``.
 

@@ -72,10 +72,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      before and read after: outputs against the plain compositions, the
      block against the library-convolution block at layer1 and against its
      plain composition at the other three widths, chained ms per block;
-  9. loop, the main path end to end: the native decoder and JPEG writer built
-     (``loader: native decoder built`` or ``... unavailable: <first error
-     line>``), a corpus of 128 UCF101-shaped videos written under
-     chiprun_out/ (removed after), the loader's first batch through the input
+  9. loop, the main path end to end: a corpus of 128 UCF101-shaped videos
+     written by the port's JPEG writer under chiprun_out/ (removed after;
+     ``loader:`` names the loader and its wire), the loader's first batch
+     through the input
      function on the card against the CPU (uint8 stage, bit for bit), then
      ``train_epochs`` for 2 epochs of config A fed by ``FastBGMixLoader`` on
      the yuv420 wire with K = 8: #3's launches equal 32 a step times the
@@ -83,8 +83,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      3 epochs straight against 1 epoch, a snapshot, a rebuilt state and 2
      more, bit for bit under deterministic algorithms (an op without a
      deterministic CUDA form is named, and the resume is held to the spread
-     of two straight runs). Without the decoder the loop and the resume run
-     on in-memory synthetic wire batches, and say so.
+     of two straight runs).
  10. cil, the slice's main path: a rawframe tree of UCF101's stored size
      (320x240 JPEG frames written with cv2, 16 a video, 8 classes, 4 train
      and 2 val videos a class, one background a video) under chiprun_out/
@@ -93,11 +92,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      crops, TenCrop test at 256) in configuration B, bf16: 3 tasks
      ([0..3], [4, 5], [6, 7]), batch 8, 1 epoch a task, CBF 1 epoch, budget
      2, eval K = 2, then ``cil_testing`` with NME. One ``cil task`` line a
-     task: the loaders each phase took (fast, or host and why), the seconds
+     task: the loaders each phase took (FastBGMixLoader on the yuv420 wire
+     for train and CBF, FastEvalLoader for the rest, TenCrop on the
+     yuv420_full wire; a host loader fails the phase), the seconds
      of train, features + herding, CBF and test, the CNN/NME rows (finite,
      in [0, 100]), the exemplar count, #1 and #2 launches against the count
-     worked out from the forwards and backwards (``expected_cil_launches``),
-     eval clips/s; then cil_testing's #1 launches, the loaders' batch time,
+     worked out from the forwards and backwards and the fast loaders'
+     batches (``expected_cil_launches``), eval clips/s; then cil_testing's
+     #1 launches, the fast loaders' batch time,
      and the card's eval step against the CPU's (f32) on one TenCrop batch:
      cls_score within 3e-2 of its largest entry, and the same prediction
      (the argmax of the crops' mean softmax) for every video whose CPU
@@ -113,11 +115,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      medians equal ``np.round(np.median(...))`` bit for bit at 16 and 15
      frames; at 16 a lower-middle median would differ); ``train_cil`` on the
      ``actorcutmix_plus_randaug`` preset of the hmdb51 template (TSM-R50,
-     icarl with ACMSmoothCE, ActorCutMixDataset from the host pipeline,
+     icarl with ACMSmoothCE, ActorCutMixDataset through the fast ACM loader,
      acm_prob 0.5 and no CBF as the preset sets them) cut as phase 10, with
-     one ``cil acm task`` line a task (the loaders, stage seconds, #1/#2
-     launches against ``expected_cil_launches(use_cbf=False)``), then
-     ``cil_testing`` and the host ACM batch time; ``test_cil`` (tables
+     one ``cil acm task`` line a task (the loaders, all fast, stage seconds,
+     #1/#2 launches against ``expected_cil_launches(use_cbf=False)``), then
+     ``cil_testing`` and the fast ACM loader's batch time; ``test_cil`` (tables
      equal to the trainer's, launches equal); ``test_single_ckpt`` on the
      last checkpoint; ``predict`` on 4 videos (top-1 equal to the argmax of
      the eval step on the same videos, with the original labels of the
@@ -154,6 +156,21 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      ``conv1x1_mode='pallas_stats'`` and ``'pallas_stats_interpret'`` from
      one seed: #3 32 and 0 launches, logits within 3e-2 of the largest entry
      and losses within 3e-2 (phase 3's bf16 tolerance).
+ 14. jpeg, the port's own JPEG codec (``bdvcil_torch/csrc/host/jpeg_codec.h``,
+     built with g++ beside the kernels; the script fails without it): frames
+     from a seed written by the port's writer and by cv2 (4:4:4 with a
+     restart interval, 4:2:2, gray, 4:2:0 with one), and the cv2 files as
+     they were written when the digests were taken (``tests/goldens/jpeg``):
+     the writer's bytes and every decoder entry point's output on each file
+     equal sha256 digests taken with libjpeg-turbo 2.1.5 (``JPEG_DIGESTS``; a cv2 file
+     whose bytes differ from its golden is not gated, its golden is), the
+     pixels that differ from ``cv2.imread``; decode frames/s on bench_train's
+     corpus (1,024 frames of 320x240), cold (the plane cache off) and warm,
+     one thread and the pool, the yuv420 wire and rgb, and full-size decode
+     on one thread against ``cv2.imread`` (libjpeg-turbo); then
+     ``bench_train.run`` for config A, one window from JPEG and one
+     synthetic: e2e, device_clips_per_sec, host decode frames/s, producer
+     wait, cache counters, #3 at 32 launches a step.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -167,6 +184,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -1034,8 +1052,9 @@ def _tree_diff(a, b):
 
 
 def loop_phase(dev, seed, smi, conv_per_step):
-    """Phase 9: the native decoder, a JPEG corpus, train_epochs over it in
-    configuration A at full width, and the snapshot resume, bit for bit."""
+    """Phase 9: a JPEG corpus from the port's writer, ``FastBGMixLoader`` over
+    it, train_epochs in configuration A at full width, and the snapshot
+    resume, bit for bit."""
     import shutil
     import warnings
 
@@ -1043,7 +1062,6 @@ def loop_phase(dev, seed, smi, conv_per_step):
     from bdvcil_torch.data import corpus, native
     from bdvcil_torch.data import device_pipeline as dp
     from bdvcil_torch.data.loaders import FastBGMixLoader
-    from bdvcil_torch.data.synthetic import SyntheticWireLoader
     from bdvcil_torch.models import build_model, init_model_params
     from bdvcil_torch.ops import _build
     from bdvcil_torch.optim import build_optimizer
@@ -1051,32 +1069,26 @@ def loop_phase(dev, seed, smi, conv_per_step):
     from bdvcil_torch.runtime import make_train_step
     from bdvcil_torch.utils import Throughput
 
-    t0 = time.perf_counter()
-    built = native.available()  # builds the decoder and the JPEG writer
-    out = dict(decoder_built=built, decoder_build_s=time.perf_counter() - t0,
-               build_error=native.build_error(), host_cpus=len(os.sched_getaffinity(0)))
-    print("loader: native decoder built" if built
-          else f"loader: native decoder unavailable: {native.build_error()}", flush=True)
+    if not native.available():  # the port's codec needs only g++: no fallback
+        raise AssertionError(f"loop: native decoder unavailable: {native.build_error()}")
+    out = dict(host_cpus=len(os.sched_getaffinity(0)))
     root = pathlib.Path("chiprun_out/loop_corpus")
     deterministic = (torch.are_deterministic_algorithms_enabled(),
                      torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     try:
-        if built:
-            t0 = time.perf_counter()
-            infos, bg_files = corpus.write_corpus(root, LOOP_VIDEOS, seed=seed,
-                                                  num_classes=LOOP_CLASSES)
-            out["corpus_s"] = time.perf_counter() - t0
-            loader = FastBGMixLoader(infos, bg_files, batch_size=BATCH, num_segments=SEGMENTS,
-                                     crop_size=SIZE, randaug_prob=0.75, seed=seed,
-                                     wire_format="auto")
-            source = "jpeg"
-        else:
-            print("loader: the loop runs on in-memory synthetic wire batches "
-                  "(data/synthetic.wire_batch), not on JPEG frames", flush=True)
-            loader = SyntheticWireLoader(LOOP_VIDEOS, BATCH, SEGMENTS, SIZE, seed=seed)
-            source = "synthetic"
-        out.update(loader_source=source, wire_format=loader.wire_format, videos=LOOP_VIDEOS,
+        t0 = time.perf_counter()
+        infos, bg_files = corpus.write_corpus(root, LOOP_VIDEOS, seed=seed,
+                                              num_classes=LOOP_CLASSES)
+        out["corpus_s"] = time.perf_counter() - t0
+        loader = FastBGMixLoader(infos, bg_files, batch_size=BATCH, num_segments=SEGMENTS,
+                                 crop_size=SIZE, randaug_prob=0.75, seed=seed,
+                                 wire_format="auto")
+        out.update(loader=type(loader).__name__, loader_source="jpeg",
+                   wire_format=loader.wire_format, videos=LOOP_VIDEOS,
                    steps_per_epoch=len(loader), k=LOOP_K)
+        print(f"loader: {type(loader).__name__} ({loader.wire_format} wire) over "
+              f"{LOOP_VIDEOS} videos of JPEG frames written by the port's writer in "
+              f"{out['corpus_s']:.1f} s", flush=True)
         fn = dp.make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
                                    wire_format=loader.wire_format)
 
@@ -1142,7 +1154,7 @@ def loop_phase(dev, seed, smi, conv_per_step):
                    e2e_clips_per_s_last_epoch=len(loader) * BATCH / (ends[-1] - ends[-2]),
                    producer_wait_s=meter.wait_s, decode_frames_per_step=BATCH * (SEGMENTS + 1))
         print(f"loop A: train_epochs, {LOOP_EPOCHS} epochs x {len(loader)} steps (K={LOOP_K}) "
-              f"from {source} ({loader.wire_format} wire): e2e {out['e2e_clips_per_s']:.2f} "
+              f"from JPEG ({loader.wire_format} wire): e2e {out['e2e_clips_per_s']:.2f} "
               f"clips/s over the run, {out['e2e_clips_per_s_last_epoch']:.2f} in the last epoch; "
               f"producer wait {meter.wait_s:.3f} s of {wall:.2f} s; host CPUs "
               f"{out['host_cpus']}; #3 launches {launches[CONV]} = {conv_per_step} x {steps}; "
@@ -1261,7 +1273,11 @@ def expected_cil_launches(use_cbf: bool = True):
     phase 10, the iCaRL targets in phase 11; feature extraction, CBF, the
     exemplar class means, the val test) launches #1 once a block, every
     train or CBF backward #2 once a block; then cil_testing's TenCrop
-    forwards."""
+    forwards. The batches are the fast loaders' (``check_fast_loaders``):
+    FastBGMixLoader and the fast ACM loader wrap-pad the last train or CBF
+    batch to a whole one (``pad_to_batch``), FastEvalLoader ends in a short
+    batch that the eval pads, so each split takes ceil(videos / batch)
+    batches, as the host pipeline's did."""
     def batches(n):
         return -(-n // CIL_BATCH)
 
@@ -1278,6 +1294,14 @@ def expected_cil_launches(use_cbf: bool = True):
     testing = sum(batches(CIL_VAL * sum(len(s) for s in CIL_SPLITS[:t + 1]))
                   for t in range(len(CIL_SPLITS)))
     return per_task, {FWD: CIL_BLOCKS * testing}
+
+
+def check_fast_loaders(what, stats):
+    """Every loader a CIL task took is a fast one: with the decoder built, a
+    loader on the host pipeline is an error."""
+    host = [note for note in stats["loaders"] if ": host" in note]
+    if host:
+        raise AssertionError(f"{what}: the host pipeline with the decoder built: {host}")
 
 
 def cil_phase(dev, seed, smi):
@@ -1338,6 +1362,7 @@ def cil_phase(dev, seed, smi):
                     raise AssertionError(f"cil task {t}: accuracy row {row}")
             if stats["exemplars"] != CIL_BUDGET * sum(len(s) for s in CIL_SPLITS[:t + 1]):
                 raise AssertionError(f"cil task {t}: {stats['exemplars']} exemplars")
+            check_fast_loaders(f"cil task {t}", stats)
             by_choice = collections.defaultdict(list)  # "host (why)" -> the phases that took it
             for note in sorted(set(stats["loaders"])):
                 what, choice = note.split(": ", 1)
@@ -1363,14 +1388,13 @@ def cil_phase(dev, seed, smi):
                    launches={FWD: sum(t["launches"][FWD] for t in tasks) + testing[FWD],
                              BWD: sum(t["launches"][BWD] for t in tasks)})
 
-        # the input loaders' batch time on this host (the host pipeline's
-        # DataLoader, or the fast loaders where the decoder built): the last
-        # task's train batches and the TenCrop test batches
+        # the fast loaders' batch time on this host: the last task's train
+        # batches and the TenCrop test batches
         dm = trainer.data_module
         train_loader, _ = trainer._try_fast_loader()
         test_loader = dm.get_test_dataloader([0, len(CIL_SPLITS) - 1])
-        for name, loader in (("train", train_loader or dm.train_dataloader()),
-                             ("TenCrop test", test_loader)):
+        check_fast_loaders("cil input", dict(loaders=dm.loader_notes))
+        for name, loader in (("train", train_loader), ("TenCrop test", test_loader)):
             t0 = time.perf_counter()
             n = sum(1 for _ in loader)
             out[f"loader_{name}_batch_s"] = (time.perf_counter() - t0) / n
@@ -1614,6 +1638,7 @@ def acm_phase(dev, seed, smi):
             for row in (cnn, nme):
                 if len(row) != t + 1 or not all(math.isfinite(a) and 0 <= a <= 100 for a in row):
                     raise AssertionError(f"cil acm task {t}: accuracy row {row}")
+            check_fast_loaders(f"cil acm task {t}", stats)
             by_choice = collections.defaultdict(list)
             for note in sorted(set(stats["loaders"])):
                 what, choice = note.split(": ", 1)
@@ -1636,8 +1661,9 @@ def acm_phase(dev, seed, smi):
         wd = root / "work_dir"
         tables = {n: (wd / n).read_text() for n in ("cnn_result.txt", "nme_result.txt")}
 
-        # the host ACM loader's batch time: the last task's train batches
-        loader = trainer.data_module.train_dataloader()
+        # the fast ACM loader's batch time: the last task's train batches
+        loader, _ = trainer._try_fast_loader()
+        check_fast_loaders("acm input", dict(loaders=trainer.data_module.loader_notes))
         t0 = time.perf_counter()
         n = sum(1 for _ in loader)
         out["loader_train_batch_s"] = (time.perf_counter() - t0) / n
@@ -2396,6 +2422,248 @@ def reference_ckpt_phase(dev, seed, smi):
     return out
 
 
+# --- phase 14: the port's JPEG codec on the card's machine ---------------------------
+
+# Frames the phase writes with the port's writer, (w, h, quality): the gate holds the
+# file bytes and every decode of them to digests taken with libjpeg-turbo 2.1.5.
+JPEG_PORT_FILES = [(320, 240, 50), (320, 240, 75), (320, 240, 95), (320, 240, 100),
+                   (321, 241, 95), (17, 9, 75)]
+# Frames written with cv2.imwrite, (name, quality, sampling, restart interval in MCUs;
+# sampling None: gray); their copies as written when the digests were taken are
+# under JPEG_GOLDEN_DIR, since another cv2 may write other bytes.
+JPEG_CV2_FILES = [("444_rst3", 90, "444", 3), ("422", 90, "422", 0), ("gray", 90, None, 0),
+                  ("420_rst2", 90, "420", 2)]
+JPEG_GOLDEN_DIR = pathlib.Path("tests/goldens/jpeg")
+# sha256 of each file's bytes (the port's writer, and the cv2 goldens) and of
+# jpeg_outputs over it, computed with libjpeg-turbo 2.1.5 (the JAX package's decoder)
+JPEG_DIGESTS = {
+    "port_320x240_q50.jpg": dict(
+        file="2eb5edecd641a0aca161682aaa4814e9793b85b6f7f2271b6b6e8ff0b3900f3e",
+        outputs="2bc7558afb6e005bba861177390b4f119c794a40e39e15cd3e0e6dd7b9145f1f"),
+    "port_320x240_q75.jpg": dict(
+        file="a71764896d43ecd51f6c3f920cee2141bb8d3635a30cea11374e3bafe8677316",
+        outputs="7f1c911959bbda350e1ce1206a84db5528361007d10bcc411b0584af008c9dc2"),
+    "port_320x240_q95.jpg": dict(
+        file="4fdcf1cef7311a863af60ca2dcb7a727142f9ab3c2a1cf31c7bbc75c608c37fb",
+        outputs="2725d2006c9aeaa6389cf2f413a617875f4b7ff95173f80ca9f1058202c5c70a"),
+    "port_320x240_q100.jpg": dict(
+        file="f0c90115d82df54e294c22a76e41d4c5a1ab89c04e799fb8734729751e05513d",
+        outputs="e5f316725a252af10c361a28d422813d5b975690934dba89b636d247cb433e95"),
+    "port_321x241_q95.jpg": dict(
+        file="2c636638a23a0ec1fd9013d7cfbbe6095b14426b9e222dd7163e3128cef6999f",
+        outputs="cb35ec5cf079a16f117d6dd54d031efe761a98e6dc9a93f0557d611d9448c6b7"),
+    "port_17x9_q75.jpg": dict(
+        file="d41c39c1f6e4cca9d7c0cad84c9dbcfe515b3336ba3796cca30227b95522910d",
+        outputs="4276342a0a67dbb7a6bbbd8029f1f098162703c194c83d50e8f0c048b4718dc2"),
+    "cv2_444_rst3.jpg": dict(
+        file="8c6fc4e5f579a6800826a5834bf0c2a02115fd8bc72963a2dda6c87e9d033ce3",
+        outputs="c2a2da74bc6d0c847f2f05d8264e21c3c77a2caddad79d22729c072c3e1cdb85"),
+    "cv2_422.jpg": dict(
+        file="653ae1a48ea913e12a848430a1f9538b02ecfc53df12044707a04d8c9fed40d7",
+        outputs="4102e55b4012493913e72f2a655965359d06789eddc5e4e3467182dce2df370e"),
+    "cv2_gray.jpg": dict(
+        file="b2b98dbd78e94fbcced6203f7bba1965d65049ef8a3e4ec1dd519faa0246499c",
+        outputs="42d6287da16cb8b2cfcf3502dff142642090985311bb03cf8bb58064629dc6ec"),
+    "cv2_420_rst2.jpg": dict(
+        file="7d0d71c3ef8c72f2e921c40e70d132959724d88ec8c0ac5f7cf4a488e298d44d",
+        outputs="d73d46d619d5e9c301ad614721d65755eb62fe5dbbad267da4f04ab0d7f3bc4f"),
+}
+# the bench corpus of bench_train (64 videos x 16 frames at 320 x 240, quality 95)
+JPEG_BENCH_VIDEOS, JPEG_BENCH_FRAMES = 64, 16
+
+
+def jpeg_frame(seed: int, w: int, h: int):
+    """A seeded RGB frame: a smooth gradient with a little noise. The phase's
+    frames take fixed seeds, whatever ``--seed`` is: the digests are of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = rng.uniform(0, 6, 6)
+    img = np.stack([128 + 100 * np.sin(xx / (w + 1) * a[i] + yy / (h + 1) * a[i + 3])
+                    for i in range(3)], -1)
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_cv2_jpeg(path, spec, seed: int):
+    """cv2.imwrite of a seeded frame at a ``JPEG_CV2_FILES`` entry's settings."""
+    import cv2
+
+    _, quality, sampling, rst = spec
+    img = jpeg_frame(seed, *UCF_STORED)
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+    if sampling is None:
+        img = img[..., 0]
+    else:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")]
+    if not cv2.imwrite(str(path), img[..., ::-1] if img.ndim == 3 else img, params):
+        raise IOError(f"cv2.imwrite failed for {path}")
+
+
+def jpeg_outputs(lib, path: str):
+    """Every decoder entry point on one file (``lib``: a native module, the
+    port's or, where the digests were taken, the JAX package's), the plane
+    cache off: full-size RGB, short-side resizes that make the DCT scale 2, 4
+    and 8, a per-axis resize, the yuv420 wire, its full-frame form, TenCrop,
+    the stored planes and the header's dims."""
+    import numpy as np
+
+    w, h = (int(v) for v in lib.probe_dims_batch([path])[0])
+    outs = [np.array([w, h], dtype=np.int32), lib.decode_file(path)]
+    for d in (2, 4, 8):
+        s = max(1, min(w, h) // d)
+        outs.append(lib.decode_resize_crop_batch([path], s, max(1, s // 2), max(1, s // 2)))
+    dims = np.array([[max(2, w * 3 // 4), max(2, h * 3 // 4)]], dtype=np.int32)
+    crop = max(1, int(dims.min()) // 2)
+    outs.append(lib.decode_resize2_crop_batch([path], dims, crop, crop, [(1, 1)]))
+    outs += list(lib.decode_yuv420_batch([path], dims, crop // 2 * 2 or 2, [(0, 0)]))
+    outs += list(lib.decode_yuv420_full_batch([path], dims, int(dims[0, 0] + 1) // 2 * 2,
+                                              int(dims[0, 1] + 1) // 2 * 2))
+    outs.append(lib.decode_tencrop_batch([path], max(1, min(w, h) // 2), max(1, min(w, h) // 4)))
+    outs += list(lib.fetch_planes_batch([path], (w + 1) // 2 * 2, (h + 1) // 2 * 2))
+    return outs
+
+
+def sha256_of(arrays_or_bytes) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays_or_bytes:
+        h.update(a if isinstance(a, bytes) else a.tobytes())
+    return h.hexdigest()
+
+
+def jpeg_phase(dev, seed, smi):
+    """Phase 14: the port's JPEG codec on the card's machine: its files and
+    decodes against libjpeg's digests, against cv2.imread, its decode rates,
+    and bench_train's window from JPEG beside its synthetic one."""
+    import argparse as _argparse
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from bdvcil_torch import bench_train
+    from bdvcil_torch.data import corpus, native
+    from bdvcil_torch.ops import _build
+
+    root = pathlib.Path("chiprun_out/jpeg_phase").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = dict(files={})
+    try:
+        native.decode_cache_set_budget_mb(0)
+        files = {}
+        for i, (w, h, q) in enumerate(JPEG_PORT_FILES):
+            path = root / f"port_{w}x{h}_q{q}.jpg"
+            native.write_jpeg_batch([str(path)], jpeg_frame(i, w, h)[None], quality=q)
+            files[path.name] = path
+        for i, spec in enumerate(JPEG_CV2_FILES):
+            name = spec[0]
+            path = root / f"cv2_{name}.jpg"
+            write_cv2_jpeg(path, spec, 100 + i)
+            files[path.name] = path
+            files[f"golden_{name}.jpg"] = JPEG_GOLDEN_DIR / f"cv2_{name}.jpg"
+        bad, cv2_bytes_equal, imread_diff = [], 0, {}
+        for key, path in files.items():
+            data = path.read_bytes()
+            outs = jpeg_outputs(native, str(path))
+            got = dict(file=sha256_of([data]), outputs=sha256_of(outs))
+            want = JPEG_DIGESTS[key.replace("golden_", "cv2_")]
+            if key.startswith("cv2_") and got["file"] != want["file"]:
+                got["gated"] = "no: this machine's cv2 writes other bytes (its golden is)"
+            else:
+                cv2_bytes_equal += key.startswith("cv2_")
+                got["gated"] = "yes"
+                if got != dict(want, gated="yes"):
+                    bad.append(key)
+            ref = cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
+            imread_diff[key] = int((outs[1] != ref).any(-1).sum())
+            out["files"][key] = dict(got, imread_pixels_differ=imread_diff[key])
+        if bad:
+            raise AssertionError(f"jpeg: the port's codec differs from libjpeg's digests on "
+                                 f"{bad}")
+        out.update(imread_pixels_differ=sum(imread_diff.values()),
+                   cv2_bytes_equal=cv2_bytes_equal)
+        print(f"jpeg: {len(files)} files (the port's writer: {len(JPEG_PORT_FILES)}, cv2 on "
+              f"this machine: {len(JPEG_CV2_FILES)}, of which {cv2_bytes_equal} byte-equal to "
+              f"the goldens, and the {len(JPEG_CV2_FILES)} goldens): file bytes and the "
+              f"{len(outs)} decoder outputs of each equal libjpeg-turbo 2.1.5's digests; "
+              f"against cv2.imread {out['imread_pixels_differ']} pixels differ "
+              f"({imread_diff}) [{smi}]", flush=True)
+
+        # decode rates on bench_train's corpus: cold (no plane cache) and warm
+        infos, _ = corpus.write_corpus(root / "bench_corpus", JPEG_BENCH_VIDEOS,
+                                       JPEG_BENCH_FRAMES, seed=0,
+                                       num_classes=bench_train.NUM_CLASSES)
+        paths = [os.path.join(i["frame_dir"], corpus.FILENAME_TMPL.format(t))
+                 for i in infos for t in range(1, JPEG_BENCH_FRAMES + 1)]
+        n = len(paths)
+        dims = np.array([[341, 256]] * n, dtype=np.int32)  # the short side at 256
+        pool = native.default_threads()
+        rates = {}
+        for cache in ("cold", "warm"):
+            native.decode_cache_set_budget_mb(0 if cache == "cold" else 512)
+            if cache == "warm":
+                native.decode_yuv420_batch(paths, dims, SIZE, [(0, 0)] * n, num_threads=pool)
+            for threads in (1, pool):
+                for wire, call in (
+                        ("yuv420", lambda t: native.decode_yuv420_batch(
+                            paths, dims, SIZE, [(0, 0)] * n, num_threads=t)),
+                        ("rgb", lambda t: native.decode_resize_crop_batch(
+                            paths, 256, SIZE, SIZE, num_threads=t))):
+                    t0 = time.perf_counter()
+                    call(threads)
+                    rates[f"{wire} {cache} {threads} thread{'s' * (threads > 1)}"] = \
+                        n / (time.perf_counter() - t0)
+        # full-size RGB on one thread: the port's codec against cv2's libjpeg-turbo (SIMD)
+        for name, decode in (("port decode_file", native.decode_file),
+                             ("cv2.imread", lambda p: cv2.imread(p, cv2.IMREAD_COLOR))):
+            t0 = time.perf_counter()
+            for p in paths[:256]:
+                decode(p)
+            rates[f"full {name} 1 thread"] = 256 / (time.perf_counter() - t0)
+        out.update(decode_frames_per_s=rates, decode_frames=n, decode_pool_threads=pool,
+                   decode_cache=native.decode_cache_stats())
+        print(f"jpeg decode rates, frames/s over {n} frames of 320x240 at quality 95 (the "
+              f"yuv420 wire at 224 from 341x256; rgb: resize to 256, centre crop 224; cold: "
+              f"the plane cache off; warm: served by it; full: 320x240 RGB, 256 frames): "
+              + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+              + f"; cache {out['decode_cache']} [{smi}]", flush=True)
+        native.decode_cache_set_budget_mb(512)
+        native.decode_cache_clear()
+
+        # bench_train, config A: one window from JPEG, one synthetic
+        out["bench"] = {}
+        for source in ("jpeg", "synthetic"):
+            args = _argparse.Namespace(
+                config="A", k=8, source=source, device=None, corpus=str(root / "bench_corpus"),
+                videos=JPEG_BENCH_VIDEOS, frames=JPEG_BENCH_FRAMES, batch=BATCH,
+                segments=SEGMENTS, size=SIZE, depth=50, warmup=2, windows=1, steps=40,
+                device_calls=3)
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            res = bench_train.run(args)
+            launches = dict(_build.LAUNCHES)
+            if launches != {CONV: 32 * res["steps"]}:
+                raise AssertionError(f"bench_train --source {source}: kernel launches "
+                                     f"{launches}, expected 32 x {res['steps']} of {CONV}")
+            out["bench"][source] = dict(res, launches=launches)
+            print(f"bench_train --config A --source {source} ({res['wire_format']} wire, K={res['k']}, "
+                  f"1 window of {args.steps} steps): e2e {res['value']:.2f} clips/s, "
+                  f"device_clips_per_sec {res['device_clips_per_sec']:.2f}, "
+                  f"host_decode_frames_per_sec {res['host_decode_frames_per_sec']}, producer "
+                  f"wait {res['producer_wait_s']:.3f} s of {res['window_wall_s'][0]:.2f} s, "
+                  f"cache {res.get('decode_cache')}; #3 launches {launches[CONV]} = 32 x "
+                  f"{res['steps']} steps [{smi}]", flush=True)
+    finally:
+        native.decode_cache_set_budget_mb(512)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -2434,10 +2702,18 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    from bdvcil_torch.data import native
+
     t0 = time.perf_counter()
+    # the port's JPEG codec (g++) builds while nvcc builds the kernels
+    codec = concurrent.futures.ThreadPoolExecutor(1).submit(native.available)
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, one process per source)", flush=True)
+    if not codec.result():
+        raise AssertionError(f"native decoder unavailable: {native.build_error()}")
+    codec_s = time.perf_counter() - t0
+    print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, one process per source); the JPEG "
+          f"codec's host libraries (g++, no libjpeg) built by {codec_s:.2f} s", flush=True)
 
     wall0 = time.perf_counter()
     fused_shapes, gemm_shapes, shifted = r50_shapes()
@@ -2498,6 +2774,7 @@ def main(argv=None) -> int:
     acm = acm_phase(dev, args.seed, smi)
     dist = distributed_phase(dev, args.seed, smi)
     refck = reference_ckpt_phase(dev, args.seed, smi)
+    jpeg = jpeg_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
@@ -2521,7 +2798,7 @@ def main(argv=None) -> int:
             library_call=library_call,
             product_ms=None if mine[0]["product_ms"] is None else per_path("product_ms"),
         ))
-    wall_s = time.perf_counter() - wall0 + build_s
+    wall_s = time.perf_counter() - wall0 + max(build_s, codec_s)
     print(f"chip_smoke wall time {wall_s:.1f} s (build included)", flush=True)
 
     outdir = pathlib.Path("chiprun_out")
@@ -2530,7 +2807,7 @@ def main(argv=None) -> int:
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
                   loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
-                  distributed=dist, reference_ckpt=refck, kernels=kernels,
+                  distributed=dist, reference_ckpt=refck, jpeg=jpeg, kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
                        "one forward and one backward of phase 10's batch 8 (its train shapes), "

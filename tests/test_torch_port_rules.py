@@ -8,12 +8,15 @@
     NotImplementedError naming the ROADMAP item;
   * the package's layout docstrings name every module;
   * chip_smoke.py fails, and prints no result, without a GPU or without the
-    rest of the repo.
+    rest of the repo;
+  * the port carries its own JPEG codec: no source includes ``jpeglib.h``,
+    the host libraries are built without ``-ljpeg`` and need no libjpeg.
 """
 
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -138,3 +141,28 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _native_sources():
+    return sorted(p for p in (ROOT / "bdvcil_torch").rglob("*")
+                  if p.suffix in (".c", ".cc", ".cpp", ".h", ".hpp", ".cu", ".cuh")
+                  and "_build" not in p.relative_to(ROOT).parts)
+
+
+@pytest.mark.parametrize("path", _native_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_include_no_libjpeg(path):
+    assert not re.search(r'#\s*include\s*[<"]jpeglib\.h[>"]', path.read_text()), path
+
+
+def test_the_host_libraries_need_no_libjpeg():
+    from bdvcil_torch.data import native
+
+    assert not [flag for flag in native.LDLIBS if "jpeg" in flag], native.LDLIBS
+    assert native.available(), native.build_error()
+    libs = sorted(native.build_dir().glob("*.so"))
+    assert [p.name for p in libs] == ["libdecoder.so", "libjpeg_write.so"]
+    for lib in libs:
+        dynamic = subprocess.run(["readelf", "-d", str(lib)], capture_output=True, text=True,
+                                 check=True, timeout=60).stdout
+        needed = re.findall(r"\(NEEDED\)\s+Shared library: \[([^\]]+)\]", dynamic)
+        assert needed and not [n for n in needed if "jpeg" in n], (lib.name, needed)
