@@ -42,6 +42,8 @@ Layout:
   bench_train        end-to-end train throughput from JPEG frames on disk
   bench_block_fused  the block-fused bottleneck against the plain schedule
   profile_kernels, profile_step  device-time profiles of the kernels and the step
+  profile_e2e        the fed train loop's wall time split into wait, put,
+                     dispatch and device, with the producer's phases
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``
 with time folded into the batch. Inside the model they are NCHW tensors in

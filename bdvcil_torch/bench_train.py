@@ -83,9 +83,9 @@ def host_cpus() -> int:
         return os.cpu_count() or 1
 
 
-def make_loader(args):
-    """(loader, video_infos): the JPEG corpus through ``FastBGMixLoader``, or
-    (the in-memory synthetic loader, None)."""
+def make_loader(args, num_workers: int = 1):
+    """(loader, video_infos): the JPEG corpus through ``FastBGMixLoader`` with
+    ``num_workers`` producer workers, or (the in-memory synthetic loader, None)."""
     if args.source == "synthetic":
         return SyntheticWireLoader(args.videos, args.batch, args.segments, args.size, seed=0), None
     if not native.available():
@@ -95,7 +95,7 @@ def make_loader(args):
                                           num_classes=NUM_CLASSES)
     loader = FastBGMixLoader(infos, bg_files, batch_size=args.batch, num_segments=args.segments,
                              crop_size=args.size, randaug_prob=0.75, seed=0, drop_last=True,
-                             prefetch=2, num_workers=1, wire_format="auto")
+                             prefetch=2, num_workers=num_workers, wire_format="auto")
     return loader, infos
 
 
@@ -118,11 +118,11 @@ def host_decode_rate(infos, size: int, frames: int) -> float:
         native.decode_cache_set_budget_mb(int(os.environ.get("BDVC_DECODE_CACHE_MB", 512)))
 
 
-def run(args) -> dict:
-    device = resolve_device(args.device)
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    loader, infos = make_loader(args)
+def build_step(args, device: torch.device, wire_format: str, k: int):
+    """(step, state): the bench's model (``--config``, ``--depth``,
+    ``--segments``; bf16, LSC, random weights from seed 0), labeled SGD, and
+    the task-0 ``base`` step with the fast input function on ``wire_format``
+    inside it; K steps a call for ``k`` > 1."""
     cfg = presets.hmdb51_r50_cfg(NUM_CLASSES, args.segments, **presets.SWITCHES[args.config])
     cfg["backbone"]["depth"] = args.depth
     cfg["cls_head"]["in_channels"] = 2048 if args.depth >= 50 else 512
@@ -130,12 +130,20 @@ def run(args) -> dict:
     model = init_model_params(spec, 0)
     tx = build_optimizer(model, presets.OPTIMIZER, steps_per_epoch=100)
     input_fn = make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
-                                  wire_format=loader.wire_format)
-    k = args.k
+                                  wire_format=wire_format)
     step_kwargs = dict(spec=spec, tx=tx, num_classes=NUM_CLASSES, method="base",
                        input_fn=input_fn)
     step = make_multi_train_step(step_kwargs, k) if k > 1 else make_train_step(**step_kwargs)
-    state = TrainState.create(model, tx)
+    return step, TrainState.create(model, tx)
+
+
+def run(args) -> dict:
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    loader, infos = make_loader(args)
+    k = args.k
+    step, state = build_step(args, device, loader.wire_format, k)
     stream = side_stream(device)
 
     def prepare(items):
@@ -225,10 +233,10 @@ def run(args) -> dict:
     return result
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def add_model_arguments(parser: argparse.ArgumentParser) -> None:
+    """The flags of the corpus, the loader and the model (``make_loader``,
+    ``build_step``), shared with ``profile_e2e``."""
     parser.add_argument("--config", choices=sorted(presets.SWITCHES), default="A")
-    parser.add_argument("--k", type=int, default=8, help="steps per call")
     parser.add_argument("--source", choices=("jpeg", "synthetic"), default="jpeg")
     parser.add_argument("--device", default=None, help="default: the card")
     parser.add_argument("--corpus", default="work_dirs/bench_train_corpus")
@@ -238,6 +246,12 @@ def main(argv=None) -> int:
     parser.add_argument("--segments", type=int, default=8)
     parser.add_argument("--size", type=int, default=224)
     parser.add_argument("--depth", type=int, default=50)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_model_arguments(parser)
+    parser.add_argument("--k", type=int, default=8, help="steps per call")
     parser.add_argument("--warmup", type=int, default=3, help="calls before the windows")
     parser.add_argument("--windows", type=int, default=5)
     parser.add_argument("--steps", type=int, default=40, help="steps per window")

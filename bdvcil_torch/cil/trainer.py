@@ -155,8 +155,10 @@ class CILTrainer:
         if dump_config and distributed.is_primary():
             config.dump(str(self.work_dir / "config.py"))
 
-        # the other ranks keep a logger that writes nothing
-        self.metric_logger = MetricLogger(str(self.work_dir) if distributed.is_primary() else None)
+        # the other ranks keep a logger that writes nothing, to a file or to wandb
+        primary = distributed.is_primary()
+        self.metric_logger = MetricLogger(str(self.work_dir) if primary else None,
+                                          use_wandb=config.get("use_wandb", False) and primary)
         self.training_phase: Optional[str] = None  # 'inc_step' or 'cbf_step'
         self.current_best: Optional[float] = 0.0 if config.get("save_best", False) else None
         # per-task accuracy rows recorded by _finish_task

@@ -5,7 +5,9 @@ host half of ``bdvcil_tpu/data/device_pipeline.py``).
 Each function and class has the same name and contract as its counterpart
 there:
 
-  resolve_wire_format        device_pipeline.py:63
+  PRODUCER_STATS             device_pipeline.py:43-60 (with
+                             _record_producer_phases)
+  resolve_wire_format        :63
   fast_pipeline_mismatch     :102 (the trainer's gate of the fast path)
   resized_dims               :223
   plan_train_geometry        :230 (and _fixed_crop_offsets :494)
@@ -38,8 +40,10 @@ rank loads its contiguous rows of every global batch (``process_index`` /
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,8 +58,24 @@ from .sampling import SampleFrames
 # MultiScaleCrop scales, realized through the short-side trick
 MSC_SCALES = (1.0, 0.875, 0.75, 0.66)
 # 'planes' wire: a source above this many pixels is resized on the host
-# instead of shipped at stored resolution
+# instead of shipped at stored resolution (the default of BDVC_PLANES_MAX_PX)
 PLANES_MAX_PX = 512 * 512
+
+# FastBGMixLoader's phase seconds and batch count, summed over its workers
+# while BDVC_PROFILE_PRODUCER is set (read by profile_e2e)
+PRODUCER_STATS: Dict[str, float] = {}
+_PRODUCER_STATS_LOCK = threading.Lock()
+
+
+def _producer_profiling_enabled() -> bool:
+    return os.environ.get("BDVC_PROFILE_PRODUCER", "") not in ("", "0")
+
+
+def _record_producer_phases(**seconds: float) -> None:
+    with _PRODUCER_STATS_LOCK:
+        for k, v in seconds.items():
+            PRODUCER_STATS[k] = PRODUCER_STATS.get(k, 0.0) + v
+        PRODUCER_STATS["batches"] = PRODUCER_STATS.get("batches", 0.0) + 1.0
 
 
 def _require_native() -> None:
@@ -423,7 +443,7 @@ class _EpochSpanMixin:
         # original (w, h) per frame_dir or background file, from JPEG headers
         self._dims: Dict[str, tuple] = {}
         self._pad_w = self._pad_h = 0  # 'planes' pads, fixed from the whole corpus
-        self.planes_max_px = PLANES_MAX_PX
+        self.planes_max_px = int(os.environ.get("BDVC_PLANES_MAX_PX", str(PLANES_MAX_PX)))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -593,6 +613,9 @@ class FastBGMixLoader(_EpochSpanMixin):
     def _make_batch(self, indices: np.ndarray, weights: np.ndarray = None,
                     epoch: int = None) -> Dict[str, np.ndarray]:
         epoch = self.epoch if epoch is None else int(epoch)
+        profile = _producer_profiling_enabled()
+        if profile:
+            t_start = time.perf_counter()
         b, t, crop = len(indices), self.num_segments, self.crop_size
         no_bg = not self.bg_files
         frame_paths: List[str] = []
@@ -636,7 +659,11 @@ class FastBGMixLoader(_EpochSpanMixin):
                 bg_path = probe[-1][1]
             bg_paths.append(bg_path)
             probe.append((bg_path, bg_path))
+        if profile:
+            t_pass1 = time.perf_counter()
         self._get_dims(probe)
+        if profile:
+            t_probe = time.perf_counter()
 
         # pass 2: each clip's crop geometry on its true resized dims
         for row, idx in enumerate(indices):
@@ -657,6 +684,8 @@ class FastBGMixLoader(_EpochSpanMixin):
         # expressed as explicit dims)
         bg_dims = np.array([resized_dims(*self._dims[p], self.bg_short_side) for p in bg_paths],
                            np.int32).reshape(-1, 2)
+        if profile:
+            t_plan = time.perf_counter()
         all_paths = frame_paths + bg_paths
         all_dims = np.concatenate([resize_dims, bg_dims])
         all_crops = crops + bg_crops
@@ -677,6 +706,9 @@ class FastBGMixLoader(_EpochSpanMixin):
             pixels = {"imgs_u8": dec[: b * t].reshape(b, t, crop, crop, 3)}
             if not no_bg:
                 pixels["bg_u8"] = dec[b * t:]
+        if profile:
+            _record_producer_phases(pass1=t_pass1 - t_start, probe=t_probe - t_pass1,
+                                    pass2=t_plan - t_probe, decode=time.perf_counter() - t_plan)
         out = {**pixels, "apply_bgmix": apply_bgmix, "apply_randaug": apply_randaug,
                "flip": flip, "label": labels}
         return self._with_draws(out, randaug_keys, weights)

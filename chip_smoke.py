@@ -171,6 +171,16 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      ``bench_train.run`` for config A, one window from JPEG and one
      synthetic: e2e, device_clips_per_sec, host decode frames/s, producer
      wait, cache counters, #3 at 32 launches a step.
+ 15. profile, the fed step split (``bdvcil_torch.profile_e2e``): config A at
+     16 x 8 x 224², bf16, on bench_train's corpus with
+     ``BDVC_PROFILE_PRODUCER=1``, the modes baseline, pipelined and prefetch
+     from JPEG and from synthetic wire batches, 24 steps each after 2 warm-up
+     steps: wait, put, dispatch and device ms a step, clips/s, the producer's
+     pass1 / probe / pass2 / decode ms a batch and the plane cache's hit
+     rate; each mode ran its steps, #3 at 32 launches a step, baseline's
+     stages within 10% of its wall; 4 loader batches timed one by one, each
+     phase >= 0 and their sum within the batch's time; with the switch at
+     "0" a loader's epoch records nothing.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -2664,6 +2674,130 @@ def jpeg_phase(dev, seed, smi):
     return out
 
 
+# --- phase 15: the fed step split into wait, put, dispatch and device ------------------
+
+PROFILE_STEPS = 24  # steps a mode
+PROFILE_STAGES = ("wait", "put", "dispatch", "device")
+PROFILE_PHASES = ("pass1", "probe", "pass2", "decode")
+PROFILE_TIMED_BATCHES = 4  # the loader's batches timed one by one against their phases
+
+
+def profile_phase(dev, seed, smi):
+    """Phase 15: ``profile_e2e`` at config A, 16 x 8 x 224², bf16, on
+    bench_train's corpus with ``BDVC_PROFILE_PRODUCER=1``: every mode from JPEG
+    and from synthetic wire batches (#3 at 32 launches a step); each mode's
+    steps, the producer's phases, baseline's stages against its wall; the
+    phases of single batches against their time; the switch off."""
+    import argparse as _argparse
+    import shutil
+
+    from bdvcil_torch import bench_train, profile_e2e
+    from bdvcil_torch.data import loaders
+    from bdvcil_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path("chiprun_out/profile_phase").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    switch = os.environ.get("BDVC_PROFILE_PRODUCER")
+    os.environ["BDVC_PROFILE_PRODUCER"] = "1"
+    out = dict(steps=PROFILE_STEPS, modes={})
+
+    def profile_args(source):
+        return _argparse.Namespace(
+            steps=PROFILE_STEPS, mode="all", workers=1, config="A", source=source, device=None,
+            corpus=str(root / "corpus"), videos=JPEG_BENCH_VIDEOS, frames=JPEG_BENCH_FRAMES,
+            batch=BATCH, segments=SEGMENTS, size=SIZE, depth=50)
+
+    try:
+        for source in ("jpeg", "synthetic"):
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            lines = profile_e2e.run(profile_args(source), emit=lambda text: None)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            steps = profile_e2e.WARM_STEPS + len(lines) * PROFILE_STEPS
+            if launches != {CONV: 32 * steps}:
+                raise AssertionError(f"profile_e2e --source {source}: kernel launches "
+                                     f"{launches}, expected 32 x {steps} of {CONV}")
+            for line in lines:
+                what = f"profile_e2e {line['mode']} --source {source}"
+                if line["steps"] != PROFILE_STEPS:
+                    raise AssertionError(f"{what}: {line['steps']} steps, not {PROFILE_STEPS}")
+                staged = sum(line[k] for k in PROFILE_STAGES) * PROFILE_STEPS / 1e3
+                if line["mode"] == "baseline" and abs(staged - line["wall_s"]) > 0.1 * line[
+                        "wall_s"]:
+                    raise AssertionError(f"{what}: the stages sum to {staged:.3f} s of a "
+                                         f"{line['wall_s']:.3f} s wall (more than 10% apart)")
+                phases = line["producer_ms"]
+                if source == "jpeg" and (set(phases) != set(PROFILE_PHASES)
+                                         or min(phases.values()) < 0
+                                         or line["producer_batches"] < PROFILE_STEPS):
+                    raise AssertionError(f"{what}: producer phases {phases} over "
+                                         f"{line['producer_batches']} batches")
+                residual = line["wall_s"] * 1e3 / PROFILE_STEPS - sum(
+                    line[k] for k in PROFILE_STAGES)
+                cache = line.get("decode_cache")
+                print(f"{what} (config A, {BATCH} x {SEGMENTS} x {SIZE}², bf16, {steps} "
+                      f"steps with #3 at 32 a step): {line['clips_per_sec']:.2f} clips/s, "
+                      f"wall {line['wall_s']:.3f} s; ms a step: "
+                      + ", ".join(f"{k} {line[k]:.3f}" for k in PROFILE_STAGES)
+                      + f", rest {residual:.3f}; producer ms a batch: "
+                      + (", ".join(f"{k} {v:.3f}" for k, v in phases.items()) or "none")
+                      + f" ({line['producer_batches']} batches)"
+                      + ("" if cache is None else f"; cache hit rate {cache['hit_rate']:.4f} "
+                         f"({cache['hits']} / {cache['misses']})") + f" [{smi}]", flush=True)
+                out["modes"][f"{source} {line['mode']}"] = line
+            out[f"launches {source}"] = launches
+
+        # the producer's phases inside single batches, each timed on its own
+        loader, _ = bench_train.make_loader(profile_args("jpeg"))
+        timed = []
+        for item in loader._epoch_batches(0)[:PROFILE_TIMED_BATCHES]:
+            with loaders._PRODUCER_STATS_LOCK:
+                loaders.PRODUCER_STATS.clear()
+            t0 = time.perf_counter()
+            loader._make_batch(*item)
+            batch_ms = (time.perf_counter() - t0) * 1e3
+            stats = dict(loaders.PRODUCER_STATS)
+            phases = {k: stats[k] * 1e3 for k in PROFILE_PHASES}
+            if stats.get("batches") != 1 or min(phases.values()) < 0 or \
+                    sum(phases.values()) > batch_ms:
+                raise AssertionError(f"loader batch of {batch_ms:.3f} ms: producer stats "
+                                     f"{stats}")
+            timed.append(dict(batch_ms=batch_ms, **phases))
+        out["timed_batches"] = timed
+        print(f"profile producer: {len(timed)} FastBGMixLoader batches timed one by one, ms "
+              f"(batch / pass1 + probe + pass2 + decode): "
+              + "; ".join(f"{t['batch_ms']:.3f} / " + " + ".join(
+                  f"{t[k]:.3f}" for k in PROFILE_PHASES) for t in timed) + f" [{smi}]",
+              flush=True)
+
+        # the switch off: the loader records nothing
+        os.environ["BDVC_PROFILE_PRODUCER"] = "0"
+        with loaders._PRODUCER_STATS_LOCK:
+            loaders.PRODUCER_STATS.clear()
+        it = loader.iter_epochs(0, 1)
+        for _ in range(len(loader)):
+            next(it)
+        it.close()
+        if loaders.PRODUCER_STATS:
+            raise AssertionError(f"BDVC_PROFILE_PRODUCER=0: the loader recorded "
+                                 f"{loaders.PRODUCER_STATS}")
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"profile producer off: {len(loader)} batches, nothing recorded; phase "
+              f"{out['phase_s']:.1f} s [{smi}]", flush=True)
+    finally:
+        if switch is None:
+            os.environ.pop("BDVC_PROFILE_PRODUCER", None)
+        else:
+            os.environ["BDVC_PROFILE_PRODUCER"] = switch
+        with loaders._PRODUCER_STATS_LOCK:
+            loaders.PRODUCER_STATS.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -2775,6 +2909,7 @@ def main(argv=None) -> int:
     dist = distributed_phase(dev, args.seed, smi)
     refck = reference_ckpt_phase(dev, args.seed, smi)
     jpeg = jpeg_phase(dev, args.seed, smi)
+    profile = profile_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
@@ -2807,7 +2942,8 @@ def main(argv=None) -> int:
                   build_s=build_s, wall_s=wall_s, kernel_rows=rows, reference=reference,
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
                   loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
-                  distributed=dist, reference_ckpt=refck, jpeg=jpeg, kernels=kernels,
+                  distributed=dist, reference_ckpt=refck, jpeg=jpeg, profile_e2e=profile,
+                  kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
                        "one forward and one backward of phase 10's batch 8 (its train shapes), "

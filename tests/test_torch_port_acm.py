@@ -67,7 +67,7 @@ from bdvcil_tpu.runtime import TrainState as JaxTrainState
 from bdvcil_tpu.runtime import make_train_step as jax_make_train_step
 from tests.synthetic import make_rawframe_tree
 from tests.test_cil_e2e import MEAN, STD, make_acm_cil_config
-from tests.torch_port_helpers import numpy_tree
+from tests.torch_port_helpers import jax_native, numpy_tree
 
 UPDATE_TOL = 0.1  # each leaf's update against JAX's, in norm (test_torch_port_cil_trainer.py)
 # task 0's update in f32 against the f64 one, per leaf in norm: the port's
@@ -315,6 +315,7 @@ def trainers(tree, tmp_path, **overrides):
 def test_fast_acm_loader_matches_jax(tree, tmp_path):
     if not native.available():
         pytest.fail(f"the port's native decoder did not build: {native.build_error()}")
+    jax_native()  # else the JAX trainer takes its host pipeline
     from bdvcil_tpu.data import device_pipeline as jdp
     from bdvcil_torch.data import loaders as ploaders
 

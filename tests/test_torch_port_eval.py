@@ -30,14 +30,13 @@ from bdvcil_torch.data.loaders import FastEvalLoader
 from bdvcil_torch.models import build_model, from_jax_variables
 from bdvcil_torch.runtime import make_eval_step, make_multi_eval_step
 from bdvcil_torch.runtime.loops import run_inference
-from bdvcil_tpu.data import native as jnative
 from bdvcil_tpu.data.device_pipeline import FastEvalLoader as JaxFastEvalLoader
 from bdvcil_tpu.models import build_model as jax_build_model
 from bdvcil_tpu.models import init_model_params as jax_init
 from bdvcil_tpu.runtime import make_eval_step as jax_make_eval_step
 from bdvcil_tpu.runtime import make_multi_eval_step as jax_make_multi_eval_step
 from bdvcil_tpu.runtime.loops import run_inference as jax_run_inference
-from tests.torch_port_helpers import CONFIGS, randomize_bn
+from tests.torch_port_helpers import CONFIGS, jax_native, randomize_bn
 
 SEG, HW, NC = 4, 56, 5
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -176,8 +175,7 @@ def test_run_inference_matches_jax(models, k):
 def corpus_infos(tmp_path_factory):
     if not native.available():
         pytest.fail(f"the port's native decoder did not build: {native.build_error()}")
-    if not jnative.available():
-        pytest.fail("the JAX package's native decoder did not build")
+    jax_native()  # the JAX loaders decode with it
     infos, _ = corpus.write_corpus(tmp_path_factory.mktemp("eval_corpus"), 5,
                                    frames_per_video=8, seed=2, num_classes=3, size=(100, 76))
     return infos

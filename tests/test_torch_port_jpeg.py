@@ -26,8 +26,8 @@ import cv2
 import numpy as np
 import pytest
 
-from bdvcil_tpu.data import native as jax_native
 from bdvcil_torch.data import native
+from tests.torch_port_helpers import jax_native
 
 QUALITIES = (50, 75, 95, 100)
 SIZES = ((320, 240), (340, 256), (321, 241), (17, 9), (8, 8), (1, 1))
@@ -58,7 +58,7 @@ def frame(rng, w, h, kind):
 def files(tmp_path_factory):
     """{group: {(w, h): [paths]}} over every quality (and restart interval)."""
     assert native.available(), native.build_error()
-    assert jax_native.available()
+    jax_native()
     root = tmp_path_factory.mktemp("jpeg")
     rng = np.random.default_rng(0)
     out = {g: {size: [] for size in SIZES} for g in GROUPS}
@@ -84,11 +84,12 @@ def files(tmp_path_factory):
 def cache_mode(request):
     """Both decoders with the plane cache at 512 MB (cleared), or off."""
     mb = 512 if request.param == "cache" else 0
-    for lib in (native, jax_native):
+    libs = (native, jax_native())
+    for lib in libs:
         lib.decode_cache_set_budget_mb(mb)
         lib.decode_cache_clear()
     yield request.param
-    for lib in (native, jax_native):
+    for lib in libs:
         lib.decode_cache_set_budget_mb(512)
         lib.decode_cache_clear()
 
@@ -144,11 +145,12 @@ ENTRY_POINTS = ("decode_file", "decode_resize_crop_batch", "decode_resize2_crop_
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_entry_point_equals_libjpeg_bit_for_bit(files, cache_mode, entry, group):
     rng = np.random.default_rng(1)
+    jnative = jax_native()
     checked = 0
     for size, paths in files[group].items():
         for name, call in _calls(entry, size, paths, rng):
             for visit in ("cold", "warm"):  # a second call is served by the plane cache
-                got, want = call(native), call(jax_native)
+                got, want = call(native), call(jnative)
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
                 for g, r in zip(got, want):
@@ -315,7 +317,7 @@ def test_refused_forms_raise_naming_the_form(tmp_path, ref_writer, form):
     _, _, dims = native.fetch_planes_batch([p], 64, 48)
     assert dims.tolist() == [[0, 0]]
     if form in ("progressive", "truncated"):  # the deliberate divergence: libjpeg reads both
-        assert jax_native.decode_file(p).shape == (48, 64, 3)
+        assert jax_native().decode_file(p).shape == (48, 64, 3)
 
 
 def test_the_failure_message_is_empty_for_a_good_file(files):

@@ -25,12 +25,12 @@ import pytest
 import torch
 
 from bdvcil_tpu.data import device_pipeline as jdp
-from bdvcil_tpu.data import native as jnative
 from bdvcil_tpu.data.datasets import bg_extraction_tmf
 from bdvcil_tpu.data.sampling import SampleFrames as JaxSampleFrames
 from bdvcil_torch.data import corpus, loaders, native
 from bdvcil_torch.data.sampling import SampleFrames
 from bdvcil_torch.ops.rand_augment_dev import DRAW_KEYS, draw_randaug
+from tests.torch_port_helpers import assert_batch_matches_jax, jax_native
 
 CROP, SHORT, SEG = 56, 64, 4
 SIZE = (100, 76)  # (w, h) of the corpus's frames
@@ -53,8 +53,7 @@ def _one_intra_op_thread():
 def env(tmp_path_factory):
     if not native.available():
         pytest.fail(f"the port's native decoder did not build: {native.build_error()}")
-    if not jnative.available():
-        pytest.fail("the JAX package's native decoder did not build")
+    jax_native()  # the JAX loaders decode with it
     root = tmp_path_factory.mktemp("corpus")
     infos, bg_files = corpus.write_corpus(root, 7, frames_per_video=8, seed=1, num_classes=3,
                                           size=SIZE)
@@ -68,20 +67,6 @@ def env(tmp_path_factory):
                  for _ in range(int(rng.integers(1, 3)))]
             for fi in range(1, 9)}
     return infos, bg_files
-
-
-def assert_batch_matches_jax(port, ref, n=2):
-    """Every key of JAX's batch equal in the port's, ``randaug_key`` as draws."""
-    assert set(port) == (set(ref) - {"randaug_key"}) | set(DRAW_KEYS)
-    for key, want in ref.items():
-        if key == "randaug_key":
-            continue
-        got = port[key]
-        assert got.dtype == want.dtype and got.shape == want.shape, key
-        np.testing.assert_array_equal(got, want, err_msg=key)
-    draws = loaders.randaug_draws_from_keys(ref["randaug_key"], n, CROP, CROP)
-    for key in DRAW_KEYS:
-        np.testing.assert_array_equal(port[key], draws[key], err_msg=key)
 
 
 # -- SampleFrames and the planners ------------------------------------------------
@@ -184,7 +169,7 @@ def test_bgmix_loader_matches_jax(env, wire):
         ref.set_epoch(epoch)
         got, want = list(port), list(ref)
         assert len(got) == len(want) == 1
-        assert_batch_matches_jax(got[0], want[0])
+        assert_batch_matches_jax(got[0], want[0], CROP)
 
 
 @pytest.mark.parametrize("wire", ["rgb", "yuv420"])
@@ -198,7 +183,7 @@ def test_acm_loader_matches_jax(env, wire):
         port.set_epoch(epoch)
         ref.set_epoch(epoch)
         for got, want in zip(list(port), list(ref)):
-            assert_batch_matches_jax(got, want)
+            assert_batch_matches_jax(got, want, CROP)
             acm.extend(want["apply_acm"])
     assert any(acm) and not all(acm)  # both kinds of row were compared
 
@@ -224,7 +209,7 @@ def test_worker_counts_and_iter_epochs_match_jax(env, family):
         got = list(make(loaders, workers).iter_epochs(0, 3))
         assert len(got) == len(want) == 6
         for g, w in zip(got, want):
-            assert_batch_matches_jax(g, w)
+            assert_batch_matches_jax(g, w, CROP)
 
 
 def test_padded_tail_sample_weight(env):
@@ -236,7 +221,7 @@ def test_padded_tail_sample_weight(env):
     np.testing.assert_array_equal(port[0]["sample_weight"], np.ones(4, np.float32))
     np.testing.assert_array_equal(port[1]["sample_weight"], np.array([1, 1, 1, 0], np.float32))
     for g, w in zip(port, ref):
-        assert_batch_matches_jax(g, w)
+        assert_batch_matches_jax(g, w, CROP)
 
 
 def test_process_slicing_matches_jax(env):
@@ -248,7 +233,7 @@ def test_process_slicing_matches_jax(env):
         ref = list(jdp.FastBGMixLoader(infos, bg_files, **kw))
         assert [len(b["label"]) for b in port] == [2, 2]
         for g, w in zip(port, ref):
-            assert_batch_matches_jax(g, w)
+            assert_batch_matches_jax(g, w, CROP)
 
 
 def test_empty_background_list(env):
@@ -257,7 +242,7 @@ def test_empty_background_list(env):
     got = next(iter(loaders.FastBGMixLoader(infos, [], **kw)))
     want = next(iter(jdp.FastBGMixLoader(infos, [], **kw)))
     assert not any(k.startswith("bg_") for k in got) and not got["apply_bgmix"].any()
-    assert_batch_matches_jax(got, want)
+    assert_batch_matches_jax(got, want, CROP)
 
 
 def test_loaders_raise_without_the_decoder(env, monkeypatch):
@@ -277,6 +262,7 @@ def test_loaders_raise_without_the_decoder(env, monkeypatch):
 
 def test_native_binding_matches_jax(env):
     infos, bg_files = env
+    jnative = jax_native()
     paths = [f"{info['frame_dir']}/img_{t:05}.jpg" for info in infos[:3] for t in (1, 4, 8)]
     n = len(paths)
     rng = np.random.default_rng(0)

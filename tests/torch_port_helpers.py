@@ -6,10 +6,16 @@ package's variables go to the port through ``models/convert.py``.
 
 from __future__ import annotations
 
+import ctypes
+import fcntl
 import functools
+import importlib
+import pathlib
+import tempfile
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from bdvcil_torch.models.convert import from_jax_variables
@@ -72,6 +78,56 @@ def model_cfg(depth: int, shift_mode: str, conv1x1_mode: str, num_classes: int,
         ),
         test_cfg=dict(average_clips="prob"),
     )
+
+
+def jax_native():
+    """``bdvcil_tpu.data.native`` with its decoder loaded.
+
+    The JAX package builds ``native/libbdvcdec.so`` with an unlocked ``make``
+    that writes the library in place, and a process that loses the race
+    (``ctypes.CDLL`` on a half-written file) keeps ``available()`` False for
+    its lifetime. Every test worker collects the JAX files whose ``skipif``
+    runs that build, so a worker can lose. Here the processes take turns
+    under a file lock; a module that has failed runs the build once more and
+    is reloaded, which clears its flag, and tries again. Fixtures run after
+    every worker has collected, so no collection-time build is still writing.
+    """
+    from bdvcil_tpu.data import native
+
+    with open(pathlib.Path(tempfile.gettempdir()) / "bdvcil_tpu_native_build.lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        if native.available():
+            return native
+        built = native._build()
+        native = importlib.reload(native)
+        if native.available():
+            return native
+        try:
+            ctypes.CDLL(str(native._LIB_PATH))
+            reason = "the library loads but the module still reports it unavailable"
+        except OSError as e:
+            reason = str(e)
+        pytest.fail(f"the JAX package's native decoder did not build or load on a second try "
+                    f"(make {'succeeded' if built else 'failed'}): {reason}")
+
+
+def assert_batch_matches_jax(port, ref, crop: int, n: int = 2):
+    """Every key of a JAX loader's batch equal in the port loader's, bit for
+    bit, ``randaug_key`` as the ``n`` RandAugment draws the port derives from
+    it at ``crop``."""
+    from bdvcil_torch.data import loaders
+    from bdvcil_torch.ops.rand_augment_dev import DRAW_KEYS
+
+    assert set(port) == (set(ref) - {"randaug_key"}) | set(DRAW_KEYS)
+    for key, want in ref.items():
+        if key == "randaug_key":
+            continue
+        got = port[key]
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        np.testing.assert_array_equal(got, want, err_msg=key)
+    draws = loaders.randaug_draws_from_keys(ref["randaug_key"], n, crop, crop)
+    for key in DRAW_KEYS:
+        np.testing.assert_array_equal(port[key], draws[key], err_msg=key)
 
 
 def to_torch(x: np.ndarray) -> torch.Tensor:
