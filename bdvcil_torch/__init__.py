@@ -39,7 +39,15 @@ Layout:
            python-file configs, the experiment grid (make_cil_config and
            the main path's settings), type registries, vCLIMB class orders
   utils    meters, the result table, loggers, torch.profiler traces
+  bench              the benches in one run, the step headline first
+  bench_step         train (or forward) clips/s on device-resident batches,
+                     with the step's shares of the card's peaks
   bench_train        end-to-end train throughput from JPEG frames on disk
+                     (the BGMix and ActorCutMix families)
+  bench_eval         end-to-end inference videos/s, centre crop and TenCrop
+  bench_input        the native decoder against the cv2 chain
+  bench_randaug      the device RandAugment's cost by op family
+  roofline           the HBM and FLOP bounds of the TSM-R50 train step
   bench_block_fused  the block-fused bottleneck against the plain schedule
   profile_kernels, profile_step  device-time profiles of the kernels and the step
   profile_e2e        the fed train loop's wall time split into wait, put,

@@ -13,7 +13,13 @@ copy, event). After ``--warmup`` calls, ``--windows`` windows of ``--steps``
 steps each are timed on the host clock, each ending in a synchronize; the
 value is the median window's clips/s.
 
-Printed, as one JSON line: the metric, its value and unit, the
+``--family acm`` measures the ActorCutMix family instead (``bench.py:708-823``):
+every video carries the two fixed person boxes of ``ACM_BOXES`` on every
+frame, and ``FastACMLoader`` at ``acm_prob=1.0`` (two clips decoded a row:
+the actor and a scene) feeds ``make_fast_acm_input_fn`` in the same step,
+windows and loop. It always decodes: ``--source synthetic`` is refused.
+
+Printed, as one JSON line: the metric, its value and unit, the family, the
 configuration, K, the window rates, wall times and producer waits (seconds
 the step loop waited for input), ``device_clips_per_sec`` (the same step on
 one staged chunk that stays on the card: the rate without the host), the
@@ -24,6 +30,7 @@ alone at the bench's geometry, cold: the cache off), the host's CPU count,
 the loader's source, and the card's name and power limit.
 
     python -m bdvcil_torch.bench_train --config A [--k 8] [--source jpeg|synthetic]
+                                       [--family bgmix|acm]
 
 ``--source jpeg`` (the default) decodes the corpus with the port's own JPEG
 codec (``csrc/host/jpeg_codec.h``), which needs only g++, and raises when it
@@ -48,8 +55,8 @@ import torch
 from . import config_templates as presets
 from ._device import resolve_device
 from .data import corpus, native
-from .data.device_pipeline import make_fast_input_fn
-from .data.loaders import FastBGMixLoader
+from .data.device_pipeline import make_fast_acm_input_fn, make_fast_input_fn
+from .data.loaders import FastACMLoader, FastBGMixLoader
 from .data.synthetic import SyntheticWireLoader
 from .models import build_model, init_model_params
 from .optim import build_optimizer
@@ -66,7 +73,10 @@ from .runtime.loops import (
 from .utils import Throughput
 
 METRIC = "e2e_train_clips_per_sec_tsm_r50_8x224"
+ACM_METRIC = "e2e_acm_train_clips_per_sec_tsm_r50_8x224"
 NUM_CLASSES = 51  # bench.py's head
+# two person-sized boxes (x1, y1, x2, y2, score) on every frame (bench.py:733-736)
+ACM_BOXES = [[40.0, 30.0, 200.0, 170.0, 0.9], [120.0, 60.0, 300.0, 230.0, 0.8]]
 
 
 def card_line() -> str:
@@ -83,9 +93,40 @@ def host_cpus() -> int:
         return os.cpu_count() or 1
 
 
-def make_loader(args, num_workers: int = 1):
-    """(loader, video_infos): the JPEG corpus through ``FastBGMixLoader`` with
-    ``num_workers`` producer workers, or (the in-memory synthetic loader, None)."""
+def model_cfg(segments: int = 8, depth: int = 50, **backbone) -> dict:
+    """The recognizer every bench measures (``bench.py``'s ``_bench_model_cfg``:
+    TSM-ResNet at ``depth``, shift_div 8, the LSC head over 51 classes);
+    ``backbone`` adds switches."""
+    cfg = presets.hmdb51_r50_cfg(NUM_CLASSES, segments, **backbone)
+    cfg["backbone"]["depth"] = depth
+    cfg["cls_head"]["in_channels"] = 2048 if depth >= 50 else 512
+    return cfg
+
+
+def build_bench_model(args, device: torch.device, **backbone):
+    """(spec, module): ``model_cfg`` at ``--config``'s switches (``backbone``
+    overrides them), ``--depth`` and ``--segments``, bf16, random weights
+    from seed 0."""
+    cfg = model_cfg(args.segments, args.depth, **{**presets.SWITCHES[args.config], **backbone})
+    spec = build_model(cfg, dtype=torch.bfloat16, device=device)
+    return spec, init_model_params(spec, 0)
+
+
+def acm_infos(infos):
+    """The corpus's video infos with ``ACM_BOXES`` on every frame."""
+    return [dict(info, all_detections={t: [list(b) for b in ACM_BOXES]
+                                       for t in range(1, info["total_frames"] + 1)})
+            for info in infos]
+
+
+def make_loader(args, num_workers: int = 1, family: str = "bgmix"):
+    """(loader, video_infos): the JPEG corpus through ``FastBGMixLoader`` (or,
+    for ``family`` 'acm', ``FastACMLoader`` at acm_prob 1) with
+    ``num_workers`` producer workers, or (the in-memory synthetic loader,
+    None)."""
+    if family == "acm" and args.source == "synthetic":
+        raise ValueError("--family acm decodes the corpus (bench.py's ACM bench always "
+                         "decodes): it has no --source synthetic")
     if args.source == "synthetic":
         return SyntheticWireLoader(args.videos, args.batch, args.segments, args.size, seed=0), None
     if not native.available():
@@ -93,6 +134,12 @@ def make_loader(args, num_workers: int = 1):
                            f"(--source synthetic measures without it)")
     infos, bg_files = corpus.write_corpus(args.corpus, args.videos, args.frames, seed=0,
                                           num_classes=NUM_CLASSES)
+    if family == "acm":
+        infos = acm_infos(infos)
+        loader = FastACMLoader(infos, batch_size=args.batch, num_segments=args.segments,
+                               crop_size=args.size, acm_prob=1.0, seed=0, drop_last=True,
+                               prefetch=2, num_workers=num_workers, wire_format="auto")
+        return loader, infos
     loader = FastBGMixLoader(infos, bg_files, batch_size=args.batch, num_segments=args.segments,
                              crop_size=args.size, randaug_prob=0.75, seed=0, drop_last=True,
                              prefetch=2, num_workers=num_workers, wire_format="auto")
@@ -118,19 +165,17 @@ def host_decode_rate(infos, size: int, frames: int) -> float:
         native.decode_cache_set_budget_mb(int(os.environ.get("BDVC_DECODE_CACHE_MB", 512)))
 
 
-def build_step(args, device: torch.device, wire_format: str, k: int):
-    """(step, state): the bench's model (``--config``, ``--depth``,
-    ``--segments``; bf16, LSC, random weights from seed 0), labeled SGD, and
-    the task-0 ``base`` step with the fast input function on ``wire_format``
-    inside it; K steps a call for ``k`` > 1."""
-    cfg = presets.hmdb51_r50_cfg(NUM_CLASSES, args.segments, **presets.SWITCHES[args.config])
-    cfg["backbone"]["depth"] = args.depth
-    cfg["cls_head"]["in_channels"] = 2048 if args.depth >= 50 else 512
-    spec = build_model(cfg, dtype=torch.bfloat16, device=device)
-    model = init_model_params(spec, 0)
+def build_step(args, device: torch.device, wire_format: str, k: int, family: str = "bgmix"):
+    """(step, state): the bench's model (``build_bench_model``), labeled SGD,
+    and the task-0 ``base`` step with the family's fast input function on
+    ``wire_format`` inside it; K steps a call for ``k`` > 1."""
+    spec, model = build_bench_model(args, device)
     tx = build_optimizer(model, presets.OPTIMIZER, steps_per_epoch=100)
-    input_fn = make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
-                                  wire_format=wire_format)
+    if family == "acm":
+        input_fn = make_fast_acm_input_fn(dtype=torch.bfloat16, wire_format=wire_format)
+    else:
+        input_fn = make_fast_input_fn(alpha=0.5, with_randaug=True, dtype=torch.bfloat16,
+                                      wire_format=wire_format)
     step_kwargs = dict(spec=spec, tx=tx, num_classes=NUM_CLASSES, method="base",
                        input_fn=input_fn)
     step = make_multi_train_step(step_kwargs, k) if k > 1 else make_train_step(**step_kwargs)
@@ -141,9 +186,9 @@ def run(args) -> dict:
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    loader, infos = make_loader(args)
+    loader, infos = make_loader(args, family=args.family)
     k = args.k
-    step, state = build_step(args, device, loader.wire_format, k)
+    step, state = build_step(args, device, loader.wire_format, k, family=args.family)
     stream = side_stream(device)
 
     def prepare(items):
@@ -202,9 +247,10 @@ def run(args) -> dict:
     jpeg = infos is not None
 
     result = {
-        "metric": METRIC,
+        "metric": ACM_METRIC if args.family == "acm" else METRIC,
         "value": statistics.median(rates),
         "unit": "clips/s",
+        "family": args.family,
         "config": args.config,
         "backbone": presets.SWITCHES[args.config],
         "k": k,
@@ -248,16 +294,20 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--depth", type=int, default=50)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_model_arguments(parser)
+    parser.add_argument("--family", choices=("bgmix", "acm"), default="bgmix")
     parser.add_argument("--k", type=int, default=8, help="steps per call")
     parser.add_argument("--warmup", type=int, default=3, help="calls before the windows")
     parser.add_argument("--windows", type=int, default=5)
     parser.add_argument("--steps", type=int, default=40, help="steps per window")
     parser.add_argument("--device-calls", type=int, default=3)
-    args = parser.parse_args(argv)
-    print(json.dumps(run(args)), flush=True)
+    return parser
+
+
+def main(argv=None) -> int:
+    print(json.dumps(run(build_parser().parse_args(argv))), flush=True)
     return 0
 
 

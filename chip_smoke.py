@@ -181,6 +181,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      stages within 10% of its wall; 4 loader batches timed one by one, each
      phase >= 0 and their sum within the batch's time; with the switch at
      "0" a loader's epoch records nothing.
+ 16. bench, the port's benches in process at 16 x 8 x 224², bf16, one seed:
+     (a) ``bench_step`` for configs A and default, 10 steps after 3 warm-up
+     steps: clips/s, ``mfu`` and ``bw_roofline_fraction`` (each in (0, 1]),
+     #3 at 32 launches a step under A and none under default; then
+     ``--forward-only`` for config B, #1 at 16 a forward; (b) ``bench_eval
+     --config B --measures 1`` on a corpus of bench_train's shape written by
+     the port's writer, centre crop and TenCrop (K = 4, one sweep of 2
+     passes): rows = passes x videos, finite scores, #1 at 16 a forward over
+     every batch run, TenCrop on ``yuv420_full``; (c) ``bench_train --family
+     acm --config A``, one window of 40 steps: ``FastACMLoader`` on the wire
+     the line names, #3 at 32 a step; (d) ``bench_input`` on 256 frames.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -322,7 +333,8 @@ def fused_paths():
     predict's TenCrop batch of 4 at 256, extract_features' batch of 4 at 224;
     and phase 12's: a rank's 4 videos at 224 (its CIL run's train and
     run_inference) and their TenCrop test at 256 (bf16), config B in float32
-    on one process (batch 16) and on a rank (batch 8), with a backward."""
+    on one process (batch 16) and on a rank (batch 8), with a backward; and
+    phase 16's eval bench: TenCrop of 16 videos at 224 (bf16)."""
     bf16, f32 = torch.bfloat16, torch.float32
     rank_videos = CIL_BATCH // DIST_WORLD
     return [("bench", r50_shapes()[0], True, bf16),
@@ -333,7 +345,8 @@ def fused_paths():
             ("cil rank", r50_shapes(rank_videos * SEGMENTS)[0], True, bf16),
             ("TenCrop rank", r50_shapes(rank_videos * 10 * SEGMENTS, EVAL_SIZE)[0], False, bf16),
             ("B f32", r50_shapes()[0], True, f32),
-            ("B f32 rank", r50_shapes(BATCH // DIST_WORLD * SEGMENTS)[0], True, f32)]
+            ("B f32 rank", r50_shapes(BATCH // DIST_WORLD * SEGMENTS)[0], True, f32),
+            ("eval TenCrop", r50_shapes(BATCH * 10 * SEGMENTS)[0], False, bf16)]
 
 
 def gemm_paths():
@@ -2648,7 +2661,8 @@ def jpeg_phase(dev, seed, smi):
         out["bench"] = {}
         for source in ("jpeg", "synthetic"):
             args = _argparse.Namespace(
-                config="A", k=8, source=source, device=None, corpus=str(root / "bench_corpus"),
+                config="A", family="bgmix", k=8, source=source, device=None,
+                corpus=str(root / "bench_corpus"),
                 videos=JPEG_BENCH_VIDEOS, frames=JPEG_BENCH_FRAMES, batch=BATCH,
                 segments=SEGMENTS, size=SIZE, depth=50, warmup=2, windows=1, steps=40,
                 device_calls=3)
@@ -2798,6 +2812,140 @@ def profile_phase(dev, seed, smi):
     return out
 
 
+# --- phase 16: the port's benches ----------------------------------------------------
+
+BENCH_STEPS, BENCH_WARMUP = 10, 3  # (a): steps timed after the warm-up steps
+BENCH_EVAL_K, BENCH_EVAL_STEPS = 4, 8  # (b): 2 passes of 4 batches a sweep
+BENCH_ACM_STEPS = 40  # (c): one window
+BENCH_INPUT_FRAMES = 256
+
+
+def bench_phase(dev, seed, smi):
+    """Phase 16: ``bench_step`` (A, default; forward-only B), ``bench_eval``
+    (B), ``bench_train --family acm`` (A) and ``bench_input`` in process at
+    16 x 8 x 224², bf16, each with its launch counts set to 0 before it and
+    read after it."""
+    import shutil
+
+    from bdvcil_torch import bench_eval, bench_input, bench_step, bench_train
+    from bdvcil_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path("chiprun_out/bench_phase").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    shape = ["--batch", str(BATCH), "--segments", str(SEGMENTS), "--size", str(SIZE),
+             "--corpus", str(root / "corpus"), "--videos", str(JPEG_BENCH_VIDEOS),
+             "--frames", str(JPEG_BENCH_FRAMES)]
+    out = {}
+
+    def counted(fn, args):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        res = fn(args)
+        torch.cuda.synchronize()
+        return res, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    try:
+        # (a) the step headline, A and default; the forward-only bench, B
+        for config in ("A", "default"):
+            args = bench_step.build_parser().parse_args(
+                shape + ["--config", config, "--steps", str(BENCH_STEPS),
+                         "--warmup", str(BENCH_WARMUP)])
+            res, launches = counted(bench_step.run, args)
+            steps = BENCH_STEPS + BENCH_WARMUP
+            want = {CONV: 32 * steps} if config == "A" else {}
+            if launches != want:
+                raise AssertionError(f"bench_step --config {config}: kernel launches {launches}, "
+                                     f"expected {want} over {steps} steps")
+            for key in ("mfu", "bw_roofline_fraction"):
+                if not 0 < res[key] <= 1:
+                    raise AssertionError(f"bench_step --config {config}: {key} {res[key]} is "
+                                         f"not in (0, 1]")
+            out[f"step {config}"] = dict(res, launches=launches)
+            print(f"bench_step --config {config} ({BATCH} x {SEGMENTS} x {SIZE}², bf16, "
+                  f"{BENCH_STEPS} steps after {BENCH_WARMUP}): {res['value']:.2f} clips/s, mfu "
+                  f"{res['mfu']:.4f}, bw_roofline_fraction {res['bw_roofline_fraction']:.4f} "
+                  f"({res['model_tflops_per_clip']:.4f} TFLOP a clip), launches {launches} "
+                  f"[{smi}]", flush=True)
+        args = bench_step.build_parser().parse_args(
+            shape + ["--config", "B", "--forward-only", "--steps", str(BENCH_STEPS),
+                     "--warmup", str(BENCH_WARMUP)])
+        res, launches = counted(bench_step.run, args)
+        forwards = BENCH_STEPS + BENCH_WARMUP
+        if launches != {FWD: CIL_BLOCKS * forwards}:
+            raise AssertionError(f"bench_step --forward-only --config B: kernel launches "
+                                 f"{launches}, expected {CIL_BLOCKS} x {forwards} of {FWD}")
+        out["forward B"] = dict(res, launches=launches)
+        print(f"bench_step --forward-only --config B: {res['value']:.2f} clips/s "
+              f"(vs_baseline {res['vs_baseline']:.3f}), launches {launches} [{smi}]", flush=True)
+
+        # (b) eval, centre crop and TenCrop, config B
+        args = bench_eval.build_parser().parse_args(
+            shape + ["--config", "B", "--measures", "1", "--k", str(BENCH_EVAL_K),
+                     "--steps", str(BENCH_EVAL_STEPS), "--skip-rgb"])
+        res, launches = counted(bench_eval.run, args)
+        forwards = sum(res["forwards"].values())
+        if launches != {FWD: CIL_BLOCKS * forwards}:
+            raise AssertionError(f"bench_eval --config B: kernel launches {launches}, expected "
+                                 f"{CIL_BLOCKS} x {forwards} of {FWD}")
+        if res["tencrop_wire"] != "yuv420_full" or res["wires"]["center"] != "rgb":
+            raise AssertionError(f"bench_eval wires {res['wires']}")
+        passes = -(-BENCH_EVAL_STEPS // (JPEG_BENCH_VIDEOS // BATCH))
+        if set(res["rows"].values()) != {passes * JPEG_BENCH_VIDEOS}:
+            raise AssertionError(f"bench_eval rows {res['rows']}, expected {passes} x "
+                                 f"{JPEG_BENCH_VIDEOS}")
+        out["eval B"] = dict(res, launches=launches)
+        print(f"bench_eval --config B (K={BENCH_EVAL_K}, {passes} passes over "
+              f"{JPEG_BENCH_VIDEOS} videos a sweep): centre {res['value']:.2f} videos/s "
+              f"(rgb wire), TenCrop {res['tencrop_videos_per_sec']:.2f} videos/s "
+              f"({res['tencrop_wire']} wire); forwards {res['forwards']}, launches {launches} "
+              f"[{smi}]", flush=True)
+
+        # (c) the ActorCutMix family end to end, config A
+        args = bench_train.build_parser().parse_args(
+            shape + ["--config", "A", "--family", "acm", "--windows", "1",
+                     "--steps", str(BENCH_ACM_STEPS), "--warmup", "1", "--device-calls", "1"])
+        made = []  # the loader bench_train.run makes
+        make_loader = bench_train.make_loader
+
+        def recording(*a, **kw):
+            made.append(make_loader(*a, **kw))
+            return made[-1]
+
+        bench_train.make_loader = recording
+        try:
+            res, launches = counted(bench_train.run, args)
+        finally:
+            bench_train.make_loader = make_loader
+        loader = made[0][0]
+        if type(loader).__name__ != "FastACMLoader" or loader.wire_format != res["wire_format"]:
+            raise AssertionError(f"bench_train --family acm ran {type(loader).__name__} on "
+                                 f"{loader.wire_format}, its line names {res['wire_format']}")
+        if launches != {CONV: 32 * res["steps"]}:
+            raise AssertionError(f"bench_train --family acm: kernel launches {launches}, "
+                                 f"expected 32 x {res['steps']} of {CONV}")
+        out["acm A"] = dict(res, launches=launches)
+        print(f"bench_train --family acm --config A ({type(loader).__name__}, "
+              f"{res['wire_format']} wire, K={res['k']}, 1 window of {BENCH_ACM_STEPS} steps): "
+              f"e2e {res['value']:.2f} clips/s, device_clips_per_sec "
+              f"{res['device_clips_per_sec']:.2f}, producer wait {res['producer_wait_s']:.3f} s, "
+              f"launches {launches} [{smi}]", flush=True)
+
+        # (d) the native decoder against the cv2 chain
+        res = bench_input.run(bench_input.build_parser().parse_args(
+            ["--frames", str(BENCH_INPUT_FRAMES)]))
+        out["input"] = res
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"bench_input ({res['frames']} frames of 320x240 at q90, short side 256, centre "
+              f"224): native {res['value']:.1f} frames/s, cv2 {res['cv2_frames_per_sec']:.1f} "
+              f"(x{res['vs_baseline']:.2f}), {res['host_cpus']} CPUs; phase "
+              f"{out['phase_s']:.1f} s [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -2910,6 +3058,7 @@ def main(argv=None) -> int:
     refck = reference_ckpt_phase(dev, args.seed, smi)
     jpeg = jpeg_phase(dev, args.seed, smi)
     profile = profile_phase(dev, args.seed, smi)
+    benches = bench_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
@@ -2943,6 +3092,7 @@ def main(argv=None) -> int:
                   train=trains, input=inputs, train_fed=fed, icarl=icarl, block=block,
                   loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
                   distributed=dist, reference_ckpt=refck, jpeg=jpeg, profile_e2e=profile,
+                  bench=benches,
                   kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "

@@ -499,3 +499,25 @@ def test_wgmma_plan_covers_every_shape(cuda):
         # layer4 (M = 6272, N = 512): 98 tiles of 256 tie 392 of 64; the tie goes wide
         p = gemm_plan.kernel_plan(6272, 512, cuda)
         assert (p.block_n, p.tiles, p.grid) == (256, 98, 98)
+
+
+@pytest.mark.parametrize("config,flags,kernel,per_call", [
+    ("A", [], port_conv.KERNEL, 32),
+    ("B", ["--forward-only"], port_tsm.FWD, 16),
+], ids=["A step", "B forward"])
+def test_bench_step_launches_the_kernels(cuda, config, flags, kernel, per_call):
+    """``bench_step`` at TSM-R50, batch 2 x 8 x 224²: config A's train step
+    launches conv1x1_with_stats 32 times a step, config B's forward-only
+    bench the fused epilogue 16 times a forward; the step's shares of the
+    card's peaks are in (0, 1]."""
+    from bdvcil_torch import bench_step
+
+    args = bench_step.build_parser().parse_args(
+        ["--config", config, "--batch", "2", "--steps", "2", "--warmup", "1"] + flags)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    line = bench_step.run(args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {kernel: per_call * 3}
+    if not flags:
+        assert 0 < line["mfu"] <= 1 and 0 < line["bw_roofline_fraction"] <= 1
