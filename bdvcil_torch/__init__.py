@@ -52,6 +52,12 @@ Layout:
   profile_kernels, profile_step  device-time profiles of the kernels and the step
   profile_e2e        the fed train loop's wall time split into wait, put,
                      dispatch and device, with the producer's phases
+  reference_loop     the reference's CIL loop in plain torch (the accuracy
+                     yardstick), its synthetic tree and configs
+  parity_study       paired CIL runs, the port against reference_loop, over
+                     seeds: the per-stage accuracy bias and its SE
+  bn_ablation        the BatchNorm statistics modes (global, per-device
+                     groups, ghost) on a small task
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``
 with time folded into the batch. Inside the model they are NCHW tensors in

@@ -49,7 +49,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      at 224, forward and backward), phase 10's batch 8 (64 frames at 224,
      forward and backward: train, KD, CBF, features, class means and the
      val test) and its TenCrop test at 256 (8 x 10 x 8 = 640 frames,
-     H = W = 64 to 8, forward only);
+     H = W = 64 to 8, forward only), the later phases' paths
+     (``fused_paths``), and phase 17's TSM-R18 in f32 at 2 segments: its
+     train batch (16 frames at 56, H = W = 14 to 2, forward and backward)
+     and its test batch (128 frames, forward only);
   3. reference: one small train step per configuration on the card against
      the same step on the CPU, where the port runs the plain versions;
   4. train A and B at full width: 3 task-0 steps (26 classes), growth to 31,
@@ -192,6 +195,22 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      every batch run, TenCrop on ``yuv420_full``; (c) ``bench_train --family
      acm --config A``, one window of 40 steps: ``FastACMLoader`` on the wire
      the line names, #3 at 32 a step; (d) ``bench_input`` on 256 frames.
+ 17. studies, the accuracy studies through their entry points (plain torch
+     on the reference's side, the port's trainer on the other): (a)
+     ``bn_ablation`` at its defaults (3 seeds x 3 modes x 24 epochs of
+     R18-TSM at 2 x 32², f32): 9 records, finite losses, accuracies in [0, 1],
+     every BatchNorm a ``GroupedBatchNorm`` in the per-device and ghost modes
+     and none in the global one; (b) ``parity_study``'s ``main``, one seed of
+     ``--method base`` at 3 stages on the study tree (``reference_loop``),
+     twice: on the parity config as it is (pad + xla: no launch) and with
+     ``--set model=...`` at ``shift_mode='fused_block'`` (#1 and #2 in f32 on
+     the port's side, counted against ``expected_study_launches``, every call
+     at a shape, dtype and segment count that phase 2 holds bit for bit
+     against the plain version: ``fused_paths``' "study" rows): per-stage
+     CNN/NME of both sides and both walls, matrices of 3 stages with every
+     value finite in [0, 100], the output's schema. No delta is gated (one
+     seed is chaotic); a side under 20 at the last stage is printed as
+     collapsed.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -297,6 +316,20 @@ def r50_shapes(nt: int = NT, size: int = SIZE):
     return fused, gemm, shifted
 
 
+def r18_shapes(nt: int, size: int):
+    """Per forward of ``nt`` frames at ``size``: the fused epilogue's (N*T, H,
+    W, C) shapes of TSM-R18, one a BasicBlock output (a 3x3 convolution of
+    stride 2 rounds the side up)."""
+    fused, planes, size = collections.Counter(), 64, size // 4
+    for stage in range(4):
+        for b in range(2):
+            if stage > 0 and b == 0:
+                size = -(-size // 2)
+            fused[(nt, size, size, planes)] += 1
+        planes *= 2
+    return fused
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median time of one call, from CUDA events around each call."""
     for _ in range(warmup):
@@ -327,26 +360,40 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_paths():
-    """(path, the fused epilogue's shapes per forward, runs a backward, dtype)
-    of every path that runs #1: the bench's batch 16 at 224, phase 10's batch
-    8 at 224 and its TenCrop test at 256 (bf16), phase 11's float32 tools:
-    predict's TenCrop batch of 4 at 256, extract_features' batch of 4 at 224;
-    and phase 12's: a rank's 4 videos at 224 (its CIL run's train and
-    run_inference) and their TenCrop test at 256 (bf16), config B in float32
-    on one process (batch 16) and on a rank (batch 8), with a backward; and
-    phase 16's eval bench: TenCrop of 16 videos at 224 (bf16)."""
+    """(path, the fused epilogue's shapes per forward, runs a backward, dtype,
+    segments) of every path that runs #1: the bench's batch 16 at 224, phase
+    10's batch 8 at 224 and its TenCrop test at 256 (bf16), phase 11's
+    float32 tools: predict's TenCrop batch of 4 at 256, extract_features'
+    batch of 4 at 224; and phase 12's: a rank's 4 videos at 224 (its CIL
+    run's train and run_inference) and their TenCrop test at 256 (bf16),
+    config B in float32 on one process (batch 16) and on a rank (batch 8),
+    with a backward; phase 16's eval bench: TenCrop of 16 videos at 224
+    (bf16); and phase 17's parity study, TSM-R18 at 2 segments and 56² in
+    float32: its train and CBF batch (and the herding features, which run at
+    that batch) with a backward, its test batch (the exemplar class means and
+    the val test; the eval pads a short batch to a whole one) without."""
+    from bdvcil_torch import parity_study
+    from bdvcil_torch.reference_loop import tree
+
     bf16, f32 = torch.bfloat16, torch.float32
     rank_videos = CIL_BATCH // DIST_WORLD
-    return [("bench", r50_shapes()[0], True, bf16),
-            (CIL_PATH, r50_shapes(CIL_BATCH * SEGMENTS)[0], True, bf16),
-            ("TenCrop", r50_shapes(EVAL_NT, EVAL_SIZE)[0], False, bf16),
-            ("predict f32", r50_shapes(SERVE_VIDEOS * 10 * SEGMENTS, EVAL_SIZE)[0], False, f32),
-            ("features f32", r50_shapes(SERVE_VIDEOS * SEGMENTS)[0], False, f32),
-            ("cil rank", r50_shapes(rank_videos * SEGMENTS)[0], True, bf16),
-            ("TenCrop rank", r50_shapes(rank_videos * 10 * SEGMENTS, EVAL_SIZE)[0], False, bf16),
-            ("B f32", r50_shapes()[0], True, f32),
-            ("B f32 rank", r50_shapes(BATCH // DIST_WORLD * SEGMENTS)[0], True, f32),
-            ("eval TenCrop", r50_shapes(BATCH * 10 * SEGMENTS)[0], False, bf16)]
+    study = parity_study.PORT_OVERRIDES
+    return [("bench", r50_shapes()[0], True, bf16, SEGMENTS),
+            (CIL_PATH, r50_shapes(CIL_BATCH * SEGMENTS)[0], True, bf16, SEGMENTS),
+            ("TenCrop", r50_shapes(EVAL_NT, EVAL_SIZE)[0], False, bf16, SEGMENTS),
+            ("predict f32", r50_shapes(SERVE_VIDEOS * 10 * SEGMENTS, EVAL_SIZE)[0], False, f32,
+             SEGMENTS),
+            ("features f32", r50_shapes(SERVE_VIDEOS * SEGMENTS)[0], False, f32, SEGMENTS),
+            ("cil rank", r50_shapes(rank_videos * SEGMENTS)[0], True, bf16, SEGMENTS),
+            ("TenCrop rank", r50_shapes(rank_videos * 10 * SEGMENTS, EVAL_SIZE)[0], False, bf16,
+             SEGMENTS),
+            ("B f32", r50_shapes()[0], True, f32, SEGMENTS),
+            ("B f32 rank", r50_shapes(BATCH // DIST_WORLD * SEGMENTS)[0], True, f32, SEGMENTS),
+            ("eval TenCrop", r50_shapes(BATCH * 10 * SEGMENTS)[0], False, bf16, SEGMENTS),
+            ("study f32", r18_shapes(study["videos_per_gpu"] * tree.T, tree.CROP), True, f32,
+             tree.T),
+            ("study test f32", r18_shapes(study["testing_videos_per_gpu"] * tree.T, tree.CROP),
+             False, f32, tree.T)]
 
 
 def gemm_paths():
@@ -360,31 +407,32 @@ def kernel_phase(dev, gen, paths, gemm_paths, tsm, conv):
     """Each kernel against its plain version at every shape of its paths."""
     rows = []
     bf16 = torch.bfloat16
-    for path, shapes, backward, dtype in paths:
+    for path, shapes, backward, dtype, seg in paths:
         for shape, per_fwd in sorted(shapes.items()):
             h, idt, g_out, g_sh = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                                    for _ in range(4))
-            out, sh = tsm.fused_fwd(h, idt, SEGMENTS, 8)
-            r_out, r_sh = tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8)
+            out, sh = tsm.fused_fwd(h, idt, seg, 8)
+            r_out, r_sh = tsm.fused_residual_relu_shift_plain(h, idt, seg, 8)
             same = torch.equal(out, r_out) and torch.equal(sh, r_sh)
-            timed = [(FWD, lambda: tsm.fused_fwd(h, idt, SEGMENTS, 8),
-                      lambda: tsm.fused_residual_relu_shift_plain(h, idt, SEGMENTS, 8))]
+            timed = [(FWD, lambda: tsm.fused_fwd(h, idt, seg, 8),
+                      lambda: tsm.fused_residual_relu_shift_plain(h, idt, seg, 8))]
             if backward:
-                g_in = tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8)
-                r_g = tsm.fused_residual_relu_shift_bwd_plain(r_out, g_out, g_sh, SEGMENTS, 8)
+                g_in = tsm.fused_bwd(out, g_out, g_sh, seg, 8)
+                r_g = tsm.fused_residual_relu_shift_bwd_plain(r_out, g_out, g_sh, seg, 8)
                 same = same and torch.equal(g_in, r_g)
-                timed.append((BWD, lambda: tsm.fused_bwd(out, g_out, g_sh, SEGMENTS, 8),
+                timed.append((BWD, lambda: tsm.fused_bwd(out, g_out, g_sh, seg, 8),
                               lambda: tsm.fused_residual_relu_shift_bwd_plain(
-                                  out, g_out, g_sh, SEGMENTS, 8)))
+                                  out, g_out, g_sh, seg, 8)))
             torch.cuda.synchronize()
             if not same:
                 raise AssertionError(f"fused_residual_relu_shift differs from its plain version "
-                                     f"at {shape} {dtype} ({path})")
+                                     f"at {shape} {dtype} {seg} segments ({path})")
             nbytes = 4 * h.numel() * h.element_size()  # two tensors in, two out
             for name, fn, plain in timed:
                 b_ms, b_by = bound_ms(nbytes, 0.0)
                 rows.append(dict(kernel=name, path=path, shape=list(shape), per_path=per_fwd,
-                                 dtype=str(dtype).removeprefix("torch."), ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
+                                 segments=seg, dtype=str(dtype).removeprefix("torch."),
+                                 ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
                                  product_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
                                  bytes=nbytes, flops=0, tile=None))
             del h, idt, g_out, g_sh, out, sh, r_out, r_sh, timed
@@ -1290,33 +1338,37 @@ globals().update(_cfg)
     return path
 
 
-def expected_cil_launches(use_cbf: bool = True):
-    """#1 and #2 launches per task of a CIL phase, from the corpus: every
-    forward (train, the previous model's forward from task 1 on: KD in
-    phase 10, the iCaRL targets in phase 11; feature extraction, CBF, the
-    exemplar class means, the val test) launches #1 once a block, every
-    train or CBF backward #2 once a block; then cil_testing's TenCrop
-    forwards. The batches are the fast loaders' (``check_fast_loaders``):
-    FastBGMixLoader and the fast ACM loader wrap-pad the last train or CBF
-    batch to a whole one (``pad_to_batch``), FastEvalLoader ends in a short
-    batch that the eval pads, so each split takes ceil(videos / batch)
-    batches, as the host pipeline's did."""
-    def batches(n):
-        return -(-n // CIL_BATCH)
+def expected_cil_launches(use_cbf: bool = True, splits=CIL_SPLITS, train=CIL_TRAIN,
+                          val=CIL_VAL, budget=CIL_BUDGET, train_batch=CIL_BATCH,
+                          test_batch=CIL_BATCH, epochs=1, cbf_epochs=1, blocks=CIL_BLOCKS):
+    """#1 and #2 launches per task of a CIL run in ``shift_mode='fused_block'``
+    (``train``/``val`` videos a class, ``budget`` exemplars a seen class):
+    every forward (train and CBF steps, the previous model's forward from
+    task 1 on: KD in phases 10 and 17, the iCaRL targets in phase 11; the
+    herding features at the train batch, the exemplar class means and the val
+    test at the test batch) launches #1 once a block, every train or CBF
+    backward #2 once a block; then cil_testing's TenCrop forwards (phases 10
+    and 11). The loaders wrap-pad the last train or CBF batch to a whole one
+    and the eval pads a short batch (``check_fast_loaders``; the host
+    pipeline's loaders alike), so each split takes ceil(videos / batch)
+    batches."""
+    def batches(n, b):
+        return -(-n // b)
 
     per_task, seen = [], 0
-    for t, split in enumerate(CIL_SPLITS):
-        new = CIL_TRAIN * len(split)
-        train = batches(new + CIL_BUDGET * seen)
+    for t, split in enumerate(splits):
+        new = train * len(split)
+        steps = batches(new + budget * seen, train_batch) * epochs
         seen += len(split)
-        cbf = batches(CIL_BUDGET * seen) if t > 0 and use_cbf else 0
+        if t > 0 and use_cbf:
+            steps += batches(budget * seen, train_batch) * cbf_epochs
         kd = 2 if t > 0 else 1  # the current and the previous model
-        fwd = (train + cbf) * kd + batches(new) + batches(CIL_BUDGET * seen) \
-            + batches(CIL_VAL * seen)
-        per_task.append({FWD: CIL_BLOCKS * fwd, BWD: CIL_BLOCKS * (train + cbf)})
-    testing = sum(batches(CIL_VAL * sum(len(s) for s in CIL_SPLITS[:t + 1]))
-                  for t in range(len(CIL_SPLITS)))
-    return per_task, {FWD: CIL_BLOCKS * testing}
+        fwd = steps * kd + batches(new, train_batch) + batches(budget * seen, test_batch) \
+            + batches(val * seen, test_batch)
+        per_task.append({FWD: blocks * fwd, BWD: blocks * steps})
+    testing = sum(batches(val * sum(len(s) for s in splits[:t + 1]), test_batch)
+                  for t in range(len(splits)))
+    return per_task, {FWD: blocks * testing}
 
 
 def check_fast_loaders(what, stats):
@@ -2946,6 +2998,203 @@ def bench_phase(dev, seed, smi):
     return out
 
 
+STUDY_BLOCKS = 8  # TSM-R18's blocks: one #1 launch each a forward, one #2 each a backward
+STUDY_STAGES = 3
+
+
+def expected_study_launches(cfg):
+    """#1 / #2 launches of the port's side of one parity_study pair in
+    ``shift_mode='fused_block'``, from its config: the CIL run's count
+    (``expected_cil_launches``) over its tasks, without cil_testing."""
+    from bdvcil_torch.reference_loop import tree
+
+    params = tree.TREE_PARAMS
+    per_task, _ = expected_cil_launches(
+        use_cbf=cfg["use_cbf"], splits=cfg["task_splits"][:cfg["ending_task"] + 1],
+        train=params["train_videos_per_class"],
+        val=params["val_videos_per_class"] + params["extra_val_videos_per_class"],
+        budget=cfg["budget_size"], train_batch=cfg["videos_per_gpu"],
+        test_batch=cfg["testing_videos_per_gpu"], epochs=cfg["num_epochs_per_task"],
+        cbf_epochs=cfg["cbf_num_epochs_per_task"], blocks=STUDY_BLOCKS)
+    return {k: sum(task[k] for task in per_task) for k in (FWD, BWD)}
+
+
+def check_study_run(what, payload, stages):
+    """One parity_study output: the JSON schema, one run, both sides' matrices
+    with ``stages`` rows (row t has t + 1 tasks), every value finite in
+    [0, 100]. Returns the run."""
+    want = {"method", "stages", "extra_val", "device", "n_seeds", "runs", "summary"}
+    if not want <= set(payload) or payload["n_seeds"] != 1 or len(payload["runs"]) != 1:
+        raise AssertionError(f"{what}: output {sorted(payload)}, n_seeds {payload.get('n_seeds')}")
+    run = payload["runs"][0]
+    keys = {"seed", "device", "wall_reference_s", "wall_port_s"} | {
+        f"{m}_{side}" for m in ("cnn", "nme", "cnn_matrix", "nme_matrix")
+        for side in ("reference", "port")}
+    if set(run) != keys:
+        raise AssertionError(f"{what}: run keys {sorted(run)}")
+    for side in ("reference", "port"):
+        for m in ("cnn", "nme"):
+            matrix = run[f"{m}_matrix_{side}"]
+            if [len(row) for row in matrix] != list(range(1, stages + 1)):
+                raise AssertionError(f"{what}: {m} matrix of the {side} side {matrix}")
+            values = [v for row in matrix for v in row] + run[f"{m}_{side}"]
+            if not all(math.isfinite(v) and 0 <= v <= 100 for v in values):
+                raise AssertionError(f"{what}: {m} of the {side} side out of [0, 100]: {matrix}")
+    for m in ("cnn", "nme"):
+        if not {"n_converged", "n_collapsed_reference", "n_collapsed_port",
+                "final_stage_mean_delta"} <= set(payload["summary"][m]):
+            raise AssertionError(f"{what}: summary {payload['summary'][m]}")
+    return run
+
+
+def study_phase(dev, seed, smi):
+    """Phase 17: the accuracy studies on the card. (a) ``bn_ablation`` at its
+    defaults; (b) ``parity_study`` through its ``main``, one seed of ``base``
+    at 3 stages, on the parity config as it is (pad + xla: no kernel) and with
+    the model's backbone at ``shift_mode='fused_block'`` (#1 and #2 in f32 on
+    the port's side), each with its launch counts set to 0 before it and read
+    after it."""
+    import shutil
+
+    from bdvcil_torch import bn_ablation, parity_study
+    from bdvcil_torch.models.norm import BatchNorm, GroupedBatchNorm
+    from bdvcil_torch.ops import _build
+    from bdvcil_torch.ops import tsm_shift as tsm
+    from bdvcil_torch.reference_loop import tree
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path("chiprun_out/study_phase").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {}
+
+    # (a) the BatchNorm statistics modes, 3 seeds x 3 modes x 24 epochs
+    built = []
+    build_mode = bn_ablation.build_mode
+
+    def recording(extra, *a, **kw):
+        spec, module = build_mode(extra, *a, **kw)
+        built.append((dict(extra), sum(isinstance(m, GroupedBatchNorm) for m in module.modules()),
+                      sum(isinstance(m, BatchNorm) for m in module.modules())))
+        return spec, module
+
+    seeds = [int(x) for x in bn_ablation.SEEDS.split(",")]
+    bn_ablation.build_mode = recording
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    try:
+        t0 = time.perf_counter()
+        res = bn_ablation.ablate(seeds, bn_ablation.EPOCHS, dev)
+        torch.cuda.synchronize()
+        bn_s = time.perf_counter() - t0
+    finally:
+        bn_ablation.build_mode = build_mode
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches:  # R18 at pad + xla, the modes' default: no hand-written kernel
+        raise AssertionError(f"bn_ablation: kernel launches {launches}, expected none")
+    records = res["records"]
+    if len(records) != len(seeds) * len(bn_ablation.MODES):
+        raise AssertionError(f"bn_ablation: {len(records)} records")
+    for rec in records:
+        if not (math.isfinite(rec["final_train_loss"]) and 0 <= rec["train_acc"] <= 1
+                and 0 <= rec["val_acc"] <= 1):
+            raise AssertionError(f"bn_ablation: {rec}")
+    for extra, grouped, norms in built:
+        # every BatchNorm grouped in the per-device and ghost modes, none in the global one
+        if norms == 0 or grouped != (norms if extra else 0):
+            raise AssertionError(f"bn_ablation {extra}: {grouped} GroupedBatchNorm of {norms} "
+                                 f"BatchNorm modules")
+    out["bn_ablation"] = dict(res, seconds=bn_s, grouped_bn=built)
+    agg = res["summary"]["summary"]
+    print(f"study (a) bn_ablation ({len(seeds)} seeds x {len(bn_ablation.MODES)} modes x "
+          f"{bn_ablation.EPOCHS} epochs, R18-TSM 2 x 32², f32): "
+          + "; ".join(f"{name.split()[0]} val_acc mean {v['mean']:.4f} spread {v['spread']:.4f}"
+                      for name, v in agg.items())
+          + f"; GroupedBatchNorm modules a model {sorted({(str(e), g) for e, g, _ in built})}; "
+            f"{bn_s:.1f} s [{smi}]", flush=True)
+    print("study (a) summary " + json.dumps(res["summary"]), flush=True)
+
+    # (b) parity_study, one seed of base at 3 stages: pad + xla, then fused_block
+    # the parity config's model dict (the paths are not read)
+    model = copy.deepcopy(tree.make_parity_config(root, root, root, root, root).to_dict()["model"])
+    model["backbone"]["shift_mode"] = "fused_block"
+    # the (shape, dtype, segments) of every #1 / #2 call, against those phase 2 checks
+    checked = {(kind, shape, dtype, seg) for _, shapes, backward, dtype, seg in fused_paths()
+               for shape in shapes for kind in ((FWD, BWD) if backward else (FWD,))}
+    fused_fwd, fused_bwd = tsm.fused_fwd, tsm.fused_bwd
+    calls = collections.Counter()
+
+    def recording_fwd(h, identity, num_segments, shift_div=8):
+        calls[(FWD, tuple(h.shape), h.dtype, num_segments)] += 1
+        return fused_fwd(h, identity, num_segments, shift_div)
+
+    def recording_bwd(out, g_out, g_shifted, num_segments, shift_div=8):
+        calls[(BWD, tuple(out.shape), out.dtype, num_segments)] += 1
+        return fused_bwd(out, g_out, g_shifted, num_segments, shift_div)
+
+    try:
+        for name, extra in (("pad", []), ("fused_block", ["--set", f"model={model!r}"])):
+            argv = ["--seeds", "1", "--first_seed", str(seed), "--method", "base",
+                    "--stages", str(STUDY_STAGES), "--device", str(dev),
+                    "--out", str(root / f"{name}.json"), "--data_root", str(root / "data")]
+            made = []
+            make_pair = parity_study.make_pair
+
+            def recording_pair(*a, **kw):
+                made.append(make_pair(*a, **kw))
+                return made[-1]
+
+            parity_study.make_pair = recording_pair
+            tsm.fused_fwd, tsm.fused_bwd = recording_fwd, recording_bwd
+            calls.clear()
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            try:
+                if parity_study.main(argv + extra) != 0:
+                    raise AssertionError(f"parity_study {name}: exit code not 0")
+            finally:
+                parity_study.make_pair = make_pair
+                tsm.fused_fwd, tsm.fused_bwd = fused_fwd, fused_bwd
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            payload = json.loads((root / f"{name}.json").read_text())
+            run = check_study_run(f"parity_study {name}", payload, STUDY_STAGES)
+            cfg = made[0][1].config
+            want = {} if name == "pad" else expected_study_launches(cfg)
+            if cfg.model["backbone"].get("shift_mode", "pad") != name:
+                raise AssertionError(f"parity_study {name}: the port's model ran "
+                                     f"{cfg.model['backbone'].get('shift_mode', 'pad')}")
+            if launches != want:
+                raise AssertionError(f"parity_study {name}: kernel launches {launches}, "
+                                     f"expected {want}")
+            unchecked = sorted(str(c) for c in calls if c not in checked)
+            if unchecked:
+                raise AssertionError(f"parity_study {name}: #1 / #2 ran at shapes phase 2 does "
+                                     f"not check: {unchecked}")
+            collapsed = [f"{m} {side}" for m in ("cnn", "nme") for side in ("reference", "port")
+                         if run[f"{m}_{side}"][-1] < parity_study.COLLAPSE_FLOOR_PTS]
+            out[f"parity {name}"] = dict(run, launches=launches, wall_s=wall,
+                                         summary=payload["summary"])
+            print(f"study (b) parity_study --method base --stages {STUDY_STAGES} seed "
+                  f"{seed}, {name} (the study's own epochs): CNN reference "
+                  f"{[round(v, 2) for v in run['cnn_reference']]} port "
+                  f"{[round(v, 2) for v in run['cnn_port']]}; NME reference "
+                  f"{[round(v, 2) for v in run['nme_reference']]} port "
+                  f"{[round(v, 2) for v in run['nme_port']]}; walls reference "
+                  f"{run['wall_reference_s']:.2f} s, port {run['wall_port_s']:.2f} s, call "
+                  f"{wall:.2f} s; collapsed {collapsed or 'none'}; launches {launches} at "
+                  f"{len(calls)} (kernel, shape) pairs, each checked in phase 2 [{smi}]",
+                  flush=True)
+    finally:
+        shutil.rmtree(root / "data", ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"study phase {out['phase_s']:.1f} s [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -3059,6 +3308,7 @@ def main(argv=None) -> int:
     jpeg = jpeg_phase(dev, args.seed, smi)
     profile = profile_phase(dev, args.seed, smi)
     benches = bench_phase(dev, args.seed, smi)
+    studies = study_phase(dev, args.seed, smi)
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
@@ -3093,6 +3343,7 @@ def main(argv=None) -> int:
                   loop=loop, loader_source=loop["loader_source"], cil=cil, acm=acm,
                   distributed=dist, reference_ckpt=refck, jpeg=jpeg, profile_e2e=profile,
                   bench=benches,
+                  studies=studies,
                   kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "

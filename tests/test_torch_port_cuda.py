@@ -521,3 +521,35 @@ def test_bench_step_launches_the_kernels(cuda, config, flags, kernel, per_call):
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {kernel: per_call * 3}
     if not flags:
         assert 0 < line["mfu"] <= 1 and 0 < line["bw_roofline_fraction"] <= 1
+
+
+def test_parity_study_pair_launches_the_shift_kernels(cuda, tmp_path):
+    """One cut ``parity_study.run_pair`` on the card (a 4-class tree, 2
+    stages, 1 epoch, 1 CBF epoch) with the port's backbone at
+    ``shift_mode='fused_block'``: the port's side launches the fused
+    epilogue forward and backward in f32, the reference loop (plain torch)
+    none; both matrices are finite and in [0, 100]."""
+    import copy
+
+    from bdvcil_torch import parity_study
+    from bdvcil_torch.reference_loop import tree
+
+    params = dict(tree.TREE_PARAMS, num_classes=4, train_videos_per_class=3,
+                  val_videos_per_class=2, extra_val_videos_per_class=1)
+    study_tree = tree.build_parity_tree(tmp_path / "data", params)
+    model = copy.deepcopy(tree.make_parity_config(*study_tree, tmp_path).to_dict()["model"])
+    model["backbone"]["shift_mode"] = "fused_block"
+    extra = dict(tree.depth_overrides(2), num_epochs_per_task=1, cbf_num_epochs_per_task=1,
+                 model=model)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    run = parity_study.run_pair(study_tree, tmp_path / "work", "base", 0, extra, cuda)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert set(launches) == {port_tsm.FWD, port_tsm.BWD}, launches
+    assert launches[port_tsm.FWD] > launches[port_tsm.BWD] > 0
+    assert run["device"].startswith("cuda")
+    for key in ("cnn_matrix_reference", "cnn_matrix_port", "nme_matrix_reference",
+                "nme_matrix_port"):
+        assert [len(row) for row in run[key]] == [1, 2]
+        assert all(np.isfinite(v) and 0 <= v <= 100 for row in run[key] for v in row)

@@ -53,6 +53,30 @@ def test_port_sources_import_nothing_of_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+STUDY_SOURCES = ["bdvcil_torch/parity_study.py", "bdvcil_torch/bn_ablation.py",
+                 "bdvcil_torch/reference_loop/__init__.py",
+                 "bdvcil_torch/reference_loop/model.py",
+                 "bdvcil_torch/reference_loop/mini_cil.py",
+                 "bdvcil_torch/reference_loop/tree.py"]
+
+
+@pytest.mark.parametrize("rel", STUDY_SOURCES)
+def test_study_modules_import_nothing_of_jax_or_the_tests(rel):
+    """The accuracy studies keep their own copies of the tests' harness: the
+    card's machine has no JAX, and the repo's tests are not a package to ship."""
+    tree = ast.parse((ROOT / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN + ("tests", "tools"), (
+                f"{rel}: imports {name}")
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, pkgutil, importlib, bdvcil_torch\n"
@@ -114,7 +138,7 @@ def _module_names(package: pathlib.Path):
 
 @pytest.mark.parametrize("package", ["bdvcil_torch", "bdvcil_torch/data",
                                      "bdvcil_torch/cil_tools", "bdvcil_torch/tools",
-                                     "bdvcil_torch/parallel"])
+                                     "bdvcil_torch/parallel", "bdvcil_torch/reference_loop"])
 def test_layout_docstrings_name_every_module(package):
     doc = importlib.import_module(package.replace("/", ".")).__doc__
     names = [n for n in _module_names(ROOT / package) if not n.startswith("_")]
