@@ -58,6 +58,11 @@ Layout:
                      seeds: the per-stage accuracy bias and its SE
   bn_ablation        the BatchNorm statistics modes (global, per-device
                      groups, ghost) on a small task
+  graft_entry        the driver's entry points: entry (the flagship
+                     model's eval forward) and dryrun_multichip (one
+                     data-parallel step of each part over n ranks)
+  configs            config files of the port (the sanity-check config:
+                     one task of all 101 UCF-101 classes), for train_cil
 
 Activations keep the JAX layout at every public function: ``(N*T, H, W, C)``
 with time folded into the batch. Inside the model they are NCHW tensors in

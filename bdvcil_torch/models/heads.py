@@ -41,16 +41,19 @@ def kaiming_normal_linear(shape, generator: Optional[torch.Generator] = None) ->
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale by 1/keep.
-    ``generator`` lives on x's device. Under a process group the mask is
-    drawn for the global batch (every rank's generator is the same) and the
-    rank keeps its rows, so W ranks drop what one process drops."""
+    ``generator`` lives on x's device, or on the CPU: the mask is then drawn
+    there and copied over, so a run on the card drops what a CPU run drops.
+    Under a process group the mask is drawn for the global batch (every
+    rank's generator is the same) and the rank keeps its rows, so W ranks
+    drop what one process drops."""
     keep_prob = 1.0 - rate
     world = distributed.process_count()
-    u = torch.rand((x.shape[0] * world, *x.shape[1:]), generator=generator, device=x.device)
+    draw_device = x.device if generator is None else generator.device
+    u = torch.rand((x.shape[0] * world, *x.shape[1:]), generator=generator, device=draw_device)
     if world > 1:
         lo = distributed.process_index() * x.shape[0]
         u = u[lo:lo + x.shape[0]]
-    keep = u < keep_prob
+    keep = (u < keep_prob).to(x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -53,7 +53,7 @@ class CILRecognizer2D(nn.Module):
         (NCHW frames (B, M, C, H, W) are accepted too).
 
         Returns cls_score (B, G, num_classes), repr (B, G, C) and the KD taps.
-        ``generator`` (on the input's device) drives dropout in train mode.
+        ``generator`` (on the input's device, or the CPU) drives dropout in train mode.
         """
         b, m = imgs.shape[0], imgs.shape[1]
         if imgs.shape[-1] not in (1, 3) and imgs.shape[2] in (1, 3):

@@ -99,6 +99,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         build_model(model_cfg(18, "pad", "xla", 3, in_channels=512))
 
 
+@pytest.mark.parametrize("call", ["entry", "dryrun_multichip"])
+def test_graft_entry_points_refuse_to_fall_back_to_the_cpu(call):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    from bdvcil_torch import graft_entry
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graft_entry.entry() if call == "entry" else graft_entry.dryrun_multichip(2)
+
+
 @pytest.mark.parametrize("backbone", [dict(conv1x1_mode="pallas_gemm")])
 def test_unported_switches_raise_naming_the_roadmap(backbone):
     cfg = model_cfg(18, "pad", "xla", 3, in_channels=512)
