@@ -1,4 +1,5 @@
-// 1x1 convolution as a GEMM with a BatchNorm-statistics epilogue, for Hopper.
+// 1x1 convolution as a GEMM with a BatchNorm-statistics epilogue, for Hopper:
+// the bf16 forms (float32 runs in gemm_stats_f32.cu).
 //
 // Replaces these Pallas kernels, all the same GEMM over (M, K) x (K, N) with
 // M = N*T*H*W rows of an NHWC activation, so a 1x1 conv reads x in place:
@@ -30,8 +31,11 @@ namespace {
 using sm90::aligned16;
 using sm90::bf16;
 
-int check_args(const void* x, const void* w, const void* y, long long M, int K, int N) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % sm90::BK != 0 || N % 64 != 0)
+// K and N: multiples of k_mult and n_mult (8 for the TMA's 16-byte strides;
+// 64 for the prologue form, whose a and b are read per 64-channel k-step)
+int check_args(const void* x, const void* w, const void* y, long long M, int K, int N,
+               int k_mult, int n_mult) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % k_mult != 0 || N % n_mult != 0)
     return (int)cudaErrorInvalidValue;
   if (M > (1ll << 31) - sm90::BM) return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(y)) return (int)cudaErrorMisalignedAddress;
@@ -59,28 +63,27 @@ int bdv_wgmma_stats_block_k() { return sm90::BK; }
 int bdv_wgmma_stats_plan(long long M, int N, int sms, int* out) {
   if (M <= 0 || N <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
   const sm90::Plan p = sm90::make_plan(M, N, sms);
-  if (p.block_n == 0) return (int)cudaErrorInvalidValue;
   out[0] = p.block_n; out[1] = p.m_tiles; out[2] = p.n_tiles; out[3] = p.tiles; out[4] = p.grid;
   return 0;
 }
 
-// x (M, K), w (K, N), y (M, N): bf16, row-major, contiguous; K % 64 == 0,
-// N % 64 == 0. part: (2, part_rows, N) f32 scratch, one row per persistent
+// x (M, K), w (K, N), y (M, N): bf16, row-major, contiguous; K % 8 == 0,
+// N % 8 == 0. part: (2, part_rows, N) f32 scratch, one row per persistent
 // CTA; the grid has at most part_rows CTAs (pass the device's SM count).
 // stats: (2, N) f32 = [sum y; sum y^2].
 int bdv_conv1x1_with_stats(const void* x, const void* w, void* y, void* part, int part_rows,
                            void* stats, long long M, int K, int N, void* stream) {
-  if (int bad = check_args(x, w, y, M, K, N)) return bad;
+  if (int bad = check_args(x, w, y, M, K, N, 8, 8)) return bad;
   return (int)sm90::launch_wgmma_stats<sm90::ALoad::kRows>(
       problem(x, y, part, M, K, N), part_rows, w, stats, static_cast<cudaStream_t>(stream));
 }
 
-// The same with the prologue x -> bf16(relu(x * a + b)); a, b: (K,) f32,
-// 16-byte aligned.
+// The same with the prologue x -> bf16(relu(x * a + b)); K % 64 == 0, N % 64
+// == 0; a, b: (K,) f32, 16-byte aligned.
 int bdv_conv1x1_affine_relu_stats(const void* x, const void* w, const void* a, const void* b,
                                   void* y, void* part, int part_rows, void* stats, long long M,
                                   int K, int N, void* stream) {
-  if (int bad = check_args(x, w, y, M, K, N)) return bad;
+  if (int bad = check_args(x, w, y, M, K, N, sm90::BK, 64)) return bad;
   if (!aligned16(a) || !aligned16(b)) return (int)cudaErrorMisalignedAddress;
   sm90::Problem p = problem(x, y, part, M, K, N);
   p.a = static_cast<const float*>(a);

@@ -21,6 +21,12 @@
 //   row tile in L2.
 // * BN in {64, 128, 256} per shape (make_plan), so A is read once per row tile
 //   where N <= 256; BK = 64: one 128-byte swizzled row of A per output row.
+// * Any K and N that are multiples of 8 (the TMA's 16-byte global strides;
+//   the 1x1's wrapper zero-pads the rest): the TMA zero-fills the boxes past
+//   K and N as it does past M, so the last k-step adds nothing beyond K, the
+//   columns past N come out zero, and the epilogue stores and sums only the
+//   columns below N. The prologue forms (#7, #8) keep K % 64 == 0 and
+//   N % 64 == 0: their a and b are read per 64-channel step.
 // * A ring of kStages stages (Layout) with full and empty mbarriers, and
 //   for the 3x3 two windows with their own. w, and A for the 1x1, come by
 //   TMA (2-D tiles, 128-byte swizzle; rows past M are zero-filled by the TMA
@@ -450,7 +456,7 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
   __syncthreads();
 
-  const int ktiles = p.K / BK;
+  const int ktiles = (p.K + BK - 1) / BK;  // past K the TMA's zero fill
   const int grid = static_cast<int>(gridDim.x);
   const int my_tiles = (p.tiles - static_cast<int>(blockIdx.x) + grid - 1) / grid;
   const int total = my_tiles * ktiles;  // this CTA's (tile, k-step) stream
@@ -612,12 +618,15 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
       const int row = mt * BM + wg * 64 + warp * 16 + (lane >> 2);
       const bool store0 = row < p.M;
       const bool store1 = row + 8 < p.M;
+      // column block j0 + q of the tile: 8 columns, wholly below N or past it
+      const int col0 = nt * BN + 8 * q;
       // lane q stores the 16 bytes of column block j0 + q of its two rows
       bf16* y0 = p.y + static_cast<int64_t>(row) * p.N + nt * BN + 8 * q;
       bf16* y1 = y0 + 8 * static_cast<int64_t>(p.N);
       // the CTA's partials of this tile's columns, loaded now, added at the end
+      const bool mine = ct < BN && nt * BN + ct < p.N;
       float old1 = 0.f, old2 = 0.f;
-      if (ct < BN) {
+      if (mine) {
         old1 = part1[nt * BN + ct];
         old2 = part2[nt * BN + ct];
       }
@@ -641,8 +650,11 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         }
         quad_transpose(top, q);
         quad_transpose(bot, q);
-        if (store0) *reinterpret_cast<uint4*>(y0 + 8 * j0) = make_uint4(top[0], top[1], top[2], top[3]);
-        if (store1) *reinterpret_cast<uint4*>(y1 + 8 * j0) = make_uint4(bot[0], bot[1], bot[2], bot[3]);
+        const bool in_n = col0 + 8 * j0 < p.N;
+        if (store0 && in_n)
+          *reinterpret_cast<uint4*>(y0 + 8 * j0) = make_uint4(top[0], top[1], top[2], top[3]);
+        if (store1 && in_n)
+          *reinterpret_cast<uint4*>(y1 + 8 * j0) = make_uint4(bot[0], bot[1], bot[2], bot[3]);
       }
       // sum over the warp's 16 rows: a reduce-scatter over lane bits 4, 3, 2
       reduce_scatter<J, 16>(acc, lane);
@@ -658,7 +670,7 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         red2[c + 1] = acc[4 * j + 3];
       }
       consumer_barrier();
-      if (ct < BN) {
+      if (mine) {
         float a1 = 0.f, a2 = 0.f;
 #pragma unroll
         for (int w = 0; w < 8; ++w) {
@@ -711,21 +723,22 @@ struct Plan {
 };
 
 // The tile width and persistent grid of an (M, ., N) product on `sms` SMs:
-// among the widths that divide N, the fewest column-time units on the busiest
-// SM, ceil(tiles / SMs) * (BN + kTileOverhead); a tie goes to the wider tile,
-// which reads A fewer times. grid = min(tiles, sms). block_n == 0: N is not a
-// multiple of 64.
+// among the widths that divide N rounded up to 64 (N itself where N % 64 ==
+// 0), the fewest column-time units on the busiest SM, ceil(tiles / SMs) *
+// (BN + kTileOverhead); a tie goes to the wider tile, which reads A fewer
+// times. grid = min(tiles, sms).
 inline Plan make_plan(long long M, int N, int sms) {
   Plan best{0, 0, 0, 0, 0};
   long long best_cost = -1;
   const long long m_tiles = (M + BM - 1) / BM;
+  const int n64 = (N + 63) / 64 * 64;
   for (int bn : {256, 128, 64}) {
-    if (N % bn != 0) continue;
-    const long long tiles = m_tiles * (N / bn);
+    if (n64 % bn != 0) continue;
+    const long long tiles = m_tiles * (n64 / bn);
     const long long cost = (tiles + sms - 1) / sms * (bn + kTileOverhead);
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
-      best = Plan{bn, (int)m_tiles, N / bn, (int)tiles, (int)(tiles < sms ? tiles : sms)};
+      best = Plan{bn, (int)m_tiles, n64 / bn, (int)tiles, (int)(tiles < sms ? tiles : sms)};
     }
   }
   return best;
@@ -794,7 +807,8 @@ cudaError_t launch_bn(const CUtensorMap& tm_a, const CUtensorMap& tm_w, const Pr
 }
 
 // Launch the GEMM and the statistics finish on `stream`. The caller has checked
-// K % BK == 0, N % 64 == 0, the alignment and (im2col) C % BK == 0, and filled
+// K % 8 == 0 and N % 8 == 0 (with a prologue K % BK == 0 and N % 64 == 0), the
+// alignment and (im2col) C % BK == 0, and filled
 // p's pointers and sizes (with a prologue, a and b). part: (2, part_rows, N)
 // f32 scratch; the persistent grid is make_plan(M, N, part_rows).grid <=
 // part_rows CTAs, so part_rows is the grid's cap (the device's SM count, one
@@ -805,7 +819,6 @@ cudaError_t launch_wgmma_stats(Problem p, int part_rows, const void* w, void* st
   constexpr bool kIm2col = kLoad == ALoad::kIm2col;
   if (part_rows <= 0) return cudaErrorInvalidValue;
   const Plan plan = make_plan(p.M, p.N, part_rows);
-  if (plan.block_n == 0) return cudaErrorInvalidValue;
   p.n_tiles = plan.n_tiles;
   p.tiles = plan.tiles;
   CUtensorMap tm_a, tm_w;

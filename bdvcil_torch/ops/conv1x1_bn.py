@@ -8,10 +8,13 @@ per-channel sum and sum of squares from the pass that produces the output,
 computed on the ROUNDED bf16 output so they equal a reduction over the stored
 tensor. ``gemm_with_stats`` is the same function on a 2-D (M, K) operand.
 
-On a CUDA tensor the forward is the hand-written kernel of
-``csrc/conv1x1_stats.cu``, on the persistent wgmma core of
-``csrc/gemm_stats_sm90.cuh`` with or without the block's prologue; on a CPU
-tensor it is ``gemm_stats_plain``; ``interpret=True`` names the plain version
+On a CUDA tensor the forward is a hand-written kernel, chosen by dtype:
+bfloat16 runs ``csrc/conv1x1_stats.cu`` on the persistent wgmma core of
+``csrc/gemm_stats_sm90.cuh`` (with or without the block's prologue; K and N
+not multiples of 8 are zero-padded for the TMA), float32 the FFMA kernel of
+``csrc/gemm_stats_f32.cu`` (any M, K, N; its launches count under the
+wrapper's name + ``"_f32"``); any other dtype raises. On a CPU tensor it is
+``gemm_stats_plain``; ``interpret=True`` names the plain version
 on every device, the counterpart of JAX's Pallas interpreter
 (``conv1x1_mode='pallas_stats_interpret'``). The backward is plain PyTorch on
 both, as the JAX package leaves it to XLA: the cotangents of s1/s2 are folded
@@ -28,15 +31,20 @@ from functools import lru_cache, partial
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..parallel import distributed
-from . import _build
+from . import _build, gemm_plan
 
 KERNEL = "conv1x1_with_stats"
 GEMM_KERNEL = "gemm_with_stats"
+F32 = "_f32"  # the float32 kernel's launches count under the wrapper's name + F32
+KERNEL_F32, GEMM_KERNEL_F32 = KERNEL + F32, GEMM_KERNEL + F32
 EPS = 1e-5
-# the narrowest tile of the wgmma core's plan (sm90::make_plan): N % 64 == 0
+# the wgmma core with the block's prologue steps K by 64 and needs N % 64 == 0
 MIN_BLOCK_N = 64
+# the TMA's 16-byte global strides in bf16 elements: K % 8 == 0 and N % 8 == 0
+TMA_ALIGN = 8
 
 
 def gemm_stats_plain(
@@ -72,6 +80,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _f32_lib() -> ctypes.CDLL:
+    lib = _build.library("gemm_stats_f32")
+    if not getattr(lib, "_bdv_typed", False):
+        lib.bdv_gemm_stats_f32.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.bdv_gemm_stats_f32.restype = ctypes.c_int
+        lib.bdv_gemm_stats_f32_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                                ctypes.c_void_p]
+        lib.bdv_gemm_stats_f32_plan.restype = ctypes.c_int
+        lib._bdv_typed = True
+    return lib
+
+
 @lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device: the wgmma kernels' persistent
@@ -97,27 +120,39 @@ def check_affine(name: str, k: int, a: torch.Tensor, b: torch.Tensor, device) ->
             raise ValueError(f"{name}: vectors must be contiguous")
 
 
-def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
-                    a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
-    """Launch the GEMM-with-statistics kernel on the rows of x (..., K) and
-    w (K, N); with (a, b), on the rows of bf16(relu(x * a + b)). Counts one
-    launch under ``name``. Returns y (..., N), s1 (N,), s2 (N,)."""
-    if x.dim() < 2 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
-        raise ValueError(f"{name}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype} x {w.dtype}")
-    if w.device != x.device:
-        raise ValueError(f"{name}: operands on {x.device} and {w.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{name}: operands must be contiguous (row-major x, (K, N) w)")
+def launch_name(name: str, x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The launch count a GEMM-with-statistics call adds to: ``name`` for
+    bfloat16 (the wgmma core), ``name + F32`` for float32 (the FFMA kernel).
+    Any other dtype, or two dtypes, raise TypeError: no configuration of the
+    JAX package computes in float16 (its trainer maps only float32 and
+    bfloat16, ``cil/trainer.py:78``)."""
+    if x_dtype != w_dtype or x_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16 operands of one dtype, "
+                        f"got {x_dtype} x {w_dtype}")
+    return name + F32 if x_dtype == torch.float32 else name
+
+
+def aligned_call(fwd, x: torch.Tensor, w: torch.Tensor, align: int = TMA_ALIGN):
+    """``fwd(x, w)`` on x (..., K) and w (K, N) zero-padded to K and N multiples
+    of ``align``, with y and the statistics cut back to N columns. x's zero
+    columns meet w's zero rows, and w's zero columns give zero columns of y:
+    neither changes y or the statistics."""
     k, n = w.shape
-    if a is not None:
-        check_affine(name, k, a, b, x.device)
+    pad_k, pad_n = -k % align, -n % align
+    if not (pad_k or pad_n):
+        return fwd(x, w)
+    if pad_k:
+        x = F.pad(x, (0, pad_k))
+    y, s1, s2 = fwd(x, F.pad(w, (0, pad_n, 0, pad_k)))
+    return y[..., :n].contiguous(), s1[:n], s2[:n]
+
+
+def _wgmma_stats(name: str, x: torch.Tensor, w: torch.Tensor,
+                 a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
+    """The bf16 wgmma core on x (..., K) and w (K, N), K and N % 8 == 0; with
+    (a, b), on bf16(relu(x * a + b))."""
     lib = _lib()
-    bk = lib.bdv_wgmma_stats_block_k()  # the wgmma core steps K by 64
-    if k % bk or n % MIN_BLOCK_N:
-        raise ValueError(f"{name}: needs K % {bk} == 0 and N % {MIN_BLOCK_N} == 0, got "
-                         f"K={k} N={n}")
+    k, n = w.shape
     m = x.numel() // k
     y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     part_rows = sm_count(x.device)  # one partial per persistent CTA, at most one CTA per SM
@@ -134,8 +169,55 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
             part.data_ptr(), part_rows, stats.data_ptr(), m, k, n, stream,
         )
     _build.check(lib, code, name)
-    _build.LAUNCHES[name] += 1
     return y, stats[0], stats[1]
+
+
+def _f32_stats(name: str, x: torch.Tensor, w: torch.Tensor):
+    """The float32 FFMA kernel on x (..., K) and w (K, N), any K and N."""
+    lib = _f32_lib()
+    k, n = w.shape
+    m = x.numel() // k
+    y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    part_rows = gemm_plan.f32_plan(m, n).m_tiles  # one partial per 128-row tile
+    part, stats = stats_scratch((2, part_rows, n), n, x.device)
+    code = lib.bdv_gemm_stats_f32(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), part_rows, stats.data_ptr(),
+        m, k, n, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, name + F32)
+    return y, stats[0], stats[1]
+
+
+def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
+                    a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
+    """Launch the GEMM-with-statistics kernel of x's dtype on the rows of x
+    (..., K) and w (K, N): float32 on the FFMA kernel, bfloat16 on the wgmma
+    core; with (a, b), bf16 only, on the rows of bf16(relu(x * a + b)).
+    Counts one launch under ``launch_name``. Returns y (..., N), s1 (N,),
+    s2 (N,)."""
+    if x.dim() < 2 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    counter = launch_name(name, x.dtype, w.dtype)
+    if w.device != x.device:
+        raise ValueError(f"{name}: operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous (row-major x, (K, N) w)")
+    k, n = w.shape
+    if a is not None:
+        check_affine(name, k, a, b, x.device)
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the prologue kernel takes bfloat16, got {x.dtype}")
+        bk = _lib().bdv_wgmma_stats_block_k()  # the prologue's a, b are read per K step
+        if k % bk or n % MIN_BLOCK_N:
+            raise ValueError(f"{name}: needs K % {bk} == 0 and N % {MIN_BLOCK_N} == 0, got "
+                             f"K={k} N={n}")
+        out = _wgmma_stats(name, x, w, a, b)
+    elif x.dtype == torch.float32:
+        out = _f32_stats(name, x, w)
+    else:
+        out = aligned_call(partial(_wgmma_stats, name), x, w)
+    _build.LAUNCHES[counter] += 1
+    return out
 
 
 def conv1x1_with_stats_fwd(x4: torch.Tensor, w: torch.Tensor):

@@ -1,7 +1,9 @@
 """Split every hand-written kernel's device time by CUDA kernel, on the card.
 
 Runs ``conv1x1_with_stats`` (#3, the kernel that also serves #4 and #6) at
-the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A,
+the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A, in
+bf16 (the wgmma core) and in float32 (the FFMA kernel of
+``csrc/gemm_stats_f32.cu``),
 ``conv3x3_affine_relu_stats`` (#8), ``conv1x1_affine_relu_stats`` (#7,
 the block's conv3), the block's tail (``bn_finalize`` at C and Cm,
 ``affine_residual_relu``) and the whole block forward
@@ -17,10 +19,10 @@ host clock over ``--reps`` calls issued back to back, the card running
 behind; for the block, the host time of its seven wrapper calls), and, from
 the build's ``nvcc -Xptxas -v`` logs, each kernel's registers, shared
 memory and spills; then one ``device`` line per kernel of the kernel table
-(#1-#9b), its device ms summed over the same run of its path as
-``chip_smoke.py``'s kernels line times: #1-#3 one train forward (#2 its
-backward) of batch 16, #4 and #5 one call a shape (#5 forward and reverse),
-#6-#9b one layer1 block.
+(#1-#9b, and #3 and #4 in float32), its device ms summed over the same run
+of its path as ``chip_smoke.py``'s kernels line times: #1-#3 one train
+forward (#2 its backward) of batch 16, #4 and #5 one call a shape (#5
+forward and reverse), #6-#9b one layer1 block.
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
@@ -49,6 +51,7 @@ from .ops import gemm_plan
 from .ops import tsm_shift as tsm
 
 SEGMENTS = 8
+KERNEL_F32 = conv.KERNEL_F32
 # the 1x1 shapes of tools/bench_gemm_stats.py, #4's path (M = 128 frames x H x W)
 GEMM_SHAPES = ((128 * 56 * 56, 256, 64), (128 * 56 * 56, 64, 256), (128 * 28 * 28, 512, 128),
                (128 * 28 * 28, 128, 512), (128 * 14 * 14, 1024, 256), (128 * 14 * 14, 256, 1024),
@@ -134,6 +137,7 @@ def kernel_table(rows):
 
     layer1 = dict(hw=56)
     conv = {tuple(r["shape"]): device_ms(r) for r in of("conv1x1_with_stats")}
+    conv_f32 = {tuple(r["shape"]): device_ms(r) for r in of(KERNEL_F32)}
     finalize = {r["shape"][0]: device_ms(r) for r in of(bf.FINALIZE, **layer1)}
     c, cm = max(finalize), min(finalize)
     return {
@@ -148,6 +152,8 @@ def kernel_table(rows):
         "#9 fused_bottleneck_fwd": device_ms(of("fused_bottleneck_fwd", **layer1)[0]),
         "#9a block_bn_finalize x3": finalize[c] + 2 * finalize[cm],
         "#9b block_affine_residual_relu": device_ms(of(bf.EPILOGUE, **layer1)[0]),
+        "#3 f32 conv1x1_with_stats_f32": per_path(KERNEL_F32),
+        "#4 f32 gemm_with_stats_f32": sum(conv_f32[s] for s in GEMM_SHAPES),
     }
 
 
@@ -172,7 +178,11 @@ def main(argv=None) -> int:
         split = kernel_split(lambda: conv.conv1x1_with_stats_fwd(x, w), args.reps)
         rows.append(dict(kernel="conv1x1_with_stats", shape=[m, k, n], per_forward=count,
                          plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
-        del x, w
+        xf, wf = x.float(), w.float()  # the float32 kernel (TF32 is not used either way)
+        split = kernel_split(lambda: conv.conv1x1_with_stats_fwd(xf, wf), args.reps)
+        rows.append(dict(kernel=KERNEL_F32, shape=[m, k, n], per_forward=count,
+                         plan=gemm_plan.f32_kernel_plan(m, n)._asdict(), us=split))
+        del x, w, xf, wf
     for nt, h, w_, c, n in gemm_plan.R50_3X3_SHAPES:
         x = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
         a = torch.rand((c,), generator=gen, device=dev) + 0.5

@@ -11,6 +11,9 @@ hand-written kernels (the defaults reach none):
   B  shift_mode='fused_block'                        -> fused_residual_relu_shift
                                                         forward and backward
 
+Configuration A at the trainer's default float32 (phase 19) reaches the float32
+kernel of the same function, conv1x1_with_stats_f32 (and gemm_with_stats_f32).
+
 The main path is fed by the fast input path: JPEG rawframes decoded by the
 native pool into a yuv420 wire batch (uint8 planes, RandAugment draws, BGMix
 and flip masks), staged through pinned memory to the card, and
@@ -224,6 +227,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      make f32 rounding grow), the eval scores within 3e-2 of the largest,
      the input functions' outputs within 1e-5; (c) no hand-written kernel
      launched, in this process or in any rank (the default pad + xla).
+ 19. f32, the GEMM with statistics in float32 and at any K and N, TF32 off:
+     (a) the float32 kernel (``csrc/gemm_stats_f32.cu``) through
+     ``conv1x1_with_stats`` at the 12 R50 1x1 shapes of a train forward and
+     through ``gemm_with_stats`` at phase 2's 8, both at ragged (M, K, N)
+     (``RAGGED_SHAPES``) where the bf16 core runs too: f32 y within rtol
+     1e-5, atol 1e-6 of max |y| of the plain version, the statistics rtol
+     1e-4, bf16 as phase 2, a second run bit for bit; ``gemm_with_stats`` in
+     f32 forward and VJP at the 8 shapes (the f32 gemm path, 8 launches); the
+     bf16 core's outputs at the 12 R50 shapes equal to checksums recorded
+     before it took ragged K and N (``BF16_CORE_CHECKSUMS``, on 132 SMs);
+     (b) config A at 16 x 8 x 224² in float32, a task-0 step and a task-1 KD
+     step under ``pallas_stats`` against ``pallas_stats_interpret``,
+     deterministic algorithms: losses within rtol 2e-3, every BatchNorm
+     running statistic within rtol 2e-3, atol 1e-3, the f32 kernel 32
+     launches a step and the bf16 core none, the f32 step ms beside phase 4's
+     bf16 step; (c) ``train_cil.main`` on a config A file that names no
+     ``compute_dtype`` (the trainer's float32), one task at phase 10's cut:
+     the f32 kernel 32 launches a train step, finite accuracies.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -264,12 +285,15 @@ KERNEL_CONFIGS = ("A", "B")  # bdvcil_torch.config_templates.SWITCHES
 FWD, BWD, CONV = ("fused_residual_relu_shift_fwd", "fused_residual_relu_shift_bwd",
                   "conv1x1_with_stats")
 GEMM, SHIFT = "gemm_with_stats", "temporal_shift"
+# the float32 kernel's launch counts (ops/conv1x1_bn.KERNEL_F32, GEMM_KERNEL_F32)
+CONV_F32, GEMM_F32 = CONV + "_f32", GEMM + "_f32"
 CONV1, CONV2, CONV3 = ("block_conv1x1_stats", "conv3x3_affine_relu_stats",
                        "conv1x1_affine_relu_stats")
 FINALIZE, EPILOGUE = "block_bn_finalize", "block_affine_residual_relu"
 # per kernel: its source, the TPU kernel it replaces, and what its library
 # yardstick computes (None: no one PyTorch call computes the same function)
 MATMUL_SUMS = "torch.matmul + two f32 sums"
+F32_MATMUL_SUMS = "torch.matmul (f32, TF32 off) + two f32 sums"
 KERNEL_META = {
     FWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:131", None),
     BWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:140", None),
@@ -287,6 +311,10 @@ KERNEL_META = {
                None),
     FINALIZE: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:262",
                None),
+    CONV_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:164",
+               F32_MATMUL_SUMS),
+    GEMM_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37",
+               F32_MATMUL_SUMS),
 }
 # the 1x1 shapes of tools/bench_gemm_stats.py (M = 16 clips x 8 frames x H x W)
 GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 512, 128),
@@ -1326,15 +1354,21 @@ def write_cil_corpus(root: pathlib.Path, seed: int):
         (root / f"hmdb51_{split}_split_1_rawframes.txt").write_text("\n".join(rows) + "\n")
 
 
-def cil_config_file(root: pathlib.Path) -> pathlib.Path:
+def cil_config_file(root: pathlib.Path, splits=CIL_SPLITS, switches=None,
+                    compute_dtype="bfloat16") -> pathlib.Path:
     """A config file against bdvcil_torch.config_templates: the hmdb51 preset
     (TSM-R50, 8 segments, 224 train crops, TenCrop test at 256) cut to the
-    corpus, in configuration B with bf16 compute."""
+    corpus, in configuration B (``switches``: the backbone's) with bf16
+    compute (``compute_dtype`` None: the config names none, so the trainer
+    takes its default)."""
+    switches = dict(shift_mode="fused_block") if switches is None else switches
+    dtype = "" if compute_dtype is None else f"compute_dtype={compute_dtype!r}, "
+    backbone = "".join(f"_cfg['model']['backbone'][{k!r}] = {v!r}\n" for k, v in switches.items())
     path = root / "cil_config.py"
     path.write_text(f"""from bdvcil_torch.config_templates import make_cil_config
 from bdvcil_torch.protocol import adaptive_scale_factors
 
-_splits = {CIL_SPLITS!r}
+_splits = {splits!r}
 _cfg = make_cil_config("hmdb51", 1000, 3, "bgmix_plus_randAug", data_dir={str(root)!r},
                        work_dir={str(root / "work_dir")!r})
 _cfg.update(task_splits=_splits, ending_task=len(_splits) - 1,
@@ -1342,9 +1376,8 @@ _cfg.update(task_splits=_splits, ending_task=len(_splits) - 1,
             videos_per_gpu={CIL_BATCH}, testing_videos_per_gpu={CIL_BATCH}, workers_per_gpu=6,
             testing_workers_per_gpu=6, num_epochs_per_task=1, cbf_num_epochs_per_task=1,
             use_cbf=True, budget_size={CIL_BUDGET}, eval_steps_per_dispatch={CIL_EVAL_K},
-            compute_dtype="bfloat16", use_fast_input_pipeline=True, log_every_n_steps=1)
-_cfg["model"]["backbone"]["shift_mode"] = "fused_block"
-_cfg["model"]["cls_head"]["num_classes"] = len(_splits[0])
+            {dtype}use_fast_input_pipeline=True, log_every_n_steps=1)
+{backbone}_cfg["model"]["cls_head"]["num_classes"] = len(_splits[0])
 _cfg["model"]["cls_head"]["inc_head_config"]["out_features"] = len(_splits[0])
 globals().update(_cfg)
 """)
@@ -1933,11 +1966,11 @@ def dist_inputs(seed):
     return imgs, labels0, labels1, weights1
 
 
-def dist_steps(name, dev, seed, dtype=torch.bfloat16):
-    """A task-0 step and a task-1 KD step (padded tail) of config ``name`` at
-    TSM-R50 16 x 8 x 224² in ``dtype``, on this rank's rows of the global
-    batch (all of them in one process); dropout from ``step_generator(seed,
-    step)``. float32 runs without TF32."""
+def dist_steps(name, dev, seed, dtype=torch.bfloat16, switches=None):
+    """A task-0 step and a task-1 KD step (padded tail) of config ``name`` (or
+    the backbone ``switches``) at TSM-R50 16 x 8 x 224² in ``dtype``, on this
+    rank's rows of the global batch (all of them in one process); dropout
+    from ``step_generator(seed, step)``. float32 runs without TF32."""
     from bdvcil_torch import config_templates as presets
     from bdvcil_torch.models import build_model, init_model_params, update_fc
     from bdvcil_torch.ops import _build
@@ -1950,8 +1983,9 @@ def dist_steps(name, dev, seed, dtype=torch.bfloat16):
     imgs, labels0, labels1, weights1 = (t[lo:hi].to(dev) for t in dist_inputs(seed))
     nc0 = presets.HMDB51_BASE_CLASSES
     nc1 = nc0 + presets.HMDB51_CLASSES_PER_TASK
-    spec = build_model(presets.hmdb51_r50_cfg(nc0, SEGMENTS, **presets.SWITCHES[name]),
-                       dtype=dtype, device=dev)
+    switches = presets.SWITCHES[name] if switches is None else switches
+    spec = build_model(presets.hmdb51_r50_cfg(nc0, SEGMENTS, **switches), dtype=dtype,
+                       device=dev)
     model = init_model_params(spec, seed)
     tx = build_optimizer(model, presets.OPTIMIZER, presets.LR_SCHEDULER, steps_per_epoch=100)
     state = TrainState.create(model, tx)
@@ -3355,6 +3389,301 @@ def graft_phase(dev, seed, smi):
     return out
 
 
+# --- phase 19: the GEMM with statistics in float32, and at any K and N --------------
+
+# (M, K, N): tests/test_conv1x1_bn.py's (100, 32, 128) and (896, 96, 128), and K
+# and N that are not multiples of 8 (the wrapper pads them for the TMA) or 64
+RAGGED_SHAPES = [(100, 32, 128), (896, 96, 128), (1000, 3, 5), (4096, 100, 101),
+                 (4096, 96, 101)]
+# float32 against the plain version (torch.matmul, TF32 off): y rtol 1e-5 and
+# atol 1e-6 of max |y| (another order of f32 FMAs); the statistics rtol 1e-4,
+# atol 1e-4 of the largest (another summation order)
+F32_Y_RTOL, F32_Y_ATOL, F32_STATS_RTOL = 1e-5, 1e-6, 1e-4
+# (b), pallas_stats against pallas_stats_interpret over two f32 steps: the JAX
+# package's own tolerances for f32 statistics drift through 50 layers
+# (tests/test_conv1x1_bn.py:91-105)
+F32_LOSS_RTOL, F32_RUNNING_RTOL, F32_RUNNING_ATOL = 2e-3, 2e-3, 1e-3
+# The bf16 core's (y, s1, s2) at the 12 R50 1x1 shapes of #3 on hashed operands
+# (``bf16_core_checksums``), as the kernel computed them before it took K and N
+# off the multiples of 64 (commit 93e9ecf), on an H100 SXM (132 SMs: the
+# statistics' order follows the persistent grid, one partial per SM)
+BF16_CORE_SMS = 132
+BF16_CORE_CHECKSUMS = {
+    "6272x512x2048": "7a5bf67ebd8447c6",
+    "6272x2048x512": "942e36b78e032d01",
+    "25088x256x1024": "3edf5c8ad03ace36",
+    "25088x1024x256": "455afae3b6c99d76",
+    "25088x1024x512": "e949686790e0609f",
+    "100352x128x512": "dcc5256e686b6e0a",
+    "100352x512x128": "1feeb59c5c333728",
+    "100352x512x256": "a1796ec940090c31",
+    "401408x64x64": "83d945673eb9a7de",
+    "401408x64x256": "c38073956c07f57c",
+    "401408x256x64": "5982b175fcdd3da0",
+    "401408x256x128": "2028d8bbcdd35bd2",
+}
+
+
+def hashed(shape, salt: int, dev) -> torch.Tensor:
+    """Values in [-1, 1) from an integer hash of each element's index: integer
+    and exactly rounded float arithmetic only, so every card and every torch
+    make the same bits."""
+    i = torch.arange(math.prod(shape), device=dev, dtype=torch.int64)
+    u = ((i * 2654435761 + salt * 40503) & 0xFFFFFFFF) >> 8  # 24 bits: exact in f32
+    return (u.float() * 2.0 ** -23 - 1.0).reshape(shape)
+
+
+def checksum(*tensors) -> str:
+    """An integer checksum of the tensors' bits: each element's bits times a
+    weight of its index, summed in int64 (wrapping, so in any order)."""
+    total = 0
+    for t in tensors:
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+        bits = bits.reshape(-1).long() & (0xFFFF if t.element_size() == 2 else 0xFFFFFFFF)
+        i = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64)
+        total = total * 1000003 + int((bits * ((i * 2654435761 + 1) % 1000003 + 1)).sum())
+    return f"{total % (1 << 64):016x}"
+
+
+def bf16_core_checksums(dev, conv):
+    """``checksum`` of conv1x1_with_stats' (y, s1, s2) in bf16 at each R50 1x1
+    shape of #3, on ``hashed`` operands."""
+    out = {}
+    for m, k, n in sorted(r50_shapes()[1]):
+        x = hashed((m, 1, 1, k), 1, dev).to(torch.bfloat16)
+        w = (hashed((k, n), 2, dev) * 2.0 ** -4).to(torch.bfloat16)
+        out[f"{m}x{k}x{n}"] = checksum(*conv.conv1x1_with_stats_fwd(x, w))
+        del x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def assert_f32_stats(what, got, ref):
+    """The float32 kernel's (y, s1, s2) within the F32_* tolerances of the
+    plain version's; returns y's max abs error."""
+    (y, s1, s2), (ry, rs1, rs2) = got, ref
+    y = y.reshape(ry.shape)
+    if y.dtype != torch.float32 or s1.shape != rs1.shape:
+        raise AssertionError(f"{what}: y {y.dtype}, s1 {tuple(s1.shape)}")
+    torch.testing.assert_close(y, ry, rtol=F32_Y_RTOL, atol=F32_Y_ATOL * float(ry.abs().max()),
+                               msg=lambda m: f"{what} y: {m}")
+    for g, r, name in ((s1, rs1, "s1"), (s2, rs2, "s2")):
+        torch.testing.assert_close(g, r, rtol=F32_STATS_RTOL,
+                                   atol=F32_STATS_RTOL * float(r.abs().max()),
+                                   msg=lambda m: f"{what} {name}: {m}")
+    return float((y - ry).abs().max())
+
+
+def f32_tile_of(m, n):
+    """The float32 kernel's plan for an (M, ., N) product, as its C side reports it."""
+    from bdvcil_torch.ops import gemm_plan
+
+    p = gemm_plan.f32_kernel_plan(m, n)
+    if p != gemm_plan.f32_plan(m, n):
+        raise AssertionError(f"the f32 kernel plans {p} at {(m, n)}, its wrapper "
+                             f"{gemm_plan.f32_plan(m, n)}")
+    return dict(block=[p.block_m, p.block_n], tiles=p.grid, grid=p.grid,
+                waves=p.grid / torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def stats_gemm_row(name, conv, gen, dev, mkn, dtype, per_path, path=None):
+    """conv1x1_with_stats (``name`` CONV) or gemm_with_stats (GEMM) at (M, K, N)
+    in ``dtype`` against the plain version, twice (the same bits), then timed."""
+    m, k, n = mkn
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+    xin = x.reshape(m, 1, 1, k) if name == CONV else x
+    fwd = conv.conv1x1_with_stats_fwd if name == CONV else conv.gemm_with_stats_fwd
+    first, again = fwd(xin, w), fwd(xin, w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(first, again)):
+        raise AssertionError(f"{name} {mkn} {dtype}: a second run differs")
+    ref = conv.gemm_stats_plain(x, w)
+    got = (first[0].reshape(m, n), *first[1:])
+    f32 = dtype == torch.float32
+    err = (assert_f32_stats if f32 else assert_stats)(f"{name} {mkn} {dtype}", got, ref)
+    row = timed_row(name + "_f32" if f32 else name, mkn, per_path, lambda: fwd(xin, w),
+                    lambda: conv.gemm_stats_plain(x, w), lambda: stats_of(torch.matmul(x, w)),
+                    (4 if f32 else 2) * (m * k + m * n + k * n) + 8 * n, 2 * m * k * n, err,
+                    product=lambda: torch.matmul(x, w),
+                    tile=f32_tile_of(m, n) if f32 else tile_of(m, n),
+                    peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    row["dtype"] = str(dtype).removeprefix("torch.")
+    if path is not None:
+        row["path"] = path
+    del x, w, xin, first, again, ref, got
+    return row
+
+
+def f32_gemm_path(dev, gen, conv):
+    """gemm_with_stats in float32, forward and VJP, once at each GEMM_SHAPES
+    shape; the VJP against JAX's _bwd rule on the kernel's own y."""
+    from bdvcil_torch.ops import _build
+
+    _build.LAUNCHES.clear()
+    for m, k, n in GEMM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        gy = torch.randn((m, n), generator=gen, device=dev)
+        gs1 = torch.randn((n,), generator=gen, device=dev)
+        gs2 = torch.randn((n,), generator=gen, device=dev) * 1e-3
+        xi, wi = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y, s1, s2 = conv.gemm_with_stats(xi, wi)
+        torch.autograd.backward([y, s1, s2], [gy, gs1, gs2])
+        dy = gy + gs1 + 2.0 * gs2 * y.detach()
+        for got, ref, what in ((xi.grad, dy @ w.t(), "dx"), (wi.grad, x.t() @ dy, "dw")):
+            torch.testing.assert_close(got, ref, rtol=F32_Y_RTOL,
+                                       atol=F32_Y_RTOL * float(ref.abs().max()),
+                                       msg=lambda s: f"{GEMM_F32} {what} {(m, k, n)}: {s}")
+        del x, w, gy, xi, wi, y, dy
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != {GEMM_F32: len(GEMM_SHAPES)}:
+        raise AssertionError(f"f32 gemm path: kernel launches {launches}")
+    return launches
+
+
+def print_row(r):
+    """One ``kernel`` line of a timed kernel row."""
+    tile = r["tile"]
+    print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/{r.get('path', 'path')}: "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
+          f"({KERNEL_META[r['kernel']][2]}), product {r['product_ms']}, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['ms'] / r['bound_ms']:.2f}x), "
+          f"max_abs_err {r['max_abs_err']}"
+          + ("" if tile is None else f", tile {tile['block'][0]}x{tile['block'][1]} "
+             f"tiles {tile['tiles']} grid {tile['grid']} waves {tile['waves']:.2f}"),
+          flush=True)
+
+
+def f32_phase(dev, gen, seed, smi, conv, bf16_step_ms):
+    """Phase 19: (a) the float32 kernel against its plain version at the R50
+    1x1 shapes and at ragged ones, the bf16 core at the ragged ones and, bit
+    for bit, at the R50 ones; (b) config A's two steps in float32 under
+    pallas_stats against pallas_stats_interpret; (c) train_cil on a config A
+    file that names no compute_dtype, for one task."""
+    import shutil
+
+    from bdvcil_torch import config_templates as presets
+    from bdvcil_torch.cil_tools import train_cil
+    from bdvcil_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    out, rows = {}, []
+    f32, bf16 = torch.float32, torch.bfloat16
+    with no_tf32():
+        # (a) #3 at a train forward's 12 shapes, #4 at phase 2's 8, both at the ragged ones
+        for mkn, per in sorted(r50_shapes()[1].items()):
+            rows.append(stats_gemm_row(CONV, conv, gen, dev, mkn, f32, per))
+        for mkn in GEMM_SHAPES:
+            rows.append(stats_gemm_row(GEMM, conv, gen, dev, mkn, f32, 1))
+        for mkn in RAGGED_SHAPES:
+            for name in (CONV, GEMM):
+                for dtype in (f32, bf16):
+                    rows.append(stats_gemm_row(name, conv, gen, dev, mkn, dtype, 0, "ragged"))
+        torch.cuda.empty_cache()
+        out["gemm_launches"] = f32_gemm_path(dev, gen, conv)
+    for r in rows:
+        print_row(r)
+    sums = {name: sum(r["ms"] * r["per_path"] for r in rows if r["kernel"] == name
+                      and "path" not in r) for name in (CONV_F32, GEMM_F32)}
+    checksums = bf16_core_checksums(dev, conv)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms == BF16_CORE_SMS and checksums != BF16_CORE_CHECKSUMS:
+        bad = {k: (v, BF16_CORE_CHECKSUMS.get(k)) for k, v in checksums.items()
+               if v != BF16_CORE_CHECKSUMS.get(k)}
+        raise AssertionError(f"the bf16 core's outputs changed at the R50 shapes: {bad}")
+    out.update(checksums=checksums, checksums_held=sms == BF16_CORE_SMS)
+    print(f"f32 (a): {CONV_F32} over a train forward (12 shapes, 32 launches) {sums[CONV_F32]:.4f}"
+          f" ms, {GEMM_F32} over phase 2's 8 shapes {sums[GEMM_F32]:.4f} ms; both within y rtol "
+          f"{F32_Y_RTOL}, atol {F32_Y_ATOL} of max |y|, statistics rtol {F32_STATS_RTOL} of the "
+          f"plain version (TF32 off) at the R50 and ragged shapes, bf16 within one ulp at the "
+          f"ragged ones; f32 gemm path launches {out['gemm_launches']}; the bf16 core's "
+          + (f"outputs at the 12 R50 shapes equal the recorded ones bit for bit" if
+             out["checksums_held"] else f"checksums not held ({sms} SMs, recorded at "
+                                        f"{BF16_CORE_SMS})") + f" [{smi}]", flush=True)
+
+    # (b) two steps of config A in float32, the kernel against the plain GEMM
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {mode: dist_steps("A", dev, seed, f32, dict(presets.SWITCHES["A"],
+                                                             conv1x1_mode=mode))
+                for mode in ("pallas_stats", "pallas_stats_interpret")}
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[1:]
+    kern, plain = runs["pallas_stats"], runs["pallas_stats_interpret"]
+    for rk, rp in zip(kern["records"], plain["records"]):
+        got = {k: v for k, v in rk["launches"].items() if v}
+        if got != {CONV_F32: 32} or any(rp["launches"].values()):
+            raise AssertionError(f"f32 (b): launches {got} (pallas_stats), {rp['launches']} "
+                                 f"(interpret); expected {CONV_F32} 32 a step, none")
+        _close("f32 (b) loss, pallas_stats vs interpret", rk["loss"], rp["loss"], F32_LOSS_RTOL)
+    running = [k for k in plain["state"] if "running" in k]
+    gaps = {}
+    for key in running:
+        g, r = kern["state"][key], plain["state"][key]
+        torch.testing.assert_close(g, r, rtol=F32_RUNNING_RTOL, atol=F32_RUNNING_ATOL,
+                                   msg=lambda m: f"f32 (b) {key}: {m}")
+        gaps[key] = float((g - r).abs().max())
+    out["steps"] = dict(losses=[(rk["loss"], rp["loss"]) for rk, rp in
+                                zip(kern["records"], plain["records"])],
+                        launches=sum(r["launches"][CONV_F32] for r in kern["records"]),
+                        running_max_abs_gap=max(gaps.values()), running_stats=len(running),
+                        ms=[r["ms"] for r in kern["records"]],
+                        interpret_ms=[r["ms"] for r in plain["records"]])
+    print(f"f32 (b): config A at 16 x 8 x 224² in float32, task-0 step then task-1 KD step, "
+          f"pallas_stats against pallas_stats_interpret (deterministic algorithms, TF32 off): "
+          f"losses " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in out["steps"]["losses"])
+          + f" (rtol {F32_LOSS_RTOL}); {len(running)} running statistics within rtol "
+          f"{F32_RUNNING_RTOL}, atol {F32_RUNNING_ATOL} (max abs gap "
+          f"{out['steps']['running_max_abs_gap']:.3g}); {CONV_F32} 32 launches a step, the "
+          f"bf16 core none; step ms (host clock) f32 {kern['records'][0]['ms']:.2f} / "
+          f"{kern['records'][1]['ms']:.2f} (interpret {plain['records'][0]['ms']:.2f} / "
+          f"{plain['records'][1]['ms']:.2f}) against config A's bf16 step "
+          f"{bf16_step_ms[0]:.2f} / {bf16_step_ms[1]:.2f} (phase 4) [{smi}]", flush=True)
+    del runs, kern, plain
+    torch.cuda.empty_cache()
+
+    # (c) train_cil on a config that names no compute_dtype: the trainer's float32
+    root = pathlib.Path("chiprun_out/f32_cil_corpus").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_cil_corpus(root, seed)
+        config = cil_config_file(root, CIL_SPLITS[:1], presets.SWITCHES["A"], None)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        trainer = train_cil.main([str(config)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        steps = -(-CIL_TRAIN * len(CIL_SPLITS[0]) // CIL_BATCH)  # 1 epoch, task 0
+        if trainer.spec.dtype != f32 or launches != {CONV_F32: 32 * steps}:
+            raise AssertionError(f"f32 (c): dtype {trainer.spec.dtype}, launches {launches}, "
+                                 f"expected {CONV_F32} {32 * steps}")
+        cnn, nme = trainer.cnn_matrix[0], trainer.nme_matrix[0]
+        if not all(math.isfinite(a) and 0 <= a <= 100 for a in cnn + nme):
+            raise AssertionError(f"f32 (c): accuracies {cnn} {nme}")
+        out["cil"] = dict(train_s=train_s, launches=launches, cnn=cnn, nme=nme,
+                          stats=trainer.task_stats[0])
+        print(f"f32 (c): train_cil on a config A file without compute_dtype (the trainer's "
+              f"float32), task 0 at phase 10's cut: {train_s:.2f} s, CNN {cnn} NME {nme}, "
+              f"{CONV_F32} {launches[CONV_F32]} launches (= 32 x {steps} train steps) [{smi}]",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {CONV_F32: out["steps"]["launches"] + out["cil"]["launches"][CONV_F32],
+                       **out["gemm_launches"]}
+    out["rows"] = rows
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"f32 phase {out['phase_s']:.1f} s [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -3417,16 +3746,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf)
     for r in rows:
-        tile = r["tile"]
-        print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/{r.get('path', 'path')}: "
-              f"{r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
-              f"({KERNEL_META[r['kernel']][2]}), product "
-              f"{r['product_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r['ms'] / r['bound_ms']:.2f}x), max_abs_err {r['max_abs_err']}"
-              + ("" if tile is None else f", tile {tile['block'][0]}x{tile['block'][1]} "
-                 f"tiles {tile['tiles']} grid {tile['grid']} waves {tile['waves']:.2f}"),
-              flush=True)
+        print_row(r)
     # #1 and #2 over one forward (backward) of each path that runs them
     sums = collections.defaultdict(collections.Counter)
     for r in rows:
@@ -3470,11 +3790,15 @@ def main(argv=None) -> int:
     benches = bench_phase(dev, args.seed, smi)
     studies = study_phase(dev, args.seed, smi)
     graft = graft_phase(dev, args.seed, smi)
+    f32 = f32_phase(dev, gen, args.seed, smi, conv,
+                    (trains["A"]["task0_step_ms"], trains["A"]["task1_step_ms"]))
+    rows += f32["rows"]
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
                 **block["launches"], **gemm_launches, **shift_launches, **loop["launches"]}
     launches.update({k: cil["launches"][k] + acm["launches"][k] for k in (FWD, BWD)})
+    launches.update(f32["launches"])
     kernels = []
     for kname, (source, replaces, library_call) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname and r.get("path", CIL_PATH) == CIL_PATH]
@@ -3505,6 +3829,7 @@ def main(argv=None) -> int:
                   distributed=dist, reference_ckpt=refck, jpeg=jpeg, profile_e2e=profile,
                   bench=benches,
                   studies=studies, graft=graft,
+                  f32={k: v for k, v in f32.items() if k != "rows"},
                   kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
@@ -3519,7 +3844,11 @@ def main(argv=None) -> int:
                        "its sums. tile: the wgmma core's plan (sm90::make_plan, read through "
                        "ops/gemm_plan.py) for #3, #4, #6, #7 and #8. launches of #1 and #2: "
                        "phase 10's whole CIL run (tasks and cil_testing) plus phase 11's "
-                       "(the ActorCutMix run, its cil_testing and the tools)")
+                       "(the ActorCutMix run, its cil_testing and the tools). The float32 "
+                       "kernel (phase 19): #3 f32 a task-0 train forward of batch 16, its "
+                       "launches phase 19 (b)'s two steps and (c)'s task; #4 f32 one call per "
+                       "shape, its launches the f32 gemm path; its tile is its own plan "
+                       "(ops/gemm_plan.f32_kernel_plan), bound_ms at the f32 FMA rate")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

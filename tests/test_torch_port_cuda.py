@@ -14,7 +14,10 @@ convolution kernels with the statistics epilogue (conv1x1_with_stats,
 gemm_with_stats, the block's three stats ops): y within one bf16 ulp
 (accumulation order; near zero the ulp is taken at 1/256 of the tensor's
 rms), the statistics rtol 1e-3 (f32 sums in another order), and the same
-statistics bit for bit on a second run.
+statistics bit for bit on a second run; the float32 GEMM with statistics
+(csrc/gemm_stats_f32.cu): y rtol 1e-5, atol 1e-6 of max |y| (another order of
+f32 FMAs than the library product's), the statistics rtol 1e-4, atol 1e-4 of
+the largest (another summation order), and the same bits on a second run.
 """
 
 import numpy as np
@@ -108,21 +111,35 @@ def test_conv1x1_kernel_statistics_are_deterministic(cuda):
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros((2, 2, 2, 48), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # K % 64 != 0
-        port_conv.conv1x1_with_stats_fwd(x, torch.zeros((48, 64), device=cuda,
-                                                        dtype=torch.bfloat16))
-    with pytest.raises(ValueError):  # K % 64 != 0 (the wgmma core steps K by 64)
-        port_conv.conv1x1_with_stats_fwd(x[..., :32].contiguous(),
-                                         torch.zeros((32, 64), device=cuda, dtype=torch.bfloat16))
-    with pytest.raises(ValueError):  # N % 64 != 0
-        port_conv.conv1x1_with_stats_fwd(torch.zeros((2, 2, 2, 64), device=cuda,
-                                                     dtype=torch.bfloat16),
-                                         torch.zeros((64, 96), device=cuda, dtype=torch.bfloat16))
-    with pytest.raises(TypeError):
-        port_conv.conv1x1_with_stats_fwd(x.float()[..., :32], torch.zeros((32, 64), device=cuda))
+    """float32 and K, N off the wgmma core's multiples of 64 are taken; float16,
+    two dtypes, non-contiguous operands and operands on two devices are not,
+    and a refused call counts no launch."""
+    bf16 = torch.bfloat16
+    _build.LAUNCHES.clear()
+    x = torch.ones((2, 2, 2, 48), device=cuda, dtype=bf16)
+    y, _, _ = port_conv.conv1x1_with_stats_fwd(x, torch.ones((48, 96), device=cuda, dtype=bf16))
+    assert y.shape == (2, 2, 2, 96) and bool((y.float() == 48).all())
+    y, _, _ = port_conv.conv1x1_with_stats_fwd(x.float()[..., :3].contiguous(),
+                                               torch.ones((3, 5), device=cuda))
+    assert y.dtype == torch.float32 and bool((y == 3).all())
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_conv.KERNEL: 1, port_conv.KERNEL_F32: 1}
+    _build.LAUNCHES.clear()
+    with pytest.raises(TypeError):  # float16: no configuration computes in it
+        port_conv.conv1x1_with_stats_fwd(x.half(), torch.zeros((48, 64), device=cuda,
+                                                               dtype=torch.float16))
+    with pytest.raises(TypeError):  # two dtypes
+        port_conv.conv1x1_with_stats_fwd(x.float(), torch.zeros((48, 64), device=cuda,
+                                                                dtype=bf16))
+    with pytest.raises(ValueError):  # not contiguous
+        port_conv.gemm_with_stats_fwd(torch.zeros((64, 64), device=cuda).t()[:, :32],
+                                      torch.zeros((32, 64), device=cuda))
+    with pytest.raises(ValueError):  # two devices
+        port_conv.gemm_with_stats_fwd(torch.zeros((64, 32), device=cuda),
+                                      torch.zeros((32, 64)))
     with pytest.raises(ValueError):  # not contiguous
         port_tsm.fused_fwd(x[..., ::2], x[..., ::2], 2, 8)
+    assert sum(_build.LAUNCHES.values()) == 0
 
 
 def test_interpret_mode_launches_no_conv1x1_kernel(cuda):
@@ -151,6 +168,103 @@ def test_interpret_mode_launches_no_conv1x1_kernel(cuda):
     ref = outs["pallas_stats_interpret"]
     err = float((outs["pallas_stats"] - ref).abs().max())
     assert err <= 3e-2 * float(ref.abs().max())
+
+
+# --- the float32 GEMM with statistics (csrc/gemm_stats_f32.cu): #3 and #4 in f32 ---
+
+# (M, K, N) off every tile multiple: the JAX test's two and K, N not multiples of 8
+RAGGED_1X1 = [(100, 32, 128), (896, 96, 128), (1000, 3, 5), (4096, 100, 101), (4096, 96, 101)]
+
+
+def _check_f32(got, ref):
+    (y, s1, s2), (ry, rs1, rs2) = got, ref
+    assert y.shape == ry.shape and y.dtype == ry.dtype == torch.float32
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6 * float(ry.abs().max()))
+    for a, b in ((s1, rs1), (s2, rs2)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("mkn", [(128 * 56 * 56 // 8, 256, 64), (6272, 512, 2048)]
+                         + RAGGED_1X1)
+def test_f32_kernel_matches_plain(cuda, mkn):
+    """conv1x1_with_stats and gemm_with_stats in float32 (TF32 off, as the
+    plain version's product defaults to) at a layer1 and a layer4 shape of
+    ResNet-50 and at ragged ones; a second run gives the same bits."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ref = port_conv.gemm_stats_plain(x, w)
+    _build.LAUNCHES.clear()
+    conv = port_conv.conv1x1_with_stats_fwd(x.reshape(m, 1, 1, k), w)
+    got = port_conv.gemm_with_stats_fwd(x, w)
+    again = port_conv.gemm_with_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_conv.KERNEL_F32: 1, port_conv.GEMM_KERNEL_F32: 2}
+    _check_f32((conv[0].reshape(m, n), conv[1], conv[2]), ref)
+    _check_f32(got, ref)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_f32_plan_is_the_kernels(cuda):
+    """The Python plan that sizes the float32 kernel's partials equals the one
+    its C side makes, at every R50 shape and the ragged ones."""
+    for m, _, n in sorted(gemm_plan.r50_1x1_shapes()) + RAGGED_1X1 + [(1, 1, 1), (129, 8, 192)]:
+        assert gemm_plan.f32_kernel_plan(m, n) == gemm_plan.f32_plan(m, n)
+
+
+@pytest.mark.parametrize("mkn", RAGGED_1X1)
+def test_wgmma_1x1_kernels_match_plain_at_ragged_k_and_n(cuda, mkn):
+    """#3, #4 and #6 in bf16 where K or N is not a multiple of 64 (the TMA's
+    zero fill past K and N, the epilogue's column mask) or of 8 (the
+    wrapper's zero padding)."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    ref = port_conv.gemm_stats_plain(x, w)
+    _build.LAUNCHES.clear()
+    got = {
+        port_conv.KERNEL: port_conv.conv1x1_with_stats_fwd(x.reshape(m, 1, 1, k), w),
+        port_conv.GEMM_KERNEL: port_conv.gemm_with_stats_fwd(x, w),
+        port_bf.CONV1: port_bf.conv1x1_stats(x.reshape(m, 1, 1, k), w),
+    }
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {name: 1 for name in got}
+    for y, s1, s2 in got.values():
+        _check_stats((y.reshape(m, n), s1, s2), ref)
+
+
+def test_f32_bottleneck_launches_the_f32_kernel_only(cuda):
+    """A float32 bottleneck under conv1x1_mode='pallas_stats' launches the
+    float32 kernel for conv1 and conv3 in a train forward and the bf16 core
+    never; its output and running statistics match 'pallas_stats_interpret'
+    (the plain GEMM) within 1e-4 of the largest entry."""
+    from bdvcil_torch.models.resnet_tsm import Bottleneck, nchw
+
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn((4 * T, 8, 8, 256), generator=g).to(cuda)
+    launches, outs, stats = {}, {}, {}
+    for mode in ("pallas_stats", "pallas_stats_interpret"):
+        block = Bottleneck(256, 64, 1, T, 8, True, torch.float32, torch.float32,
+                           conv1x1_mode=mode)
+        pg = torch.Generator().manual_seed(15)
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if p.dim() == 4:
+                    p.copy_(torch.randn(p.shape, generator=pg) / p[0].numel() ** 0.5)
+        block.to(cuda)
+        _build.LAUNCHES.clear()
+        outs[mode] = block(nchw(x), True)
+        torch.cuda.synchronize()
+        launches[mode] = dict(_build.LAUNCHES)
+        stats[mode] = {k: v for k, v in block.state_dict().items() if "running" in k}
+    assert launches == {"pallas_stats": {port_conv.KERNEL_F32: 2}, "pallas_stats_interpret": {}}
+    ref = outs["pallas_stats_interpret"]
+    assert float((outs["pallas_stats"] - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    for k, v in stats["pallas_stats_interpret"].items():
+        torch.testing.assert_close(stats["pallas_stats"][k], v, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -481,14 +595,16 @@ def test_wgmma_statistics_repeat_bit_for_bit_per_tile_width(cuda, bn):
 def test_wgmma_plan_covers_every_shape(cuda):
     """The C side's tile plan (which the wrappers do not mirror: they give the
     kernel one partial row per SM) at every R50 shape of #3, #7 and #8 and a
-    few ragged ones: a width that divides N, every tile once, at most one CTA
-    per SM; and the picker's trade of waves against width."""
+    few ragged ones: a width that divides N rounded up to 64, every tile
+    once, at most one CTA per SM; and the picker's trade of waves against
+    width."""
     sms = port_conv.sm_count(cuda)
-    mn = [(m, n) for m, _, n in WGMMA_1X1_SHAPES + list(gemm_plan.R50_1X1_AFFINE_SHAPES)] + [
-        (nt * h * w_, n) for nt, h, w_, _, n in gemm_plan.R50_3X3_SHAPES] + [(1, 64), (129, 320)]
+    mn = [(m, n) for m, _, n in WGMMA_1X1_SHAPES + list(gemm_plan.R50_1X1_AFFINE_SHAPES)
+          + RAGGED_1X1] + [(nt * h * w_, n) for nt, h, w_, _, n in gemm_plan.R50_3X3_SHAPES] + [
+        (1, 64), (129, 320), (7, 8)]
     for m, n in mn:
         p = gemm_plan.kernel_plan(m, n, cuda)
-        assert p.block_n in (64, 128, 256) and p.n_tiles * p.block_n == n
+        assert p.block_n in (64, 128, 256) and p.n_tiles * p.block_n == -(-n // 64) * 64
         assert p.m_tiles == -(-m // gemm_plan.BLOCK_M) and p.tiles == p.m_tiles * p.n_tiles
         assert p.grid == min(p.tiles, sms)
     if sms == 132:  # an H100 SXM

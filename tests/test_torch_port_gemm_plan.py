@@ -4,9 +4,10 @@
 The kernels (``csrc/gemm_stats_sm90.cuh``) run only on the card, and so does
 their tile plan (``tests/test_torch_port_cuda.py`` checks it there). Here:
 the shapes the profiles and the card tests use are those of a configuration-A
-train forward and of the stride-1 bottlenecks, and every one of them fits the
-rule the wrappers enforce (K or Cin % 64 == 0, N % 64 == 0; for the 3x3,
-W <= 63).
+train forward and of the stride-1 bottlenecks, and every one of them is a
+whole number of the kernels' tiles (K or Cin % 64 == 0, N % 64 == 0; for the
+3x3, W <= 63, the rule its wrapper enforces). Ragged K and N of the 1x1 (the
+TMA's zero fill, the wrapper's padding) are card tests.
 """
 
 import pytest
