@@ -20,7 +20,8 @@ version (``epilogue_plain``), and one BatchNorm finalize at C likewise
 (``bn_finalize_kernel``, ``bn_finalize_plain``).
 
 The geometry comes from flags (the JAX defaults: 16 clips x 8 frames at
-layer1, 56x56, 256 -> 64 -> 64 -> 256). Three knobs of the TPU tool are not
+layer1, 56x56, 256 -> 64 -> 64 -> 256), at any width and channel count the
+ops take (``--hw 64`` is layer1 at a 256² input). Three knobs of the TPU tool are not
 carried over: ``BLOCK_VMEM_BUDGET_MB`` and ``BLOCK_SCOPED_VMEM_KIB``, which
 sized the row tiles to the TPU's VMEM, and ``BLOCK_IM2COL``, which existed
 only because the TPU compiler rejected that variant; both variants always
@@ -76,11 +77,13 @@ def median_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2) -> floa
     return statistics.median(elapsed_ms(fn, device) for _ in range(reps))
 
 
-def block_inputs(rows: int, hw: int, c: int, cm: int, seed: int, device: torch.device):
-    """x (rows, hw, hw, c) bf16 and the block's parameters, made from ``seed``."""
+def block_inputs(rows: int, hw: int, c: int, cm: int, seed: int, device: torch.device,
+                 dtype: torch.dtype = torch.bfloat16):
+    """x (rows, hw, hw, c) and the block's conv weights in ``dtype`` (its
+    BatchNorm parameters in f32), made from ``seed``."""
     gen = torch.Generator().manual_seed(seed)
-    p = bf.make_params(gen, c=c, cm=cm, device=device)
-    x = torch.randn((rows, hw, hw, c), generator=gen).to(torch.bfloat16).to(device)
+    p = bf.make_params(gen, c=c, cm=cm, dtype=dtype, device=device)
+    x = torch.randn((rows, hw, hw, c), generator=gen).to(dtype).to(device)
     return x, p
 
 

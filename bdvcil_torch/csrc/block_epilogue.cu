@@ -11,18 +11,21 @@
 //                           a    = gamma / sqrt(var + eps)
 //                           b    = beta - mean * a
 //                         written as one (4, C) f32 array: rows a, b, mean, var;
-//   affine_residual_relu  the block's last pass (:290), over NHWC bf16:
-//                           out = bf16(relu(f32(y) * a + b + f32(x)))
+//   affine_residual_relu  the block's last pass (:290), over NHWC bf16 or
+//                         f32 (the dtype of x, as JAX's astype(x.dtype)):
+//                           out = T(relu(f32(y) * a + b + f32(x)))
 //                         with a, b per channel (the last BatchNorm's affine).
 //
 // Both are bound by bytes. bn_finalize moves 32 bytes a channel (C <= 2048)
 // and its time is the launch; its point is one launch where the eager
 // expression takes thirteen. affine_residual_relu reads y and x and writes out, each
-// once (3 x 205.5 MB at TSM-R50 layer1, 128 x 56 x 56 x 256), with four f32
-// operations an element, far below the card's ridge point. Its design keeps
-// the HBM busy:
-//   - each thread owns 16-byte packs (8 bf16), neighbouring threads on
-//     neighbouring addresses, so every load and store is one full sector run;
+// once (3 x 205.5 MB at TSM-R50 layer1, 128 x 56 x 56 x 256, in bf16; 3 x 411
+// MB in f32), with four f32 operations an element, far below the card's
+// ridge point. Its design keeps the HBM busy:
+//   - each thread owns 16-byte packs (8 bf16 or 4 f32), neighbouring threads
+//     on neighbouring addresses, so every load and store is one full sector
+//     run; where C is not a whole number of packs, or an operand does not
+//     start on a 16-byte boundary, a per-element form of the same loop;
 //   - a and b are staged once per CTA in shared memory (2 x C x 4 bytes, at
 //     most 48 KB), so the per-element lookup never reaches device memory;
 //   - a grid-stride loop over chunks of kThreads x kUnroll packs with a few
@@ -48,11 +51,15 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;     // packs in flight a thread
 constexpr int kCtasPerSm = 4;  // 1024 threads an SM
-constexpr int kPack = 8;       // bf16 a 16-byte pack
 constexpr int kMaxChannels = 48 * 1024 / (2 * sizeof(float));  // a, b in 48 KB of shared memory
+
+template <typename T>
+constexpr int kPack = 16 / sizeof(T);  // elements a 16-byte pack: 8 bf16, 4 f32
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -64,20 +71,30 @@ __device__ __forceinline__ float affine_residual(float y, float a, float b, floa
   return relu_keep_nan(__fadd_rn(__fadd_rn(__fmul_rn(y, a), b), x));
 }
 
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+
+// one pack of 8 bf16 (a, b: 8 floats, 16-byte aligned)
 __device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv, const float* a,
-                                               const float* b) {
+                                               const float* b, bf16) {
   const float4 a0 = reinterpret_cast<const float4*>(a)[0];
   const float4 a1 = reinterpret_cast<const float4*>(a)[1];
   const float4 b0 = reinterpret_cast<const float4*>(b)[0];
   const float4 b1 = reinterpret_cast<const float4*>(b)[1];
-  const float av[kPack] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-  const float bv[kPack] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
   const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yv);
   const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
   uint4 o;
   __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
-  for (int j = 0; j < kPack / 2; ++j) {
+  for (int j = 0; j < 4; ++j) {
     const float2 yf = __bfloat1622float2(y2[j]);
     const float2 xf = __bfloat1622float2(x2[j]);
     o2[j] = __floats2bfloat162_rn(affine_residual(yf.x, av[2 * j], bv[2 * j], xf.x),
@@ -86,11 +103,27 @@ __device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv,
   return o;
 }
 
-template <typename Index>
+// one pack of 4 f32 (a, b: 4 floats, 16-byte aligned)
+__device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv, const float* a,
+                                               const float* b, float) {
+  const float4 av = *reinterpret_cast<const float4*>(a);
+  const float4 bv = *reinterpret_cast<const float4*>(b);
+  const float4 yf = *reinterpret_cast<const float4*>(&yv);
+  const float4 xf = *reinterpret_cast<const float4*>(&xv);
+  const float4 o = make_float4(affine_residual(yf.x, av.x, bv.x, xf.x),
+                               affine_residual(yf.y, av.y, bv.y, xf.y),
+                               affine_residual(yf.z, av.z, bv.z, xf.z),
+                               affine_residual(yf.w, av.w, bv.w, xf.w));
+  return *reinterpret_cast<const uint4*>(&o);
+}
+
+// The 16-byte pack form: C % kPack<T> == 0, every operand 16-byte aligned.
+template <typename T, typename Index>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 affine_residual_relu_kernel(const uint4* __restrict__ y, const uint4* __restrict__ x,
                             const float* __restrict__ a, const float* __restrict__ b,
                             uint4* __restrict__ out, Index n_packs, int c) {
+  constexpr int kN = kPack<T>;
   extern __shared__ float4 smem[];  // a, then b: c floats each
   float* sa = reinterpret_cast<float*>(smem);
   float* sb = sa + c;
@@ -99,7 +132,7 @@ affine_residual_relu_kernel(const uint4* __restrict__ y, const uint4* __restrict
     smem[c / 4 + i] = reinterpret_cast<const float4*>(b)[i];
   }
   __syncthreads();
-  const Index c_packs = (Index)(c / kPack);
+  const Index c_packs = (Index)(c / kN);
   const Index chunk = (Index)kThreads * kUnroll;
   for (Index base = (Index)blockIdx.x * chunk + threadIdx.x; base < n_packs;
        base += (Index)gridDim.x * chunk) {
@@ -116,10 +149,31 @@ affine_residual_relu_kernel(const uint4* __restrict__ y, const uint4* __restrict
     for (int k = 0; k < kUnroll; ++k) {
       const Index i = base + (Index)k * kThreads;
       if (i < n_packs) {
-        const int ch = (int)(i % c_packs) * kPack;
-        out[i] = pack_epilogue(yv[k], xv[k], sa + ch, sb + ch);
+        const int ch = (int)(i % c_packs) * kN;
+        out[i] = pack_epilogue(yv[k], xv[k], sa + ch, sb + ch, T());
       }
     }
+  }
+}
+
+// The per-element form: any C, any alignment (the JAX op takes any C).
+template <typename T, typename Index>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+affine_residual_relu_elem_kernel(const T* __restrict__ y, const T* __restrict__ x,
+                                 const float* __restrict__ a, const float* __restrict__ b,
+                                 T* __restrict__ out, Index n, int c) {
+  extern __shared__ float4 smem[];  // a, then b: c floats each
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = sa + c;
+  for (int i = threadIdx.x; i < c; i += kThreads) {
+    sa[i] = a[i];
+    sb[i] = b[i];
+  }
+  __syncthreads();
+  for (Index i = (Index)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (Index)gridDim.x * kThreads) {
+    const int ch = (int)(i % (Index)c);
+    out[i] = from_f32<T>(affine_residual(to_f32(y[i]), sa[ch], sb[ch], to_f32(x[i])));
   }
 }
 
@@ -139,16 +193,46 @@ __global__ void bn_finalize_kernel(const float* __restrict__ s, const float* __r
   out[3 * c + i] = var;
 }
 
-template <typename Index>
+template <typename T, typename Index>
 cudaError_t launch_epilogue(const void* y, const void* x, const void* a, const void* b,
                             void* out, long long n_packs, int c, int sms, cudaStream_t stream) {
   const long long chunks = (n_packs + kThreads * kUnroll - 1) / (kThreads * kUnroll);
   const long long cap = (long long)sms * kCtasPerSm;
   const int grid = (int)(chunks < cap ? chunks : cap);
-  affine_residual_relu_kernel<Index><<<grid, kThreads, 2 * c * sizeof(float), stream>>>(
+  affine_residual_relu_kernel<T, Index><<<grid, kThreads, 2 * c * sizeof(float), stream>>>(
       static_cast<const uint4*>(y), static_cast<const uint4*>(x), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<uint4*>(out), (Index)n_packs, c);
   return cudaGetLastError();
+}
+
+template <typename T, typename Index>
+cudaError_t launch_epilogue_elem(const void* y, const void* x, const void* a, const void* b,
+                                 void* out, long long n, int c, int sms, cudaStream_t stream) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * kCtasPerSm;
+  const int grid = (int)(blocks < cap ? blocks : cap);
+  affine_residual_relu_elem_kernel<T, Index><<<grid, kThreads, 2 * c * sizeof(float), stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<T*>(out), (Index)n, c);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t affine_residual_relu(const void* y, const void* x, const void* a, const void* b,
+                                 void* out, long long numel, int c, int sms, cudaStream_t st) {
+  const bool packs = c % kPack<T> == 0 && aligned16(y) && aligned16(x) && aligned16(a) &&
+                     aligned16(b) && aligned16(out);
+  // a 32-bit index while base + one grid stride stays below 2^32
+  const long long stride = (long long)sms * kCtasPerSm * kThreads * (packs ? kUnroll : 1);
+  if (packs) {
+    const long long n_packs = numel / kPack<T>;
+    if (n_packs + stride < (1ll << 32))
+      return launch_epilogue<T, uint32_t>(y, x, a, b, out, n_packs, c, sms, st);
+    return launch_epilogue<T, int64_t>(y, x, a, b, out, n_packs, c, sms, st);
+  }
+  if (numel + stride < (1ll << 32))
+    return launch_epilogue_elem<T, uint32_t>(y, x, a, b, out, numel, c, sms, st);
+  return launch_epilogue_elem<T, int64_t>(y, x, a, b, out, numel, c, sms, st);
 }
 
 }  // namespace
@@ -170,20 +254,19 @@ int bdv_bn_finalize(const void* s, const void* q, const void* gamma, const void*
   return (int)cudaGetLastError();
 }
 
-// y, x, out bf16 (numel / c, c) contiguous; a, b f32 (c,); every pointer
-// 16-byte aligned, c % 8 == 0, c <= bdv_block_epilogue_max_channels()
+// y, x, out (numel / c, c) contiguous, bf16 (elem_bytes 2) or f32 (4); a, b
+// f32 (c,); c <= bdv_block_epilogue_max_channels(). 16-byte packs where c is
+// a whole number of them and every pointer is 16-byte aligned, else one
+// element a thread and step.
 int bdv_affine_residual_relu(const void* y, const void* x, const void* a, const void* b,
-                             void* out, long long numel, int c, int sms, void* stream) {
-  if (numel <= 0 || c <= 0 || c % kPack != 0 || c > kMaxChannels || numel % c != 0 || sms <= 0)
+                             void* out, long long numel, int c, int elem_bytes, int sms,
+                             void* stream) {
+  if (numel <= 0 || c <= 0 || c > kMaxChannels || numel % c != 0 || sms <= 0)
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(y) || !aligned16(x) || !aligned16(a) || !aligned16(b) || !aligned16(out))
-    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_packs = numel / kPack;
-  // a 32-bit index while base + one grid stride stays below 2^32
-  if (n_packs + (long long)sms * kCtasPerSm * kThreads * kUnroll < (1ll << 32))
-    return (int)launch_epilogue<uint32_t>(y, x, a, b, out, n_packs, c, sms, st);
-  return (int)launch_epilogue<int64_t>(y, x, a, b, out, n_packs, c, sms, st);
+  if (elem_bytes == 2) return (int)affine_residual_relu<bf16>(y, x, a, b, out, numel, c, sms, st);
+  if (elem_bytes == 4) return (int)affine_residual_relu<float>(y, x, a, b, out, numel, c, sms, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* bdv_cuda_error_string(int code) {

@@ -31,11 +31,9 @@ namespace {
 using sm90::aligned16;
 using sm90::bf16;
 
-// K and N: multiples of k_mult and n_mult (8 for the TMA's 16-byte strides;
-// 64 for the prologue form, whose a and b are read per 64-channel k-step)
-int check_args(const void* x, const void* w, const void* y, long long M, int K, int N,
-               int k_mult, int n_mult) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % k_mult != 0 || N % n_mult != 0)
+// K and N: multiples of 8 (the TMA's 16-byte strides)
+int check_args(const void* x, const void* w, const void* y, long long M, int K, int N) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 != 0 || N % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (M > (1ll << 31) - sm90::BM) return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(y)) return (int)cudaErrorMisalignedAddress;
@@ -57,9 +55,8 @@ sm90::Problem problem(const void* x, void* y, void* part, long long M, int K, in
 
 extern "C" {
 
-// the wgmma core's K step, and the plan it makes for (M, N) on `sms` SMs (of
-// this kernel and of the 3x3's): out = {block_n, m_tiles, n_tiles, tiles, grid}
-int bdv_wgmma_stats_block_k() { return sm90::BK; }
+// the plan the wgmma core makes for an (M, ., N) 1x1 on `sms` SMs (the 3x3
+// starts from it): out = {block_n, m_tiles, n_tiles, tiles, grid}
 int bdv_wgmma_stats_plan(long long M, int N, int sms, int* out) {
   if (M <= 0 || N <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
   const sm90::Plan p = sm90::make_plan(M, N, sms);
@@ -73,17 +70,17 @@ int bdv_wgmma_stats_plan(long long M, int N, int sms, int* out) {
 // stats: (2, N) f32 = [sum y; sum y^2].
 int bdv_conv1x1_with_stats(const void* x, const void* w, void* y, void* part, int part_rows,
                            void* stats, long long M, int K, int N, void* stream) {
-  if (int bad = check_args(x, w, y, M, K, N, 8, 8)) return bad;
+  if (int bad = check_args(x, w, y, M, K, N)) return bad;
   return (int)sm90::launch_wgmma_stats<sm90::ALoad::kRows>(
       problem(x, y, part, M, K, N), part_rows, w, stats, static_cast<cudaStream_t>(stream));
 }
 
-// The same with the prologue x -> bf16(relu(x * a + b)); K % 64 == 0, N % 64
+// The same with the prologue x -> bf16(relu(x * a + b)); K % 8 == 0, N % 8
 // == 0; a, b: (K,) f32, 16-byte aligned.
 int bdv_conv1x1_affine_relu_stats(const void* x, const void* w, const void* a, const void* b,
                                   void* y, void* part, int part_rows, void* stats, long long M,
                                   int K, int N, void* stream) {
-  if (int bad = check_args(x, w, y, M, K, N, sm90::BK, 64)) return bad;
+  if (int bad = check_args(x, w, y, M, K, N)) return bad;
   if (!aligned16(a) || !aligned16(b)) return (int)cudaErrorMisalignedAddress;
   sm90::Problem p = problem(x, y, part, M, K, N);
   p.a = static_cast<const float*>(a);

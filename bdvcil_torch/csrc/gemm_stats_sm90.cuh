@@ -22,21 +22,27 @@
 // * BN in {64, 128, 256} per shape (make_plan), so A is read once per row tile
 //   where N <= 256; BK = 64: one 128-byte swizzled row of A per output row.
 // * Any K and N that are multiples of 8 (the TMA's 16-byte global strides;
-//   the 1x1's wrapper zero-pads the rest): the TMA zero-fills the boxes past
-//   K and N as it does past M, so the last k-step adds nothing beyond K, the
-//   columns past N come out zero, and the epilogue stores and sums only the
-//   columns below N. The prologue forms (#7, #8) keep K % 64 == 0 and
-//   N % 64 == 0: their a and b are read per 64-channel step.
-// * A ring of kStages stages (Layout) with full and empty mbarriers, and
-//   for the 3x3 two windows with their own. w, and A for the 1x1, come by
-//   TMA (2-D tiles, 128-byte swizzle; rows past M are zero-filled by the TMA
-//   unit). The encoder is cuTensorMapEncodeTiled, fetched through
-//   cudaGetDriverEntryPoint so that nothing links libcuda.
+//   the wrappers zero-pad the rest, with a = b = 0 on padded channels): the
+//   TMA zero-fills the boxes past K and N as it does past M, so the last
+//   k-step adds nothing beyond K, the columns past N come out zero, and the
+//   epilogue stores and sums only the columns below N. The prologue forms
+//   (#7, #8) read a and b as 0 past K (the 3x3: past C), so a zero-filled
+//   channel stays 0 through bf16(relu(0 * 0 + 0)).
+// * A ring of stages (Layout) with full and empty mbarriers, and for the 3x3
+//   two windows with their own. w, and A for the 1x1, come by TMA (128-byte
+//   swizzle; rows past M are zero-filled by the TMA unit). The 3x3 reads w
+//   as a 3-D (9, C, N) tensor, one tap's 64-channel slice a box, so a slice
+//   past C zero-fills instead of reaching the next tap's rows. The encoder
+//   is cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so
+//   that nothing links libcuda.
 // * The 3x3's A comes by TMA too. Its K steps run channel slice by channel
-//   slice (64 channels, C % 64 == 0), the 9 taps of a slice in a row, and
-//   all 9 read one window: rows m0 - W - 1 .. m0 + 128 + W of x seen as an
-//   (M, C) matrix, one 2-D TMA box (at most 256 rows, so W <= 63), zero-
-//   filled where it leaves x. Both consumer warpgroups apply the prologue
+//   slice (64 channels, the last zero-filled past C), the 9 taps of a slice
+//   in a row, and all 9 read one window: rows m0 - W - 1 .. m0 + 128 + W of
+//   x seen as an (M, C) matrix, zero-filled where it leaves x, in as few 2-D
+//   TMA boxes of equal rows as the box's 256-row limit allows, all on one
+//   mbarrier (window_plan). Where two windows and the widest ring do not fit
+//   the 227 KB a CTA has, the ring takes fewer stages, then a narrower tile
+//   (conv3x3_plan). Both consumer warpgroups apply the prologue
 //   bf16(relu(x * a + b)) to the window once, in place; then, for each tap,
 //   each warpgroup copies its 64 rows of A from the window, shifted by
 //   W + 1 + dy * W + dx rows, into one of two A buffers in the swizzled
@@ -102,25 +108,27 @@ enum class ALoad { kRows, kRowsAffine, kIm2col };
 // Shared memory, in byte offsets from a 1024-byte aligned base. The ring
 // holds w's slices, and for the 1x1 A's; the 3x3 builds each A tile in
 // `abuf` from a window of x that its prologue has been applied to (`win`,
-// two buffers). Then the statistics' cross-warp sums, the barriers and, for
-// the 3x3, a and b.
+// two buffers of `boxes` TMA boxes of `box_rows` rows each). Then the
+// statistics' cross-warp sums, the barriers and, for the 3x3, a and b over
+// C rounded up to 64 channels (zero past C).
 template <int BN, ALoad kLoad>
 struct Layout {
   static constexpr bool kIm2col = kLoad == ALoad::kIm2col;
-  static constexpr int kStages =
+  // the most ring stages; the 3x3 may take fewer where its windows are large
+  static constexpr int kMaxStages =
       kIm2col ? (BN == 256 ? 3 : (BN == 128 ? 4 : 6)) : (BN == 256 ? 4 : (BN == 128 ? 5 : 6));
   static constexpr int B_BYTES = BK * BN * 2;
   static constexpr int STAGE_BYTES = (kIm2col ? 0 : A_BYTES) + B_BYTES;
   int win_rows, win_bytes, abuf, win, red, bar, ab, total;
-  __host__ __device__ Layout(int W, int C) {
+  __host__ __device__ Layout(int W, int C, int stages, int boxes, int box_rows) {
     win_rows = kIm2col ? BM + 2 * W + 2 : 0;  // output rows and a W + 1 halo each side
-    win_bytes = (win_rows * 128 + 1023) / 1024 * 1024;
-    abuf = kStages * STAGE_BYTES;
+    win_bytes = kIm2col ? (boxes * box_rows * 128 + 1023) / 1024 * 1024 : 0;
+    abuf = stages * STAGE_BYTES;
     win = abuf + (kIm2col ? 2 * A_BYTES : 0);
     red = win + 2 * win_bytes;                     // [s1 | s2][warp][BN] f32
-    bar = red + 2 * 8 * BN * 4;                    // full, empty [kStages]; wfull, wempty [2]
-    ab = (bar + (2 * kStages + 4) * 8 + 15) / 16 * 16;  // 16-byte aligned for float4 reads
-    total = ab + (kIm2col ? 8 * C : 0);
+    bar = red + 2 * 8 * BN * 4;                    // full, empty [stages]; wfull, wempty [2]
+    ab = (bar + (2 * stages + 4) * 8 + 15) / 16 * 16;  // 16-byte aligned for float4 reads
+    total = ab + (kIm2col ? 8 * ((C + BK - 1) / BK * BK) : 0);
   }
 };
 
@@ -135,6 +143,8 @@ struct Problem {
   int M, K, N;
   int H, W, C;
   int n_tiles, tiles;
+  int stages;               // the 3x3's ring stages (the 1x1 takes Layout::kMaxStages)
+  int win_boxes, box_rows;  // the 3x3's window: TMA boxes of box_rows rows
 };
 
 // ---- PTX helpers -------------------------------------------------------------
@@ -192,6 +202,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -310,13 +329,18 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[R], int lane) {
 
 // ---- the prologue x -> bf16(relu(x * a + b)) -------------------------------------
 
-// a[c .. c + 7] and b[c .. c + 7] (16-byte aligned; shared or global memory)
-__device__ __forceinline__ void load_affine(const float* a, const float* b, int c,
+// a[c .. c + 7] and b[c .. c + 7] (16-byte aligned; shared or global
+// memory), or zeros where c >= limit (the channels past K: limit % 8 == 0)
+__device__ __forceinline__ void load_affine(const float* a, const float* b, int c, int limit,
                                             float (&av)[8], float (&bv)[8]) {
+  const bool in = c < limit;
 #pragma unroll
   for (int q = 0; q < 8; q += 4) {
-    const float4 a4 = *reinterpret_cast<const float4*>(a + c + q);
-    const float4 b4 = *reinterpret_cast<const float4*>(b + c + q);
+    float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f), b4 = a4;
+    if (in) {
+      a4 = *reinterpret_cast<const float4*>(a + c + q);
+      b4 = *reinterpret_cast<const float4*>(b + c + q);
+    }
     av[q] = a4.x; av[q + 1] = a4.y; av[q + 2] = a4.z; av[q + 3] = a4.w;
     bv[q] = b4.x; bv[q + 1] = b4.y; bv[q + 2] = b4.z; bv[q + 3] = b4.w;
   }
@@ -422,8 +446,9 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_w, const Problem p) {
   using Lay = Layout<BN, kLoad>;
   constexpr bool kIm2col = Lay::kIm2col;
-  constexpr int S = Lay::kStages;
-  const Lay L(p.W, p.C);
+  const int S = kIm2col ? p.stages : Lay::kMaxStages;
+  const Lay L(p.W, p.C, S, p.win_boxes, p.box_rows);
+  const int c64 = kIm2col ? (p.C + BK - 1) / BK * BK : 0;  // a, b in shared memory, zero past C
   constexpr int kProducerRegs = 40;
   constexpr int kConsumerRegs = 232;
 
@@ -456,7 +481,8 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
   __syncthreads();
 
-  const int ktiles = (p.K + BK - 1) / BK;  // past K the TMA's zero fill
+  // past K (the 3x3: past C in each tap) the TMA's zero fill
+  const int ktiles = kIm2col ? 9 * (c64 / BK) : (p.K + BK - 1) / BK;
   const int grid = static_cast<int>(gridDim.x);
   const int my_tiles = (p.tiles - static_cast<int>(blockIdx.x) + grid - 1) / grid;
   const int total = my_tiles * ktiles;  // this CTA's (tile, k-step) stream
@@ -473,16 +499,18 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         int w_row = kt * BK;  // the k-step's rows of w
         if constexpr (kIm2col) {
           // k-step kt of the 3x3 is channel slice kt / 9 of tap kt % 9 (w's
-          // rows tap * C + c). Each slice's 9 taps read one window: rows
-          // m0 - W - 1 .. m0 + 128 + W of x as an (M, C) matrix, one TMA box,
-          // zero-filled where it leaves x.
+          // box (tap, cs * 64, columns)). Each slice's 9 taps read one window:
+          // rows m0 - W - 1 .. m0 + 128 + W of x as an (M, C) matrix, in
+          // win_boxes TMA boxes, zero-filled where it leaves x.
           const int cs = kt / 9;
           const int tap = kt - 9 * cs;
-          w_row = tap * p.C + cs * BK;
+          w_row = cs * BK;
           if (tap == 0) {
             mbar_wait(&wempty[wb], wph ^ 1);
-            mbar_expect_tx(&wfull[wb], L.win_rows * 128);
-            tma_load_2d(window(wb), &tm_a, &wfull[wb], cs * BK, mt * BM - p.W - 1);
+            mbar_expect_tx(&wfull[wb], p.win_boxes * p.box_rows * 128);
+            for (int r = 0; r < p.win_boxes; ++r)
+              tma_load_2d(window(wb) + r * p.box_rows * 128, &tm_a, &wfull[wb], cs * BK,
+                          mt * BM - p.W - 1 + r * p.box_rows);
             if (++wb == 2) {
               wb = 0;
               wph ^= 1;
@@ -493,8 +521,13 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         mbar_expect_tx(&full[s], Lay::STAGE_BYTES);
         if constexpr (!kIm2col) tma_load_2d(stage_a(s), &tm_a, &full[s], kt * BK, mt * BM);
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(stage_b(s) + j * B_BOX_BYTES, &tm_w, &full[s], nt * BN + j * 64, w_row);
+        for (int j = 0; j < BN / 64; ++j) {
+          if constexpr (kIm2col)
+            tma_load_3d(stage_b(s) + j * B_BOX_BYTES, &tm_w, &full[s], nt * BN + j * 64, w_row,
+                        kt % 9);
+          else
+            tma_load_2d(stage_b(s) + j * B_BOX_BYTES, &tm_w, &full[s], nt * BN + j * 64, w_row);
+        }
         if (++kt == ktiles) {
           kt = 0;
           tile += grid;
@@ -526,9 +559,9 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         part2[c] = 0.f;
       }
     if constexpr (kIm2col) {
-      for (int c = ct; c < p.C; c += 128 * kConsumers) {
-        ab[c] = p.a[c];
-        ab[p.C + c] = p.b[c];
+      for (int c = ct; c < c64; c += 128 * kConsumers) {
+        ab[c] = c < p.C ? p.a[c] : 0.f;
+        ab[c64 + c] = c < p.C ? p.b[c] : 0.f;
       }
       consumer_barrier();
     }
@@ -551,7 +584,7 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         if constexpr (kIm2col) {
           if (tap == 0) {  // a new window: its prologue, by both warpgroups
             float av[8], bv[8];
-            load_affine(ab, ab + p.C, cs * BK + 8 * (ct % 8), av, bv);
+            load_affine(ab, ab + c64, cs * BK + 8 * (ct % 8), c64, av, bv);
             mbar_wait(&wfull[wb], wph);
             window_prologue(window(wb), L.win_rows, mt * BM - p.W - 1, ct, p.M, av, bv);
             consumer_barrier();
@@ -576,7 +609,7 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         } else if constexpr (kLoad == ALoad::kRowsAffine) {
           unsigned char* a_s = stage_a(s) + wg * 64 * 128;
           float av[8], bv[8];
-          load_affine(p.a, p.b, kt * BK + 8 * (t % 8), av, bv);
+          load_affine(p.a, p.b, kt * BK + 8 * (t % 8), p.K, av, bv);
           mbar_wait(&full[s], ph);
           tile_prologue(a_s, t, mt * BM + 64 * wg, p.M, av, bv);
           fence_proxy_async();
@@ -744,6 +777,64 @@ inline Plan make_plan(long long M, int N, int sms) {
   return best;
 }
 
+constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may have on sm_90
+constexpr int kMaxBoxRows = 256;  // a TMA box's most rows
+
+// The 3x3's window of 128 + 2 W + 2 rows of x, in the fewest TMA boxes of
+// equal rows: one box of exactly the window where it fits (W <= 63), else
+// ceil(rows / 256) boxes of rows rounded up to 8, so that each box starts
+// on a 1024-byte period of the 128-byte swizzle. out = {boxes, box_rows}.
+inline void window_plan(int W, int* boxes, int* box_rows) {
+  const int rows = BM + 2 * W + 2;
+  *boxes = (rows + kMaxBoxRows - 1) / kMaxBoxRows;
+  *box_rows = *boxes == 1 ? rows : ((rows + *boxes - 1) / *boxes + 7) / 8 * 8;
+}
+
+// Shared memory of one 3x3 CTA, alignment slack included.
+inline int conv3x3_smem(int bn, int stages, int W, int C, int boxes, int box_rows) {
+  switch (bn) {
+    case 256: return 1024 + Layout<256, ALoad::kIm2col>(W, C, stages, boxes, box_rows).total;
+    case 128: return 1024 + Layout<128, ALoad::kIm2col>(W, C, stages, boxes, box_rows).total;
+    default: return 1024 + Layout<64, ALoad::kIm2col>(W, C, stages, boxes, box_rows).total;
+  }
+}
+
+inline int im2col_max_stages(int bn) {
+  return bn == 256 ? Layout<256, ALoad::kIm2col>::kMaxStages
+                   : (bn == 128 ? Layout<128, ALoad::kIm2col>::kMaxStages
+                                : Layout<64, ALoad::kIm2col>::kMaxStages);
+}
+
+struct Conv3x3Plan {
+  Plan tiles;
+  int stages, boxes, box_rows, smem;
+};
+
+// The 3x3's plan: make_plan's tile width, with the most ring stages (at
+// least 2) that fit two windows into a CTA's shared memory; where none fit,
+// the next narrower width. Returns false where not even 64 columns and 2
+// stages fit (W too large).
+inline bool conv3x3_plan(long long M, int N, int W, int C, int sms, Conv3x3Plan* out) {
+  window_plan(W, &out->boxes, &out->box_rows);
+  const Plan first = make_plan(M, N, sms);
+  const int n64 = (N + 63) / 64 * 64;
+  for (int bn = first.block_n; bn >= 64; bn /= 2) {
+    for (int st = im2col_max_stages(bn); st >= 2; --st) {
+      const int smem = conv3x3_smem(bn, st, W, C, out->boxes, out->box_rows);
+      if (smem > kMaxSmem) continue;
+      const long long m_tiles = (M + BM - 1) / BM;
+      const long long tiles = m_tiles * (n64 / bn);
+      out->tiles = bn == first.block_n
+                       ? first
+                       : Plan{bn, (int)m_tiles, n64 / bn, (int)tiles, (int)(tiles < sms ? tiles : sms)};
+      out->stages = st;
+      out->smem = smem;
+      return true;
+    }
+  }
+  return false;
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -768,28 +859,29 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A row-major bf16 (outer, inner) tensor, read in boxes of box_outer rows x 64
-// columns (128 bytes: one swizzle row), zero-filled past its edges.
-inline bool encode_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
-                      uint32_t box_outer) {
+// A row-major bf16 tensor of `rank` dims (dims[0] innermost, 16-byte row
+// strides), read in boxes of 64 columns (128 bytes: one swizzle row) x
+// box[1] rows (x 1 in the third dim), zero-filled past its edges.
+inline bool encode(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
+                   uint32_t box_rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t strides[2] = {dims[0] * sizeof(bf16), dims[0] * dims[1] * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BN, ALoad kLoad>
 cudaError_t launch_bn(const CUtensorMap& tm_a, const CUtensorMap& tm_w, const Problem& p, int grid,
                       cudaStream_t stream) {
-  constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may have on sm_90
   constexpr int kMaxDevices = 64;
   auto kernel = wgmma_stats_kernel<BN, kLoad>;
-  const int smem = 1024 + Layout<BN, kLoad>(p.W, p.C).total;  // + alignment slack
+  const int stages = kLoad == ALoad::kIm2col ? p.stages : Layout<BN, kLoad>::kMaxStages;
+  const int smem =  // + alignment slack
+      1024 + Layout<BN, kLoad>(p.W, p.C, stages, p.win_boxes, p.box_rows).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // allow the kernel the most shared memory once per device, not per launch
   static bool allowed[kMaxDevices] = {};
@@ -807,27 +899,41 @@ cudaError_t launch_bn(const CUtensorMap& tm_a, const CUtensorMap& tm_w, const Pr
 }
 
 // Launch the GEMM and the statistics finish on `stream`. The caller has checked
-// K % 8 == 0 and N % 8 == 0 (with a prologue K % BK == 0 and N % 64 == 0), the
-// alignment and (im2col) C % BK == 0, and filled
+// K % 8 == 0 and N % 8 == 0 (im2col: C % 8 == 0), the alignment, and filled
 // p's pointers and sizes (with a prologue, a and b). part: (2, part_rows, N)
 // f32 scratch; the persistent grid is make_plan(M, N, part_rows).grid <=
-// part_rows CTAs, so part_rows is the grid's cap (the device's SM count, one
-// CTA per SM). stats: (2, N) f32 = [sum y; sum y^2].
+// part_rows CTAs (the 3x3: conv3x3_plan's), so part_rows is the grid's cap
+// (the device's SM count, one CTA per SM). stats: (2, N) f32 = [sum y; sum y^2].
 template <ALoad kLoad>
 cudaError_t launch_wgmma_stats(Problem p, int part_rows, const void* w, void* stats,
                                cudaStream_t stream) {
   constexpr bool kIm2col = kLoad == ALoad::kIm2col;
   if (part_rows <= 0) return cudaErrorInvalidValue;
-  const Plan plan = make_plan(p.M, p.N, part_rows);
+  Plan plan;
+  CUtensorMap tm_a, tm_w;
+  if constexpr (kIm2col) {
+    // w as (9, C, N): a tap's channel slice zero-fills past C; x as (M, C)
+    // pixels, in the window's boxes
+    Conv3x3Plan cp;
+    if (!conv3x3_plan(p.M, p.N, p.W, p.C, part_rows, &cp)) return cudaErrorInvalidValue;
+    plan = cp.tiles;
+    p.stages = cp.stages;
+    p.win_boxes = cp.boxes;
+    p.box_rows = cp.box_rows;
+    const cuuint64_t w_dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.C, 9};
+    const cuuint64_t x_dims[2] = {(cuuint64_t)p.C, (cuuint64_t)p.M};
+    if (!encode(&tm_w, w, 3, w_dims, BK) || !encode(&tm_a, p.x, 2, x_dims, p.box_rows))
+      return cudaErrorInvalidValue;
+  } else {
+    // w as (K, N), x as (M, K) rows in 128-row boxes
+    plan = make_plan(p.M, p.N, part_rows);
+    const cuuint64_t w_dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.K};
+    const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
+    if (!encode(&tm_w, w, 2, w_dims, BK) || !encode(&tm_a, p.x, 2, x_dims, BM))
+      return cudaErrorInvalidValue;
+  }
   p.n_tiles = plan.n_tiles;
   p.tiles = plan.tiles;
-  CUtensorMap tm_a, tm_w;
-  if (!encode_2d(&tm_w, w, p.N, p.K, BK)) return cudaErrorInvalidValue;
-  // A: x as (M, K) rows for the 1x1, in 128-row boxes; x as (M, C) pixels for
-  // the 3x3, in windows of 128 + 2 W + 2 rows (a TMA box has at most 256)
-  const int a_rows = kIm2col ? BM + 2 * p.W + 2 : BM;
-  if (a_rows > 256) return cudaErrorInvalidValue;
-  if (!encode_2d(&tm_a, p.x, kIm2col ? p.C : p.K, p.M, a_rows)) return cudaErrorInvalidValue;
   cudaError_t err;
   switch (plan.block_n) {
     case 256: err = launch_bn<256, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;

@@ -16,17 +16,32 @@ epilogue). Between kernels ``bn_finalize`` turns each BatchNorm's statistics
 into its affine (a, b) and its (mean, var), (C,)-sized math: seven launches
 a block in all.
 
-On a CUDA tensor each stats op is its hand-written kernel:
-``csrc/conv1x1_stats.cu`` for the two 1x1 GEMMs (the second with its
-prologue), ``csrc/conv3x3_stats.cu`` for the 3x3 implicit GEMM, which serves
-both of the JAX package's variant names ("taps", "im2col": one function, two
-ways of tiling the TPU's matrix unit). All three run on the persistent wgmma
-core of ``csrc/gemm_stats_sm90.cuh``, which applies the prologue to the A
-tile in shared memory. On a CPU tensor each is its ``_plain`` version; the
-plain 3x3 mirrors each variant's summation (nine f32 tap products
-accumulated in order, or one K=9C product). ``bn_finalize`` and
-``affine_residual_relu`` are ``csrc/block_epilogue.cu``'s two kernels, bit
-for bit against their plain versions, the eager expressions they replace.
+On a CUDA tensor each op is its hand-written kernel, chosen by the
+operands' dtype as the JAX ops take any (``conv1x1_bn.launch_name``: float32
+launches count under the op's name + ``"_f32"``, float16 raises, as no
+configuration of the JAX package computes in it):
+
+  op                          bfloat16                    float32
+  conv1x1_stats               csrc/conv1x1_stats.cu       csrc/gemm_stats_f32.cu
+  conv1x1_affine_relu_stats   csrc/conv1x1_stats.cu       csrc/gemm_stats_f32.cu
+  conv3x3_affine_relu_stats   csrc/conv3x3_stats.cu       csrc/gemm_stats_f32.cu
+  bn_finalize                 csrc/block_epilogue.cu (f32 statistics either way)
+  affine_residual_relu        csrc/block_epilogue.cu, 16-byte packs of 8 bf16 or 4 f32
+
+The bf16 stats kernels run on the persistent wgmma core of
+``csrc/gemm_stats_sm90.cuh``, which applies the prologue to the A tile in
+shared memory; channel counts that are not multiples of 8 are zero-padded
+for the TMA (a = b = 0 on the padded channels: ``conv1x1_bn.aligned_call``),
+and the 3x3 takes any width up to ``gemm_plan.conv3x3_max_width`` (271 at
+Cin <= 512, 247 at 2048). The float32 ones run on the FFMA kernel of
+``csrc/gemm_stats_f32.cu`` at any shape, the prologue applied as A's slice
+enters shared memory. Each 3x3 kernel serves both of the JAX package's
+variant names ("taps", "im2col": one function, two ways of tiling the TPU's
+matrix unit). On a CPU tensor each op is its ``_plain`` version; the plain
+3x3 mirrors each variant's summation (nine f32 tap products accumulated in
+order, or one K=9C product). ``bn_finalize`` and ``affine_residual_relu``
+are bit for bit against their plain versions, the eager expressions they
+replace.
 
 Forward-only, as the JAX ops are (they have no VJP): the ops raise if an input
 requires grad rather than letting autograd reach the plain versions.
@@ -46,8 +61,9 @@ import torch.nn.functional as F
 
 from .. import _device
 from . import _build
-from .conv1x1_bn import (check_affine, gemm_stats_cuda, gemm_stats_plain, sm_count,
-                         stats_scratch)
+from . import gemm_plan
+from .conv1x1_bn import (F32, _f32_lib, aligned_call, check_affine, gemm_stats_cuda,
+                         gemm_stats_plain, launch_name, sm_count, stats_scratch)
 
 CONV1 = "block_conv1x1_stats"
 CONV2 = "conv3x3_affine_relu_stats"
@@ -55,9 +71,9 @@ CONV3 = "conv1x1_affine_relu_stats"
 FINALIZE = "block_bn_finalize"
 EPILOGUE = "block_affine_residual_relu"
 VARIANTS = ("taps", "im2col")
-# the 3x3 kernel reads each channel slice of a 128-pixel tile as one TMA box of
-# 128 + 2 W + 2 rows of x, and a box has at most 256
-MAX_WIDTH_3X3 = 63
+# the float32 kernels' launch counts
+CONV1_F32, CONV2_F32, CONV3_F32, EPILOGUE_F32 = (CONV1 + F32, CONV2 + F32, CONV3 + F32,
+                                                 EPILOGUE + F32)
 
 
 class BlockParams(NamedTuple):
@@ -112,7 +128,7 @@ def make_params(generator: Optional[torch.Generator] = None, c: int = 256, cm: i
 
 
 def affine_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16(relu(f32(x) * a + b)): a product and a sum, each rounded to f32."""
+    """x.dtype(relu(f32(x) * a + b)): a product and a sum, each rounded to f32."""
     return torch.relu(x.float() * a + b).to(x.dtype)
 
 
@@ -126,7 +142,7 @@ def bn_finalize_plain(s, q, gamma, beta, count, eps):
 
 
 def affine_residual_relu_plain(y, a, b, x):
-    """bf16(relu(f32(y) * a + b + f32(x))): the block's last pass, each
+    """x.dtype(relu(f32(y) * a + b + f32(x))): the block's last pass, each
     operation rounded to f32 in that order."""
     return torch.relu(y.float() * a + b + x.float()).to(x.dtype)
 
@@ -164,9 +180,9 @@ def _conv3x3_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.bdv_conv3x3_affine_relu_stats.restype = ctypes.c_int
-        for fn in (lib.bdv_conv3x3_stats_block_k, lib.bdv_conv3x3_stats_block_n):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
+        lib.bdv_conv3x3_stats_plan.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.bdv_conv3x3_stats_plan.restype = ctypes.c_int
         lib._bdv_typed = True
     return lib
 
@@ -175,37 +191,62 @@ def _conv1x1_affine_cuda(x, a, b, w):
     return gemm_stats_cuda(CONV3, x, w, a, b)
 
 
+def _conv3x3_wgmma(x, w, a, b):
+    """The bf16 3x3 on the wgmma core: Cin and Cout % 8 == 0, W within
+    ``gemm_plan.conv3x3_max_width`` (where the C side finds no plan, it
+    refuses before a launch and the Python copy of the plan names the widest W)."""
+    nt, h, w_, k = x.shape
+    n = w.shape[-1]
+    part_rows = sm_count(x.device)  # one partial per persistent CTA, one CTA per SM at most
+    lib = _conv3x3_lib()
+    y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
+    part, stats = stats_scratch((2, part_rows, n), n, x.device)
+    code = lib.bdv_conv3x3_affine_relu_stats(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
+        part_rows, stats.data_ptr(), nt, h, w_, k, n,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if code != 0:
+        gemm_plan.conv3x3_plan(nt * h * w_, n, w_, k, part_rows)  # raises past the widest W
+    _build.check(lib, code, CONV2)
+    return y, stats[0], stats[1]
+
+
+def _conv3x3_f32(x, w, a, b):
+    """The float32 3x3 on the FFMA kernel, any shape."""
+    nt, h, w_, k = x.shape
+    n = w.shape[-1]
+    if h >= 1 << 15 or w_ >= 1 << 16:
+        raise ValueError(f"{CONV2_F32}: needs H < 32768 and W < 65536, got H={h} W={w_}")
+    lib = _f32_lib()
+    y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
+    part_rows = gemm_plan.f32_plan(nt * h * w_, n).m_tiles  # one partial per 128-row tile
+    part, stats = stats_scratch((2, part_rows, n), n, x.device)
+    code = lib.bdv_conv3x3_affine_relu_stats_f32(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
+        part_rows, stats.data_ptr(), nt, h, w_, k, n,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, CONV2_F32)
+    return y, stats[0], stats[1]
+
+
 def _conv3x3_cuda(x, a, b, w, variant):
     del variant  # one kernel serves both variants
     if x.dim() != 4 or w.shape[:2] != (3, 3) or w.dim() != 4 or w.shape[2] != x.shape[-1]:
         raise ValueError(f"{CONV2}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"{CONV2}: the kernel takes bfloat16, got {x.dtype} x {w.dtype}")
+    counter = launch_name(CONV2, x.dtype, w.dtype)
     if w.device != x.device:
         raise ValueError(f"{CONV2}: operands on {x.device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{CONV2}: operands must be contiguous (NHWC x, HWIO w)")
-    nt, h, w_, k = x.shape
-    n = w.shape[-1]
-    check_affine(CONV2, k, a, b, x.device)
-    lib = _conv3x3_lib()
-    bn, bk = lib.bdv_conv3x3_stats_block_n(), lib.bdv_conv3x3_stats_block_k()
-    if k % bk or n % bn:
-        raise ValueError(f"{CONV2}: needs Cin % {bk} == 0 and Cout % {bn} == 0, got "
-                         f"Cin={k} Cout={n}")
-    if w_ > MAX_WIDTH_3X3:
-        raise ValueError(f"{CONV2}: needs W <= {MAX_WIDTH_3X3}, got W={w_}")
-    y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
-    part_rows = sm_count(x.device)  # one partial per persistent CTA, one CTA per SM at most
-    part, stats = stats_scratch((2, part_rows, n), n, x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.bdv_conv3x3_affine_relu_stats(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
-        part_rows, stats.data_ptr(), nt, h, w_, k, n, stream,
-    )
-    _build.check(lib, code, CONV2)
-    _build.LAUNCHES[CONV2] += 1
-    return y, stats[0], stats[1]
+    check_affine(CONV2, x.shape[-1], a, b, x.device)
+    if x.dtype == torch.float32:
+        out = _conv3x3_f32(x, w, a, b)
+    else:
+        out = aligned_call(_conv3x3_wgmma, x, w, a, b)
+    _build.LAUNCHES[counter] += 1
+    return out
 
 
 def _epilogue_lib() -> ctypes.CDLL:
@@ -214,7 +255,7 @@ def _epilogue_lib() -> ctypes.CDLL:
         lib.bdv_bn_finalize.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         lib.bdv_affine_residual_relu.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.bdv_block_epilogue_max_channels.argtypes = []
         for fn in (lib.bdv_bn_finalize, lib.bdv_affine_residual_relu,
                    lib.bdv_block_epilogue_max_channels):
@@ -224,21 +265,10 @@ def _epilogue_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_packs(name: str, c: int, *tensors: torch.Tensor) -> None:
-    """The tail kernels move 16-byte packs: C % 8 == 0 and every operand
-    16-byte aligned."""
-    if c % 8:
-        raise ValueError(f"{name}: needs C % 8 == 0, got C={c}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: every operand must start on a 16-byte boundary (a "
-                         "channel-sliced view does not)")
-
-
 def _bn_finalize_cuda(s, q, gamma, beta, count, eps):
     c = s.numel()
     check_affine(FINALIZE, c, s, q, s.device)
     check_affine(FINALIZE, c, gamma, beta, s.device)
-    _check_packs(FINALIZE, c, s, q, gamma, beta)
     out = torch.empty((4, c), dtype=torch.float32, device=s.device)
     lib = _epilogue_lib()
     code = lib.bdv_bn_finalize(s.data_ptr(), q.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
@@ -250,8 +280,7 @@ def _bn_finalize_cuda(s, q, gamma, beta, count, eps):
 
 
 def _affine_residual_relu_cuda(y, a, b, x):
-    if y.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
-        raise TypeError(f"{EPILOGUE}: the kernel takes bfloat16, got {y.dtype} + {x.dtype}")
+    counter = launch_name(EPILOGUE, y.dtype, x.dtype)
     if y.shape != x.shape or y.dim() == 0:
         raise ValueError(f"{EPILOGUE}: shapes {tuple(y.shape)} + {tuple(x.shape)}")
     if x.device != y.device:
@@ -260,16 +289,15 @@ def _affine_residual_relu_cuda(y, a, b, x):
         raise ValueError(f"{EPILOGUE}: operands must be contiguous (NHWC)")
     c = y.shape[-1]
     check_affine(EPILOGUE, c, a, b, y.device)
-    _check_packs(EPILOGUE, c, y, x, a, b)
     lib = _epilogue_lib()
     if c > lib.max_channels:
         raise ValueError(f"{EPILOGUE}: needs C <= {lib.max_channels}, got C={c}")
     out = torch.empty_like(y)
     code = lib.bdv_affine_residual_relu(
         y.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), c,
-        sm_count(y.device), torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(lib, code, EPILOGUE)
-    _build.LAUNCHES[EPILOGUE] += 1
+        y.element_size(), sm_count(y.device), torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, code, counter)
+    _build.LAUNCHES[counter] += 1
     return out
 
 
@@ -280,15 +308,16 @@ def _forward_only(name: str, *tensors: torch.Tensor) -> None:
 
 
 def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
-    """y = x @ w over x's channels (NHWC, f32 accumulate) + per-channel
-    sum(y) and sum(y^2) of the rounded y. x (NT, H, W, K), w (K, N)."""
+    """y = x @ w over x's channels (NHWC, f32 accumulate, rounded to x's
+    dtype) + per-channel sum(y) and sum(y^2) of the rounded y. x (NT, H, W,
+    K), w (K, N)."""
     _forward_only(CONV1, x, w)
     return _build.dispatch(CONV1, x, partial(gemm_stats_cuda, CONV1), gemm_stats_plain, x, w)
 
 
 def conv1x1_affine_relu_stats(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                               w: torch.Tensor):
-    """y = bf16(relu(x * a + b)) @ w + stats; a, b (K,) (cast to f32)."""
+    """y = x.dtype(relu(x * a + b)) @ w + stats; a, b (K,) (cast to f32)."""
     k = x.shape[-1]
     a, b = a.reshape(k).float(), b.reshape(k).float()
     _forward_only(CONV3, x, a, b, w)
@@ -321,8 +350,8 @@ def bn_finalize(s: torch.Tensor, q: torch.Tensor, gamma: torch.Tensor, beta: tor
 
 def affine_residual_relu(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          x: torch.Tensor) -> torch.Tensor:
-    """bf16(relu(f32(y) * a + b + f32(x))) over NHWC bf16 y and x, with a, b
-    f32 (C,) per channel: the block's last pass."""
+    """x.dtype(relu(f32(y) * a + b + f32(x))) over NHWC y and x of one dtype
+    (bf16 or f32), with a, b f32 (C,) per channel: the block's last pass."""
     _forward_only(EPILOGUE, y, a, b, x)
     return _build.dispatch(EPILOGUE, y, _affine_residual_relu_cuda, affine_residual_relu_plain,
                            y, a, b, x)

@@ -8,11 +8,12 @@ per-channel sum and sum of squares from the pass that produces the output,
 computed on the ROUNDED bf16 output so they equal a reduction over the stored
 tensor. ``gemm_with_stats`` is the same function on a 2-D (M, K) operand.
 
-On a CUDA tensor the forward is a hand-written kernel, chosen by dtype:
+On a CUDA tensor the forward is a hand-written kernel, chosen by dtype
+(``launch_name``), with or without the block's prologue relu(x * a + b):
 bfloat16 runs ``csrc/conv1x1_stats.cu`` on the persistent wgmma core of
-``csrc/gemm_stats_sm90.cuh`` (with or without the block's prologue; K and N
-not multiples of 8 are zero-padded for the TMA), float32 the FFMA kernel of
-``csrc/gemm_stats_f32.cu`` (any M, K, N; its launches count under the
+``csrc/gemm_stats_sm90.cuh`` (K and N not multiples of 8 are zero-padded
+for the TMA, a and b with zeros: ``aligned_call``), float32 the FFMA kernel
+of ``csrc/gemm_stats_f32.cu`` (any M, K, N; its launches count under the
 wrapper's name + ``"_f32"``); any other dtype raises. On a CPU tensor it is
 ``gemm_stats_plain``; ``interpret=True`` names the plain version
 on every device, the counterpart of JAX's Pallas interpreter
@@ -41,8 +42,6 @@ GEMM_KERNEL = "gemm_with_stats"
 F32 = "_f32"  # the float32 kernel's launches count under the wrapper's name + F32
 KERNEL_F32, GEMM_KERNEL_F32 = KERNEL + F32, GEMM_KERNEL + F32
 EPS = 1e-5
-# the wgmma core with the block's prologue steps K by 64 and needs N % 64 == 0
-MIN_BLOCK_N = 64
 # the TMA's 16-byte global strides in bf16 elements: K % 8 == 0 and N % 8 == 0
 TMA_ALIGN = 8
 
@@ -71,8 +70,6 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.bdv_conv1x1_affine_relu_stats.restype = ctypes.c_int
-        lib.bdv_wgmma_stats_block_k.argtypes = []
-        lib.bdv_wgmma_stats_block_k.restype = ctypes.c_int
         lib.bdv_wgmma_stats_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p]
         lib.bdv_wgmma_stats_plan.restype = ctypes.c_int
@@ -88,6 +85,16 @@ def _f32_lib() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.bdv_gemm_stats_f32.restype = ctypes.c_int
+        lib.bdv_gemm_affine_relu_stats_f32.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.bdv_gemm_affine_relu_stats_f32.restype = ctypes.c_int
+        lib.bdv_conv3x3_affine_relu_stats_f32.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.bdv_conv3x3_affine_relu_stats_f32.restype = ctypes.c_int
         lib.bdv_gemm_stats_f32_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                                 ctypes.c_void_p]
         lib.bdv_gemm_stats_f32_plan.restype = ctypes.c_int
@@ -132,18 +139,24 @@ def launch_name(name: str, x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
     return name + F32 if x_dtype == torch.float32 else name
 
 
-def aligned_call(fwd, x: torch.Tensor, w: torch.Tensor, align: int = TMA_ALIGN):
-    """``fwd(x, w)`` on x (..., K) and w (K, N) zero-padded to K and N multiples
-    of ``align``, with y and the statistics cut back to N columns. x's zero
-    columns meet w's zero rows, and w's zero columns give zero columns of y:
-    neither changes y or the statistics."""
-    k, n = w.shape
+def aligned_call(fwd, x: torch.Tensor, w: torch.Tensor, a: Optional[torch.Tensor] = None,
+                 b: Optional[torch.Tensor] = None, align: int = TMA_ALIGN):
+    """``fwd(x, w)``, or with a prologue ``fwd(x, w, a, b)``, on x (..., K) and w
+    (..., K, N) (a 1x1's (K, N), or a 3x3's (3, 3, K, N): each tap's rows)
+    zero-padded to K and N multiples of ``align``, a and b (K,) with zeros,
+    with y and the statistics cut back to N columns. x's zero channels stay
+    zero through the prologue (relu(0 * 0 + 0)) and meet w's zero rows, and
+    w's zero columns give zero columns of y: neither changes y or the
+    statistics."""
+    k, n = w.shape[-2:]
     pad_k, pad_n = -k % align, -n % align
+    affine = () if a is None else (a, b)
     if not (pad_k or pad_n):
-        return fwd(x, w)
+        return fwd(x, w, *affine)
     if pad_k:
         x = F.pad(x, (0, pad_k))
-    y, s1, s2 = fwd(x, F.pad(w, (0, pad_n, 0, pad_k)))
+        affine = tuple(F.pad(v, (0, pad_k)) for v in affine)
+    y, s1, s2 = fwd(x, F.pad(w, (0, pad_n, 0, pad_k)), *affine)
     return y[..., :n].contiguous(), s1[:n], s2[:n]
 
 
@@ -172,18 +185,27 @@ def _wgmma_stats(name: str, x: torch.Tensor, w: torch.Tensor,
     return y, stats[0], stats[1]
 
 
-def _f32_stats(name: str, x: torch.Tensor, w: torch.Tensor):
-    """The float32 FFMA kernel on x (..., K) and w (K, N), any K and N."""
+def _f32_stats(name: str, x: torch.Tensor, w: torch.Tensor,
+               a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
+    """The float32 FFMA kernel on x (..., K) and w (K, N), any K and N; with
+    (a, b), on relu(x * a + b)."""
     lib = _f32_lib()
     k, n = w.shape
     m = x.numel() // k
     y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     part_rows = gemm_plan.f32_plan(m, n).m_tiles  # one partial per 128-row tile
     part, stats = stats_scratch((2, part_rows, n), n, x.device)
-    code = lib.bdv_gemm_stats_f32(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), part_rows, stats.data_ptr(),
-        m, k, n, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if a is None:
+        code = lib.bdv_gemm_stats_f32(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), part_rows,
+            stats.data_ptr(), m, k, n, stream,
+        )
+    else:
+        code = lib.bdv_gemm_affine_relu_stats_f32(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            part.data_ptr(), part_rows, stats.data_ptr(), m, k, n, stream,
+        )
     _build.check(lib, code, name + F32)
     return y, stats[0], stats[1]
 
@@ -192,9 +214,8 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
                     a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
     """Launch the GEMM-with-statistics kernel of x's dtype on the rows of x
     (..., K) and w (K, N): float32 on the FFMA kernel, bfloat16 on the wgmma
-    core; with (a, b), bf16 only, on the rows of bf16(relu(x * a + b)).
-    Counts one launch under ``launch_name``. Returns y (..., N), s1 (N,),
-    s2 (N,)."""
+    core; with (a, b), on the rows of relu(x * a + b) in x's dtype. Counts
+    one launch under ``launch_name``. Returns y (..., N), s1 (N,), s2 (N,)."""
     if x.dim() < 2 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
     counter = launch_name(name, x.dtype, w.dtype)
@@ -202,20 +223,12 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{name}: operands on {x.device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous (row-major x, (K, N) w)")
-    k, n = w.shape
     if a is not None:
-        check_affine(name, k, a, b, x.device)
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the prologue kernel takes bfloat16, got {x.dtype}")
-        bk = _lib().bdv_wgmma_stats_block_k()  # the prologue's a, b are read per K step
-        if k % bk or n % MIN_BLOCK_N:
-            raise ValueError(f"{name}: needs K % {bk} == 0 and N % {MIN_BLOCK_N} == 0, got "
-                             f"K={k} N={n}")
-        out = _wgmma_stats(name, x, w, a, b)
-    elif x.dtype == torch.float32:
-        out = _f32_stats(name, x, w)
+        check_affine(name, w.shape[0], a, b, x.device)
+    if x.dtype == torch.float32:
+        out = _f32_stats(name, x, w, a, b)
     else:
-        out = aligned_call(partial(_wgmma_stats, name), x, w)
+        out = aligned_call(partial(_wgmma_stats, name), x, w, a, b)
     _build.LAUNCHES[counter] += 1
     return out
 

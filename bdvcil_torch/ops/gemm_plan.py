@@ -5,11 +5,22 @@ shapes they serve.
 ``gemm_with_stats``, #6 the block's conv1, #7 its conv3 and #8 the 3x3, in
 bf16) computes y = A @ w in 128-row tiles of ``block_n`` columns on a
 persistent grid of at most one CTA per SM; ``sm90::make_plan`` picks the
-width and the grid per shape, and ``kernel_plan`` reads that choice back for
-reports and tests. Nothing here sizes its launch: the wrappers give the
-kernel one partial row per SM.
+width and the grid per shape (``wgmma_plan`` is its Python copy), and
+``kernel_plan`` reads that choice back for reports and tests. Nothing here
+sizes its launch: the wrappers give the kernel one partial row per SM.
 
-``csrc/gemm_stats_f32.cu`` (#3 and #4 in float32) runs one CTA per 128 x
+The 3x3 (``sm90::conv3x3_plan``, Python copy ``conv3x3_plan``) also reads,
+for each 128-row tile and 64-channel slice, a window of 128 + 2 W + 2 rows of
+x into shared memory, twice buffered, in TMA boxes of at most 256 rows
+(``window_plan``); where two windows and the widest ring of w do not fit a
+CTA's 227 KB, it takes fewer ring stages (at least 2), then a narrower tile.
+``conv3x3_max_width`` is the widest image that still fits, for a channel
+count; the wrapper refuses a wider one with that number. Channel counts
+that are not multiples of 8 are zero-padded by the wrapper
+(``conv1x1_bn.aligned_call``), and the plan is made for the padded counts.
+
+``csrc/gemm_stats_f32.cu`` (every float32 stats kernel: #3, #4, #6, #7 and
+#8) runs one CTA per 128 x
 ``block_n`` tile and one partial row per 128-row tile. ``f32_plan`` is the
 Python copy of its ``make_plan``; the wrapper sizes the partials with it and
 the kernel refuses a count that is not its own. ``f32_kernel_plan`` reads
@@ -27,6 +38,13 @@ import torch
 from . import _build
 
 BLOCK_M = 128
+BLOCK_K = 64  # the wgmma core's K step: a 3x3 channel slice
+TILE_OVERHEAD = 32  # make_plan's cost model
+MAX_SMEM = 232448  # the most shared memory one CTA may have on sm_90 (227 KB)
+MAX_BOX_ROWS = 256  # a TMA box's most rows
+A_BYTES = BLOCK_M * BLOCK_K * 2  # one bf16 A tile
+# the 3x3's most ring stages per tile width (sm90::Layout<BN, kIm2col>::kMaxStages)
+CONV3X3_MAX_STAGES = {256: 3, 128: 4, 64: 6}
 F32_BLOCK_M = 128  # the FFMA kernel's tile rows
 
 
@@ -38,6 +56,21 @@ class Plan(NamedTuple):
     n_tiles: int
     tiles: int
     grid: int
+
+
+class Conv3x3Plan(NamedTuple):
+    """The 3x3's tiles (``Plan``'s fields), its ring stages, its window's TMA
+    boxes of ``box_rows`` rows, and the CTA's shared memory in bytes."""
+
+    block_n: int
+    m_tiles: int
+    n_tiles: int
+    tiles: int
+    grid: int
+    stages: int
+    boxes: int
+    box_rows: int
+    smem: int
 
 
 class F32Plan(NamedTuple):
@@ -59,6 +92,89 @@ def kernel_plan(m: int, n: int, device: torch.device) -> Plan:
     _build.check(lib, lib.bdv_wgmma_stats_plan(m, n, sm_count(device), out),
                  "bdv_wgmma_stats_plan")
     return Plan(*out)
+
+
+def wgmma_plan(m: int, n: int, sms: int) -> Plan:
+    """``sm90::make_plan``: among the widths that divide N rounded up to 64,
+    the fewest column-time units on the busiest SM, ceil(tiles / SMs) * (BN +
+    32); a tie goes to the wider tile. grid = min(tiles, sms)."""
+    if m <= 0 or n <= 0 or sms <= 0:
+        raise ValueError(f"wgmma_plan: M={m} N={n} SMs={sms}")
+    best, best_cost = None, None
+    m_tiles, n64 = -(-m // BLOCK_M), -(-n // 64) * 64
+    for bn in (256, 128, 64):
+        if n64 % bn:
+            continue
+        tiles = m_tiles * (n64 // bn)
+        cost = -(-tiles // sms) * (bn + TILE_OVERHEAD)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = Plan(bn, m_tiles, n64 // bn, tiles, min(tiles, sms)), cost
+    return best
+
+
+def window_plan(w: int):
+    """(boxes, box_rows) of the 3x3's window of 128 + 2 W + 2 rows: one box of
+    exactly the window where it fits, else ceil(rows / 256) equal boxes of
+    rows rounded up to 8 (each starts on a period of the 128-byte swizzle)."""
+    rows = BLOCK_M + 2 * w + 2
+    boxes = -(-rows // MAX_BOX_ROWS)
+    return boxes, rows if boxes == 1 else -(-(-(-rows // boxes)) // 8) * 8
+
+
+def conv3x3_smem(block_n: int, stages: int, w: int, c: int) -> int:
+    """Shared memory of one 3x3 CTA (``sm90::Layout`` + 1024 bytes of
+    alignment slack): the ring of w, two A tiles, two windows, the
+    statistics' cross-warp sums, the barriers, and a, b over C rounded up to
+    64 channels."""
+    boxes, box_rows = window_plan(w)
+    win_bytes = -(-boxes * box_rows * 128 // 1024) * 1024
+    red = stages * BLOCK_K * block_n * 2 + 2 * A_BYTES + 2 * win_bytes
+    bar = red + 2 * 8 * block_n * 4
+    ab = -(-(bar + (2 * stages + 4) * 8) // 16) * 16
+    return 1024 + ab + 8 * (-(-c // BLOCK_K) * BLOCK_K)
+
+
+def conv3x3_plan(m: int, n: int, w: int, c: int, sms: int) -> Conv3x3Plan:
+    """``sm90::conv3x3_plan`` for M = NT*H*W pixels of width W, C channels in
+    and N out (both multiples of 8): ``wgmma_plan``'s width with the most ring
+    stages that fit, then narrower widths; ValueError where not even 64
+    columns and 2 stages fit."""
+    first = wgmma_plan(m, n, sms)
+    boxes, box_rows = window_plan(w)
+    n64 = -(-n // 64) * 64
+    bn = first.block_n
+    while bn >= 64:
+        for stages in range(CONV3X3_MAX_STAGES[bn], 1, -1):
+            smem = conv3x3_smem(bn, stages, w, c)
+            if smem <= MAX_SMEM:
+                tiles = first.m_tiles * (n64 // bn)
+                return Conv3x3Plan(bn, first.m_tiles, n64 // bn, tiles, min(tiles, sms),
+                                   stages, boxes, box_rows, smem)
+        bn //= 2
+    raise ValueError(f"conv3x3_affine_relu_stats: needs W <= {conv3x3_max_width(c)} at "
+                     f"Cin={c} (two windows of 128 + 2 W + 2 rows in a CTA's shared "
+                     f"memory), got W={w}")
+
+
+def conv3x3_max_width(c: int) -> int:
+    """The widest image the bf16 3x3 takes at C (a multiple of 8) input
+    channels: 64 columns, 2 ring stages and two windows within MAX_SMEM."""
+    w = 1
+    while conv3x3_smem(64, 2, w + 1, c) <= MAX_SMEM:
+        w += 1
+    return w
+
+
+def conv3x3_kernel_plan(m: int, n: int, w: int, c: int, device: torch.device) -> Conv3x3Plan:
+    """The plan the bf16 3x3 kernel makes on ``device``, as its C side reports it."""
+    from .block_fused import _conv3x3_lib
+    from .conv1x1_bn import sm_count
+
+    lib = _conv3x3_lib()
+    out = (ctypes.c_int * 9)()
+    _build.check(lib, lib.bdv_conv3x3_stats_plan(m, n, w, c, sm_count(device), out),
+                 "bdv_conv3x3_stats_plan")
+    return Conv3x3Plan(*out)
 
 
 def f32_plan(m: int, n: int) -> F32Plan:

@@ -19,10 +19,12 @@ host clock over ``--reps`` calls issued back to back, the card running
 behind; for the block, the host time of its seven wrapper calls), and, from
 the build's ``nvcc -Xptxas -v`` logs, each kernel's registers, shared
 memory and spills; then one ``device`` line per kernel of the kernel table
-(#1-#9b, and #3 and #4 in float32), its device ms summed over the same run
-of its path as ``chip_smoke.py``'s kernels line times: #1-#3 one train
+(#1-#9b, #3 and #4 in float32, and #6-#9b in float32: the block's float32
+kernels and the float32 block at layer1), its device ms summed over the same
+run of its path as ``chip_smoke.py``'s kernels line times: #1-#3 one train
 forward (#2 its backward) of batch 16, #4 and #5 one call a shape (#5
-forward and reverse), #6-#9b one layer1 block.
+forward and reverse), #6-#9b one layer1 block; and #8 in bf16 at W = 64
+(128 x 64 x 64, 64 -> 64: layer1 at a 256² input, two TMA boxes a window).
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
@@ -148,13 +150,58 @@ def kernel_table(rows):
         "#5 temporal_shift": sum(device_ms(r) for r in of(tsm.SHIFT)),
         "#6 block_conv1x1_stats": conv[GEMM_SHAPES[0]],
         "#7 conv1x1_affine_relu_stats": device_ms(of("conv1x1_affine_relu_stats")[0]),
-        "#8 conv3x3_affine_relu_stats": device_ms(of("conv3x3_affine_relu_stats")[0]),
-        "#9 fused_bottleneck_fwd": device_ms(of("fused_bottleneck_fwd", **layer1)[0]),
+        "#8 conv3x3_affine_relu_stats": device_ms(of("conv3x3_affine_relu_stats", **layer1)[0]),
+        "#9 fused_bottleneck_fwd": device_ms(of("fused_bottleneck_fwd", dtype=None,
+                                                **layer1)[0]),
         "#9a block_bn_finalize x3": finalize[c] + 2 * finalize[cm],
         "#9b block_affine_residual_relu": device_ms(of(bf.EPILOGUE, **layer1)[0]),
         "#3 f32 conv1x1_with_stats_f32": per_path(KERNEL_F32),
         "#4 f32 gemm_with_stats_f32": sum(conv_f32[s] for s in GEMM_SHAPES),
+        "#6 f32 block_conv1x1_stats_f32": device_ms(of(bf.CONV1_F32)[0]),
+        "#7 f32 conv1x1_affine_relu_stats_f32": device_ms(of(bf.CONV3_F32)[0]),
+        "#8 f32 conv3x3_affine_relu_stats_f32": device_ms(of(bf.CONV2_F32)[0]),
+        "#9b f32 block_affine_residual_relu_f32": device_ms(of(bf.EPILOGUE_F32)[0]),
+        "#9 f32 fused_bottleneck_fwd": device_ms(of("fused_bottleneck_fwd", dtype="float32")[0]),
+        "#8 bf16 W=64 conv3x3_affine_relu_stats": device_ms(of("conv3x3_affine_relu_stats",
+                                                              hw=64)[0]),
     }
+
+
+def f32_block_rows(gen, dev, reps):
+    """The block's float32 kernels (#6, #7, #8, #9b) and the float32 block at
+    layer1 (128 x 56 x 56, 256 -> 64 -> 64 -> 256), and #8 in bf16 at W = 64."""
+    nt, hw, c, cm = 128, 56, 256, 64
+    rows, f32 = [], torch.float32
+    x = torch.randn((nt, hw, hw, c), generator=gen, device=dev)
+    y = torch.randn((nt, hw, hw, cm), generator=gen, device=dev)
+    a = torch.rand((cm,), generator=gen, device=dev) + 0.5
+    b = torch.rand((cm,), generator=gen, device=dev) * 0.5 + 0.1
+    p = bf.make_params(torch.Generator().manual_seed(0), c=c, cm=cm, dtype=f32, device=dev)
+    w1, w2, w3 = p.w1.contiguous(), p.w2.contiguous(), p.w3.contiguous()
+    y3 = torch.randn((nt, hw, hw, c), generator=gen, device=dev)  # its own bytes, not x's
+    a3, b3 = torch.rand((c,), generator=gen, device=dev) + 0.5, p.b3
+    calls = [(bf.CONV1_F32, [nt * hw * hw, c, cm], lambda: bf.conv1x1_stats(x, w1)),
+             (bf.CONV3_F32, [nt * hw * hw, cm, c], lambda: bf.conv1x1_affine_relu_stats(
+                 y, a, b, w3)),
+             (bf.CONV2_F32, [nt, hw, hw, cm, cm], lambda: bf.conv3x3_affine_relu_stats(
+                 y, a, b, w2)),
+             (bf.EPILOGUE_F32, [nt, hw, hw, c], lambda: bf.affine_residual_relu(y3, a3, b3, x)),
+             ("fused_bottleneck_fwd", [nt, hw, hw, c, cm], lambda: bf.fused_bottleneck_fwd(x, p))]
+    for name, shape, fn in calls:
+        rows.append(dict(kernel=name, shape=shape, dtype="float32", hw=hw,
+                         us=kernel_split(fn, reps)))
+    del x, y, y3, p, w1, w2, w3
+    wide = 64  # #8 in bf16 at W = 64: its window in two TMA boxes
+    yb = torch.randn((nt, wide, wide, cm), generator=gen, device=dev).to(torch.bfloat16)
+    w2b = (torch.randn((3, 3, cm, cm), generator=gen, device=dev) / math.sqrt(9 * cm)).to(
+        torch.bfloat16)
+    rows.append(dict(kernel="conv3x3_affine_relu_stats", shape=[nt, wide, wide, cm, cm],
+                     hw=wide, plan=gemm_plan.conv3x3_kernel_plan(nt * wide * wide, cm, wide, cm,
+                                                                 dev)._asdict(),
+                     us=kernel_split(lambda: bf.conv3x3_affine_relu_stats(yb, a, b, w2b), reps)))
+    del yb, w2b
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> int:
@@ -189,9 +236,12 @@ def main(argv=None) -> int:
         b = torch.rand((c,), generator=gen, device=dev) * 0.5 + 0.1
         w = (torch.randn((3, 3, c, n), generator=gen, device=dev) / math.sqrt(9 * c)).to(bf16)
         split = kernel_split(lambda: bf.conv3x3_affine_relu_stats(x, a, b, w), args.reps)
-        rows.append(dict(kernel="conv3x3_affine_relu_stats", shape=[nt, h, w_, c, n],
-                         plan=gemm_plan.kernel_plan(nt * h * w_, n, dev)._asdict(), us=split))
+        rows.append(dict(kernel="conv3x3_affine_relu_stats", shape=[nt, h, w_, c, n], hw=h,
+                         plan=gemm_plan.conv3x3_kernel_plan(nt * h * w_, n, w_, c,
+                                                            dev)._asdict(), us=split))
         del x, a, b, w
+    with torch.no_grad():
+        rows += f32_block_rows(gen, dev, args.reps)
     for m, k, n in gemm_plan.R50_1X1_AFFINE_SHAPES:  # #7, the block's conv3, at each width
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         a = torch.rand((k,), generator=gen, device=dev) + 0.5

@@ -32,7 +32,9 @@ The other entry points, each with its own kernels:
          each of the other three stride-1 widths
          -> block_conv1x1_stats, conv3x3_affine_relu_stats,
             conv1x1_affine_relu_stats and block_affine_residual_relu, one
-            each per block forward, block_bn_finalize three
+            each per block forward, block_bn_finalize three; in float32
+            (phase 20) their float32 kernels, launches counted under the
+            same names + "_f32"
   gemm   gemm_with_stats, forward and VJP, at the eight ResNet-50 1x1 shapes
          -> gemm_with_stats
   shift  temporal_shift_kernel, forward and VJP, at the block inputs of the
@@ -245,6 +247,23 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      bf16 step; (c) ``train_cil.main`` on a config A file that names no
      ``compute_dtype`` (the trainer's float32), one task at phase 10's cut:
      the f32 kernel 32 launches a train step, finite accuracies.
+ 20. block dtypes, the block probe at every dtype and shape the JAX ops
+     take, TF32 off: (a) ``fused_bottleneck_fwd`` in float32 at the four
+     stride-1 widths (128 frames): #6, #7 and #8 f32 (``gemm_stats_f32.cu``)
+     against their plain versions (y rtol 1e-5,
+     atol 1e-6 of max |y|, the statistics rtol 1e-4; a second run bit for
+     bit), #9b f32 bit for bit (a NaN pack included), the block against its
+     plain composition and against ``plain_bottleneck_fwd`` (every output
+     within 1e-4 of the terms' size, (mean, var) rtol 1e-4), one launch of
+     each f32 kernel and three finalizes a block and no bf16 launch, the
+     chained ms of a layer1 block; (b) bf16 #6, #7 and #8 at the JAX tests'
+     geometries (c=64, cm=16 at 14²; c=32, cm=8 at 7²; the blocks too), #7
+     and #8 at W = 64 (128 frames: layer1 at a 256² input) and W = 112, and
+     at Cin 12 (the wrapper's zero padding): y within one bf16 ulp, the 3x3's
+     C plan equal to ``gemm_plan.conv3x3_plan``; (c) the bf16 core's #7 and
+     #8 at the R50 shapes equal to checksums recorded before it took any
+     channel count and width (``BLOCK_CORE_CHECKSUMS``); (d) the f32 rows
+     and #8 bf16 at W = 64 timed as phase 2's.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -290,6 +309,9 @@ CONV_F32, GEMM_F32 = CONV + "_f32", GEMM + "_f32"
 CONV1, CONV2, CONV3 = ("block_conv1x1_stats", "conv3x3_affine_relu_stats",
                        "conv1x1_affine_relu_stats")
 FINALIZE, EPILOGUE = "block_bn_finalize", "block_affine_residual_relu"
+# the block's float32 kernels (ops/block_fused.CONV1_F32, ...)
+CONV1_F32, CONV2_F32, CONV3_F32, EPILOGUE_F32 = (CONV1 + "_f32", CONV2 + "_f32", CONV3 + "_f32",
+                                                 EPILOGUE + "_f32")
 # per kernel: its source, the TPU kernel it replaces, and what its library
 # yardstick computes (None: no one PyTorch call computes the same function)
 MATMUL_SUMS = "torch.matmul + two f32 sums"
@@ -315,6 +337,15 @@ KERNEL_META = {
                F32_MATMUL_SUMS),
     GEMM_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37",
                F32_MATMUL_SUMS),
+    CONV1_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:96",
+                F32_MATMUL_SUMS),
+    CONV3_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:73",
+                F32_MATMUL_SUMS + " without the prologue: less work than the kernel"),
+    CONV2_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:110",
+                "F.conv2d (f32, TF32 off, channels_last) + two f32 sums without the prologue: "
+                "less work than the kernel"),
+    EPILOGUE_F32: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:290",
+                   None),
 }
 # the 1x1 shapes of tools/bench_gemm_stats.py (M = 16 clips x 8 frames x H x W)
 GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 512, 128),
@@ -535,6 +566,27 @@ def kernel_phase(dev, gen, paths, gemm_paths, tsm, conv):
     return rows
 
 
+def block_operands(dev, gen, nt, hw, c, cm, dtype):
+    """x (NT, H, W, C), y (NT, H, W, Cm), a, b (Cm,) with b > 0 on every channel
+    (a halo of relu(b) would show), w1 (C, Cm), w2 (3, 3, Cm, Cm), w3 (Cm, C)."""
+    x = torch.randn((nt, hw, hw, c), generator=gen, device=dev).to(dtype)
+    y = torch.randn((nt, hw, hw, cm), generator=gen, device=dev).to(dtype)
+    a = torch.rand((cm,), generator=gen, device=dev) + 0.5
+    b = torch.randn((cm,), generator=gen, device=dev).abs() * 0.5 + 0.1
+    w1 = (torch.randn((c, cm), generator=gen, device=dev) / math.sqrt(c)).to(dtype)
+    w2 = (torch.randn((3, 3, cm, cm), generator=gen, device=dev) / math.sqrt(9 * cm)).to(dtype)
+    w3 = (torch.randn((cm, c), generator=gen, device=dev) / math.sqrt(cm)).to(dtype)
+    return x, y, a, b, w1, w2, w3
+
+
+def same_twice(what, fn):
+    """fn() twice, the same bits both times; returns the first."""
+    first, again = fn(), fn()
+    if not all(torch.equal(u, v) for u, v in zip(first, again)):
+        raise AssertionError(f"{what}: a second run differs")
+    return first
+
+
 def assert_stats(what, got, ref):
     """y within one bf16 ulp of the plain version's, the statistics rtol 1e-3."""
     (y, s1, s2), (ry, rs1, rs2) = got, ref
@@ -655,13 +707,7 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
     for hw, c, cm in BLOCKS:
         per = 1 if (hw, c, cm) == BLOCKS[0] else 0
         m = NT * hw * hw
-        x = torch.randn((NT, hw, hw, c), generator=gen, device=dev).to(bf16)
-        y = torch.randn((NT, hw, hw, cm), generator=gen, device=dev).to(bf16)
-        a = torch.rand((cm,), generator=gen, device=dev) + 0.5
-        b = torch.randn((cm,), generator=gen, device=dev).abs() * 0.5 + 0.1
-        w1 = (torch.randn((c, cm), generator=gen, device=dev) / math.sqrt(c)).to(bf16)
-        w2 = (torch.randn((3, 3, cm, cm), generator=gen, device=dev) / math.sqrt(9 * cm)).to(bf16)
-        w3 = (torch.randn((cm, c), generator=gen, device=dev) / math.sqrt(cm)).to(bf16)
+        x, y, a, b, w1, w2, w3 = block_operands(dev, gen, NT, hw, c, cm, bf16)
         w2_lib = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         y_nchw = y.permute(0, 3, 1, 2)  # channels_last view, no copy
         cases = [
@@ -683,16 +729,14 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
             for variant in ("taps", "im2col")
         ]
         for name, shape, fn, plain, library, product, nbytes, flops, tile in cases:
-            first = fn()
+            # determinism: the same statistics, bit for bit
+            first = same_twice(f"{name} {shape}", fn)
             err = assert_stats(f"{name} {shape}", first, plain())
-            again = fn()  # determinism: the same statistics, bit for bit
-            if not all(torch.equal(u, v) for u, v in zip(first, again)):
-                raise AssertionError(f"{name} {shape}: a second run differs")
             # the two variant names are one kernel: count its layer1 time once
             weight = per if shape[-1] != "im2col" else 0
             rows.append(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
                                   product=product, tile=tile))
-            del first, again
+            del first
         del y, w1, w2, w3, w2_lib, y_nchw
         rows += block_tail_rows(dev, gen, x, cm, per, bf)
         del x
@@ -705,12 +749,10 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
         a = torch.rand((k,), generator=gen, device=dev) + 0.5
         b = torch.rand((k,), generator=gen, device=dev) * 0.5 + 0.1
         w3 = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
-        first = bf.conv1x1_affine_relu_stats(y, a, b, w3)
+        first = same_twice(f"{CONV3} ragged {(m, k, n)}",
+                           lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3))
         assert_stats(f"{CONV3} ragged {(m, k, n)}", first,
                      bf.conv1x1_affine_relu_stats_plain(y, a, b, w3))
-        if not all(torch.equal(u, v) for u, v in zip(first, bf.conv1x1_affine_relu_stats(
-                y, a, b, w3))):
-            raise AssertionError(f"{CONV3} ragged {(m, k, n)}: a second run differs")
         del y, a, b, w3, first
     return rows
 
@@ -3684,6 +3726,311 @@ def f32_phase(dev, gen, seed, smi, conv, bf16_step_ms):
     return out
 
 
+# --- phase 20: the block probe at every dtype and shape the JAX ops take -------------
+
+# the float32 block against its plain composition and the library block (TF32
+# off): every output within 1e-4 + 1e-4 x (|ref| + |x| + |b3|), and (mean, var)
+# rtol 1e-4, atol 1e-5 (f32 sums in another order, through three BatchNorms)
+F32_BLOCK_TOL, F32_BLOCK_STATS_RTOL, F32_BLOCK_STATS_ATOL = 1e-4, 1e-4, 1e-5
+F32_BLOCK_ITERS = 10
+# bf16 at the JAX tests' geometries, (NT, H = W, C, Cm) (tests/test_block_fused.py)
+JAX_TEST_BLOCKS = [(8, 14, 64, 16), (6, 7, 32, 8)]
+# #7 and #8 past one TMA box of window, (NT, W = H, Cin, Cout): W = 64 is
+# layer1 at a 256² input (the bench's --hw 64), W = 112 a 448² one
+WIDE_3X3 = [(NT, 64, 64, 64), (8, 112, 64, 64)]
+# channel counts the wrapper zero-pads to multiples of 8: (NT, H = W, Cin, Cout)
+PADDED_3X3 = (16, 14, 12, 20)
+# The bf16 core's (y, s1, s2) of #7 at the four R50 conv3 shapes and of #8 at
+# the four R50 3x3 shapes, on hashed operands (``block_core_checksums``), as
+# the kernels computed them before they took any channel count and width
+# (commit 8aeb367), on an H100 SXM (132 SMs)
+BLOCK_CORE_CHECKSUMS = {
+    "conv1x1_affine_relu_stats 401408x64x256": "7987134a7c3326af",
+    "conv1x1_affine_relu_stats 100352x128x512": "b29503f3b450b024",
+    "conv1x1_affine_relu_stats 25088x256x1024": "0d072e81b66c2973",
+    "conv1x1_affine_relu_stats 6272x512x2048": "c4cc046ed3d7ddab",
+    "conv3x3_affine_relu_stats 128x56x56x64x64": "1e9bed853c7f63be",
+    "conv3x3_affine_relu_stats 128x28x28x128x128": "88512a1abe0c1c47",
+    "conv3x3_affine_relu_stats 128x14x14x256x256": "7f80f070cb944fa8",
+    "conv3x3_affine_relu_stats 128x7x7x512x512": "1f15ca163a78a0bd",
+}
+
+
+def block_core_checksums(dev, bf):
+    """``checksum`` of the bf16 #7's and #8's (y, s1, s2) at the R50 shapes of
+    ``gemm_plan`` on ``hashed`` operands (a in [0.5, 1.5), b in [0, 0.5))."""
+    from bdvcil_torch.ops import gemm_plan
+
+    bf16, out = torch.bfloat16, {}
+    for m, k, n in gemm_plan.R50_1X1_AFFINE_SHAPES:
+        x = hashed((m, k), 3, dev).to(bf16)
+        a, b = hashed((k,), 4, dev) * 0.5 + 1.0, hashed((k,), 5, dev) * 0.25 + 0.25
+        w = (hashed((k, n), 6, dev) * 2.0 ** -4).to(bf16)
+        out[f"{CONV3} {m}x{k}x{n}"] = checksum(*bf.conv1x1_affine_relu_stats(x, a, b, w))
+    for nt, h, w_, c, n in gemm_plan.R50_3X3_SHAPES:
+        x = hashed((nt, h, w_, c), 7, dev).to(bf16)
+        a, b = hashed((c,), 8, dev) * 0.5 + 1.0, hashed((c,), 9, dev) * 0.25 + 0.25
+        w = (hashed((3, 3, c, n), 10, dev) * 2.0 ** -5).to(bf16)
+        out[f"{CONV2} {nt}x{h}x{w_}x{c}x{n}"] = checksum(
+            *bf.conv3x3_affine_relu_stats(x, a, b, w))
+    del x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_block_rows(dev, gen, hw, c, cm, per, bf, conv):
+    """#6, #7, #8 (both variant names) and #9b in float32 at one stride-1 width
+    (128 frames) against their plain versions, then timed; ``per`` weighs the
+    row into the kernels line (1 at layer1)."""
+    x, y, a, b, w1, w2, w3 = block_operands(dev, gen, NT, hw, c, cm, torch.float32)
+    m = NT * hw * hw
+    w2_lib = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    y_nchw = y.permute(0, 3, 1, 2)  # channels_last view, no copy
+    cases = [
+        (CONV1_F32, (m, c, cm), lambda: bf.conv1x1_stats(x, w1),
+         lambda: conv.gemm_stats_plain(x, w1), lambda: stats_of(torch.matmul(x, w1)),
+         lambda: torch.matmul(x, w1), 4 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm,
+         f32_tile_of(m, cm)),
+        (CONV3_F32, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
+         lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
+         lambda: stats_of(torch.matmul(y, w3)), lambda: torch.matmul(y, w3),
+         4 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, f32_tile_of(m, c)),
+    ] + [
+        (CONV2_F32, (NT, hw, hw, cm, cm, variant),
+         lambda v=variant: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
+         lambda v=variant: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v),
+         lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
+         lambda: F.conv2d(y_nchw, w2_lib, padding=1),
+         4 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm, f32_tile_of(m, cm))
+        for variant in bf.VARIANTS
+    ]
+    rows = []
+    for name, shape, fn, plain, library, product, nbytes, flops, tile in cases:
+        first = same_twice(f"{name} {shape}", fn)
+        err = assert_f32_stats(f"{name} {shape}", first, plain())
+        weight = per if shape[-1] != "im2col" else 0  # one kernel: count its time once
+        rows.append(dict(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
+                                   product=product, tile=tile, peak=PEAK_F32_FLOPS),
+                         dtype="float32"))
+        del first
+    del y, w1, w2, w3, w2_lib, y_nchw
+    y3 = torch.randn(x.shape, generator=gen, device=dev) * 3
+    y3.view(-1, c)[1, :4] = float("nan")
+    a3 = torch.rand((c,), generator=gen, device=dev) + 0.5
+    b3 = torch.randn((c,), generator=gen, device=dev) * 0.5
+    n_bad, err = bits_differ(bf.affine_residual_relu(y3, a3, b3, x),
+                             bf.affine_residual_relu_plain(y3, a3, b3, x))
+    if n_bad:
+        raise AssertionError(f"{EPILOGUE_F32} {tuple(x.shape)}: {n_bad} elements differ from "
+                             f"the plain version (max abs err {err})")
+    rows.append(dict(timed_row(EPILOGUE_F32, list(x.shape), per,
+                               lambda: bf.affine_residual_relu(y3, a3, b3, x),
+                               lambda: bf.affine_residual_relu_plain(y3, a3, b3, x), None,
+                               3 * m * c * 4 + 2 * c * 4, 4 * m * c, err, peak=PEAK_F32_FLOPS),
+                     dtype="float32"))
+    del x, y3
+    torch.cuda.empty_cache()
+    return rows
+
+
+def assert_f32_block_close(what, out, ref, terms):
+    """Every output finite and within F32_BLOCK_TOL of the terms' size."""
+    if out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: {out.dtype}, or not finite")
+    n_off, err = off_terms(out, ref, terms, F32_BLOCK_TOL)
+    if n_off:
+        raise AssertionError(f"{what}: {n_off} of {out.numel()} elements outside "
+                             f"{F32_BLOCK_TOL} (max abs err {err})")
+    return dict(max_abs_err=err, numel=out.numel())
+
+
+def f32_block_path(dev, seed, smi, bf):
+    """fused_bottleneck_fwd in float32 at the four stride-1 widths (both
+    variants at layer1) against its plain composition and the library block,
+    with the launches of every run; the chained ms of a layer1 block."""
+    from bdvcil_torch import bench_block_fused as bench
+    from bdvcil_torch.ops import _build
+
+    checks, blocks, forwards = {}, None, 0
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        for hw, c, cm in BLOCKS:
+            x, p = bench.block_inputs(NT, hw, c, cm, seed, dev, torch.float32)
+            lib, lib_stats = bf.plain_bottleneck_fwd(x, p)
+            for variant in bf.VARIANTS if (hw, c, cm) == BLOCKS[0] else ("taps",):
+                key = f"{NT}x{hw}x{hw}x{c}/{cm} {variant}"
+                out, stats = bf.fused_bottleneck_fwd(x, p, conv3x3_variant=variant)
+                forwards += 1
+                torch.cuda.synchronize()
+                ref, ref_stats = bf.fused_bottleneck_fwd_plain(x, p, conv3x3_variant=variant)
+                for want, against in ((ref_stats, "plain"), (lib_stats, "library")):
+                    for g, w in zip(stats, want):
+                        for u, v in zip(g, w):
+                            torch.testing.assert_close(
+                                u, v, rtol=F32_BLOCK_STATS_RTOL, atol=F32_BLOCK_STATS_ATOL,
+                                msg=lambda m: f"f32 block {key} stats vs {against}: {m}")
+                checks[key] = dict(
+                    vs_plain=assert_f32_block_close(f"f32 block {key} vs plain composition",
+                                                    out, ref, (x, p.b3)),
+                    vs_library=assert_f32_block_close(f"f32 block {key} vs library block",
+                                                      out, lib, (x, p.b3)))
+                del out, stats, ref, ref_stats
+            del lib, lib_stats
+            if (hw, c, cm) == BLOCKS[0]:
+                blocks = bench.time_blocks(x, p, F32_BLOCK_ITERS, dev)
+                forwards += 2 * (F32_BLOCK_ITERS + 2)  # two fused schedules, warm-up and chain
+            del x, p
+            torch.cuda.empty_cache()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = {CONV1_F32: forwards, CONV2_F32: forwards, CONV3_F32: forwards,
+            FINALIZE: 3 * forwards, EPILOGUE_F32: forwards}
+    if launches != want:
+        raise AssertionError(f"f32 block path: kernel launches {launches}, expected {want} "
+                             f"(no bf16 launch)")
+    return dict(checks=checks, launches=launches, iters=F32_BLOCK_ITERS,
+                **{f"{k}_ms_per_block": v for k, v in blocks.items()})
+
+
+def bf16_block_shapes(dev, gen, seed, bf, conv):
+    """The bf16 ops where the JAX ops take them and the R50 widths do not go:
+    the JAX tests' geometries (the ops and the block), #7 and #8 at W = 64 and
+    112, and at Cin 12 (zero-padded by the wrapper); each call counted. Returns
+    the checks and the timed #8 row at W = 64."""
+    from bdvcil_torch import bench_block_fused as bench
+    from bdvcil_torch.ops import _build, gemm_plan
+
+    bf16, rows, checks = torch.bfloat16, [], {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = collections.Counter()
+    _build.LAUNCHES.clear()
+
+    def check_op(name, what, fn, plain):
+        checks[what] = assert_stats(what, same_twice(what, fn), plain())
+        want[name] += 2
+
+    def check_3x3(what, y, a, b, w2):
+        nt, h, w_, cin = y.shape
+        cin8, cout8 = -(-cin // 8) * 8, -(-w2.shape[-1] // 8) * 8
+        plan = gemm_plan.conv3x3_kernel_plan(nt * h * w_, cout8, w_, cin8, dev)
+        if plan != gemm_plan.conv3x3_plan(nt * h * w_, cout8, w_, cin8, sms):
+            raise AssertionError(f"{what}: the kernel plans {plan}, gemm_plan "
+                                 f"{gemm_plan.conv3x3_plan(nt * h * w_, cout8, w_, cin8, sms)}")
+        for v in bf.VARIANTS:
+            check_op(CONV2, f"{what} {v}",
+                     lambda v=v: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
+                     lambda v=v: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v))
+        return plan
+
+    with torch.no_grad():
+        for nt, hw, c, cm in JAX_TEST_BLOCKS:
+            key = f"{nt}x{hw}x{hw}x{c}/{cm}"
+            x, y, a, b, w1, w2, w3 = block_operands(dev, gen, nt, hw, c, cm, bf16)
+            check_op(CONV1, f"{CONV1} {key}", lambda: bf.conv1x1_stats(x, w1),
+                     lambda: conv.gemm_stats_plain(x, w1))
+            check_op(CONV3, f"{CONV3} {key}", lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
+                     lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3))
+            check_3x3(f"{CONV2} {key}", y, a, b, w2)
+            xb, pb = bench.block_inputs(nt, hw, c, cm, seed, dev)
+            out, _ = bf.fused_bottleneck_fwd(xb, pb)
+            for name in (CONV1, CONV2, CONV3, EPILOGUE):
+                want[name] += 1
+            want[FINALIZE] += 3
+            ref, _ = bf.fused_bottleneck_fwd_plain(xb, pb)
+            checks[f"block {key}"] = assert_block_close(f"bf16 block {key} vs plain composition",
+                                                        out, ref, (xb, pb.b3))
+        plans = {}
+        for nt, w_, cin, cout in WIDE_3X3 + [PADDED_3X3]:
+            key = f"{nt}x{w_}x{w_}x{cin}/{cout}"
+            _, y, a, b, _, _, _ = block_operands(dev, gen, nt, w_, 8, cin, bf16)
+            w2 = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+                  / math.sqrt(9 * cin)).to(bf16)
+            w3 = (torch.randn((cin, 4 * cout), generator=gen, device=dev)
+                  / math.sqrt(cin)).to(bf16)
+            plan = check_3x3(f"{CONV2} {key}", y, a, b, w2)
+            plans[key] = plan._asdict()
+            check_op(CONV3, f"{CONV3} {key}", lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
+                     lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3))
+            if (nt, w_, cin, cout) == WIDE_3X3[0]:  # timed below, after the launch check
+                wide = (key, plan, y, a, b, w2)
+            del y, w2, w3
+            torch.cuda.empty_cache()
+        # #6 at K 13, N 6: padded in both
+        x = torch.randn((16, 14, 14, 13), generator=gen, device=dev).to(bf16)
+        w1 = (torch.randn((13, 6), generator=gen, device=dev) / math.sqrt(13)).to(bf16)
+        check_op(CONV1, f"{CONV1} 16x14x14x13/6", lambda: bf.conv1x1_stats(x, w1),
+                 lambda: conv.gemm_stats_plain(x, w1))
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != dict(want):
+        raise AssertionError(f"bf16 block shapes: kernel launches {launches}, expected "
+                             f"{dict(want)}")
+    # the #8 row at W = 64
+    key, plan, y, a, b, w2 = wide
+    nt, w_, cin, cout = WIDE_3X3[0]
+    m = nt * w_ * w_
+    y_nchw = y.permute(0, 3, 1, 2)
+    w2_lib = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    rows.append(dict(timed_row(
+        CONV2, (nt, w_, w_, cin, cout, "taps"), 0,
+        lambda: bf.conv3x3_affine_relu_stats(y, a, b, w2),
+        lambda: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2),
+        lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
+        2 * (m * cin + m * cout + 9 * cin * cout) + 16 * cin, 2 * m * 9 * cin * cout,
+        checks[f"{CONV2} {key} taps"], product=lambda: F.conv2d(y_nchw, w2_lib, padding=1),
+        tile=dict(block=[128, plan.block_n], tiles=plan.tiles, grid=plan.grid,
+                  waves=plan.tiles / sms, stages=plan.stages, boxes=plan.boxes,
+                  box_rows=plan.box_rows)), path="wide", dtype="bfloat16"))
+    del wide, y, w2, y_nchw, w2_lib
+    torch.cuda.empty_cache()
+    return dict(checks=checks, plans=plans, launches=launches, rows=rows)
+
+
+def block_dtype_phase(dev, gen, seed, smi, bf, conv):
+    """Phase 20: the block probe in float32 at the four stride-1 widths, in
+    bf16 at the JAX tests' geometries, wide images and padded channels, the
+    bf16 core's R50 outputs against recorded checksums, and the timed rows."""
+    t_phase = time.perf_counter()
+    out, rows = {}, []
+    with no_tf32():
+        for hw, c, cm in BLOCKS:  # (a) and (d): the f32 kernels at each width, timed
+            rows += f32_block_rows(dev, gen, hw, c, cm, 1 if (hw, c, cm) == BLOCKS[0] else 0,
+                                   bf, conv)
+        out["block"] = f32_block_path(dev, seed, smi, bf)
+    blk = out["block"]
+    print(f"block dtypes (a): fused_bottleneck_fwd in float32 at the four stride-1 widths "
+          f"(128 frames, TF32 off) within {F32_BLOCK_TOL} of the terms against its plain "
+          f"composition and the library block (max abs err "
+          f"{max(v['vs_plain']['max_abs_err'] for v in blk['checks'].values()):.3g} / "
+          f"{max(v['vs_library']['max_abs_err'] for v in blk['checks'].values()):.3g}), "
+          f"launches {blk['launches']}; layer1 chained {blk['fused_taps_ms_per_block']:.4f} ms "
+          f"a block (im2col {blk['fused_im2col_ms_per_block']:.4f}, library "
+          f"{blk['plain_ms_per_block']:.4f}) [{smi}]", flush=True)
+    out["bf16"] = bf16_block_shapes(dev, gen, seed, bf, conv)
+    rows += out["bf16"].pop("rows")
+    print(f"block dtypes (b): bf16 #6, #7, #8 and the block at the JAX tests' geometries, "
+          f"#7 and #8 at W = 64 and 112 and at Cin 12 within one bf16 ulp of the plain "
+          f"versions ({len(out['bf16']['checks'])} checks); 3x3 plans "
+          + "; ".join(f"{k}: {v['block_n']} columns, {v['stages']} stages, {v['boxes']} x "
+                      f"{v['box_rows']} rows" for k, v in out["bf16"]["plans"].items())
+          + f"; launches {out['bf16']['launches']} [{smi}]", flush=True)
+    checksums = block_core_checksums(dev, bf)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms == BF16_CORE_SMS and checksums != BLOCK_CORE_CHECKSUMS:
+        bad = {k: (v, BLOCK_CORE_CHECKSUMS.get(k)) for k, v in checksums.items()
+               if v != BLOCK_CORE_CHECKSUMS.get(k)}
+        raise AssertionError(f"the bf16 core's #7 / #8 outputs changed at the R50 shapes: {bad}")
+    out.update(checksums=checksums, checksums_held=sms == BF16_CORE_SMS)
+    print(f"block dtypes (c): the bf16 core's #7 and #8 outputs at the R50 shapes "
+          + ("equal the recorded ones bit for bit" if out["checksums_held"] else
+             f"not held ({sms} SMs, recorded at {BF16_CORE_SMS})") + f" [{smi}]", flush=True)
+    out["launches"] = {k: blk["launches"][k] for k in (CONV1_F32, CONV2_F32, CONV3_F32,
+                                                       EPILOGUE_F32)}
+    out["rows"] = rows
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"block dtypes phase {out['phase_s']:.1f} s [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
     """Per config, over 3 task-0 and 3 task-1 steps."""
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
@@ -3793,12 +4140,17 @@ def main(argv=None) -> int:
     f32 = f32_phase(dev, gen, args.seed, smi, conv,
                     (trains["A"]["task0_step_ms"], trains["A"]["task1_step_ms"]))
     rows += f32["rows"]
+    block_dtypes = block_dtype_phase(dev, gen, args.seed, smi, bf, conv)
+    for r in block_dtypes["rows"]:
+        print_row(r)
+    rows += block_dtypes["rows"]
 
     # the main path is config A in train_epochs fed by the loader: its run gives #3's count
     launches = {**trains["A"]["launches"], **trains["B"]["launches"], **fed["launches"],
                 **block["launches"], **gemm_launches, **shift_launches, **loop["launches"]}
     launches.update({k: cil["launches"][k] + acm["launches"][k] for k in (FWD, BWD)})
     launches.update(f32["launches"])
+    launches.update(block_dtypes["launches"])
     kernels = []
     for kname, (source, replaces, library_call) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == kname and r.get("path", CIL_PATH) == CIL_PATH]
@@ -3830,6 +4182,7 @@ def main(argv=None) -> int:
                   bench=benches,
                   studies=studies, graft=graft,
                   f32={k: v for k, v in f32.items() if k != "rows"},
+                  block_dtypes={k: v for k, v in block_dtypes.items() if k != "rows"},
                   kernels=kernels,
                   note="kernels: ms/plain_ms/bound_ms/library_ms summed over one run of the "
                        "kernel's path at its shapes (rows weighted by per_path): for #1 and #2 "
@@ -3848,7 +4201,9 @@ def main(argv=None) -> int:
                        "kernel (phase 19): #3 f32 a task-0 train forward of batch 16, its "
                        "launches phase 19 (b)'s two steps and (c)'s task; #4 f32 one call per "
                        "shape, its launches the f32 gemm path; its tile is its own plan "
-                       "(ops/gemm_plan.f32_kernel_plan), bound_ms at the f32 FMA rate")
+                       "(ops/gemm_plan.f32_kernel_plan), bound_ms at the f32 FMA rate. The "
+                       "block's float32 kernels (phase 20): one layer1 block forward, their "
+                       "launches phase 20 (a)'s block runs")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

@@ -17,7 +17,11 @@ rms), the statistics rtol 1e-3 (f32 sums in another order), and the same
 statistics bit for bit on a second run; the float32 GEMM with statistics
 (csrc/gemm_stats_f32.cu): y rtol 1e-5, atol 1e-6 of max |y| (another order of
 f32 FMAs than the library product's), the statistics rtol 1e-4, atol 1e-4 of
-the largest (another summation order), and the same bits on a second run.
+the largest (another summation order), and the same bits on a second run;
+so are the block's float32 kernels (#6, #7 and #8 on the FFMA kernel), whose
+tail (#9b) is bit for bit; the float32 block against its plain composition
+within 1e-4 of the terms' size (f32 sums of another order through three
+BatchNorms).
 """
 
 import numpy as np
@@ -421,12 +425,18 @@ def test_block_tail_kernels_bit_exact_at_r50_widths(cuda, geometry):
 
 
 def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """float16, two dtypes, other shapes, non-contiguous operands, vectors that
+    are not contiguous f32 (C,) on the operand's device, and C past the 6144
+    channels a and b take in shared memory; any other C and alignment are
+    taken (the per-element forms), and a refused call counts no launch."""
     bf16 = torch.bfloat16
     y = torch.zeros((2, 3, 3, 16), device=cuda, dtype=bf16)
     v = torch.ones((16,), device=cuda)
     _build.LAUNCHES.clear()
     with pytest.raises(TypeError):
         port_bf.affine_residual_relu(y.half(), v, v, y.half())
+    with pytest.raises(TypeError):
+        port_bf.affine_residual_relu(y.float(), v, v, y)
     with pytest.raises(ValueError, match="float32"):
         port_bf.affine_residual_relu(y, v.double(), v, y)
     with pytest.raises(ValueError, match="shapes"):
@@ -435,14 +445,6 @@ def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_bf.affine_residual_relu(y.transpose(1, 2), v, v, y)
     with pytest.raises(ValueError):
         port_bf.affine_residual_relu(y, v.cpu(), v, y)
-    with pytest.raises(ValueError, match="C % 8"):
-        y12 = torch.zeros((2, 12), device=cuda, dtype=bf16)
-        port_bf.affine_residual_relu(y12, v[:12], v[:12], y12)
-    with pytest.raises(ValueError, match="16-byte"):
-        flat = torch.zeros(2 * 16 + 1, device=cuda, dtype=bf16)
-        port_bf.affine_residual_relu(flat[1:].view(2, 16), v, v, flat[:32].view(2, 16))
-    with pytest.raises(ValueError, match="16-byte"):
-        port_bf.affine_residual_relu(y, torch.ones((17,), device=cuda)[1:], v, y)
     with pytest.raises(ValueError, match="C <="):
         wide = torch.zeros((1, 6152), device=cuda, dtype=bf16)
         av = torch.ones((6152,), device=cuda)
@@ -455,51 +457,162 @@ def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_bf.bn_finalize(v, v.cpu(), v, v, 4.0, 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         port_bf.bn_finalize(v, torch.ones((32,), device=cuda)[::2], v, v, 4.0, 1e-5)
-    with pytest.raises(ValueError, match="16-byte"):
-        port_bf.bn_finalize(v, torch.ones((17,), device=cuda)[1:], v, v, 4.0, 1e-5)
-    with pytest.raises(ValueError, match="C % 8"):
-        port_bf.bn_finalize(v[:12], v[:12], v[:12], v[:12], 4.0, 1e-5)
-    assert _build.LAUNCHES[port_bf.FINALIZE] == 0 and _build.LAUNCHES[port_bf.EPILOGUE] == 0
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [12, 20, 3, 8, 64])
+def test_block_tail_kernels_take_any_channel_count(cuda, c, dtype):
+    """#9b and #9a bit for bit at C off the 16-byte packs, and on operands
+    that do not start on a 16-byte boundary (both per-element forms), NaN
+    kept."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    rows = 37
+    flat = torch.randn((2, rows * c + 1), generator=g, device=cuda).to(dtype)
+    x, y = flat[0, 1:].view(rows, c), (flat[1, :-1] * 3).view(rows, c)
+    y.view(-1)[5] = float("nan")
+    ab = torch.rand((2, c + 1), generator=g, device=cuda)
+    a, b = ab[0, 1:] + 0.5, ab[1, :c] - 0.5
+    for args in ((y, a, b, x), (y.clone(), a.clone(), b.clone(), x.clone())):
+        _build.LAUNCHES.clear()
+        out = port_bf.affine_residual_relu(*args)
+        fin = port_bf.bn_finalize(args[1], args[2], a + 1.0, b, 7.0, 1e-5)
+        torch.cuda.synchronize()
+        name = port_bf.EPILOGUE_F32 if dtype == torch.float32 else port_bf.EPILOGUE
+        assert _build.LAUNCHES == {name: 1, port_bf.FINALIZE: 1}
+        assert _same_bits(out, port_bf.affine_residual_relu_plain(*args))
+        assert _same_bits(fin, port_bf.bn_finalize_plain(args[1], args[2], a + 1.0, b, 7.0,
+                                                         1e-5))
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """The block's stats ops take float32 and bfloat16 at any channel count,
+    the bf16 3x3 any width up to ``gemm_plan.conv3x3_max_width``; they refuse
+    float16, two dtypes, a wider image (naming the widest), vectors on
+    another device and non-contiguous operands, before a launch."""
     bf16 = torch.bfloat16
-    a64 = torch.ones((64,), device=cuda)
-    y = torch.zeros((2, 4, 4, 48), device=cuda, dtype=bf16)
-    a = torch.ones((48,), device=cuda)
-    with pytest.raises(ValueError):  # Cin % 64 != 0
-        port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 48, 64), device=cuda,
-                                                               dtype=bf16))
-    y = y[..., :32].contiguous()
-    a = a[:32].contiguous()
-    with pytest.raises(ValueError):  # Cin % 64 != 0 (the wgmma core steps K by 64)
-        port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 32, 64), device=cuda,
-                                                               dtype=bf16))
-    with pytest.raises(ValueError):  # W > 63: a window of 128 + 2 W + 2 rows is one TMA box
+    y = torch.zeros((2, 4, 4, 32), device=cuda, dtype=bf16)
+    a = torch.ones((32,), device=cuda)
+    _build.LAUNCHES.clear()
+    with pytest.raises(TypeError):  # float16: no configuration computes in it
+        port_bf.conv3x3_affine_relu_stats(y.half(), a, a, torch.zeros((3, 3, 32, 64),
+                                                                      device=cuda).half())
+    with pytest.raises(TypeError):
+        port_bf.conv1x1_affine_relu_stats(y.half(), a, a, torch.zeros((32, 64),
+                                                                      device=cuda).half())
+    with pytest.raises(TypeError):  # two dtypes
+        port_bf.conv1x1_affine_relu_stats(y.float(), a, a, torch.zeros((32, 64), device=cuda,
+                                                                        dtype=bf16))
+    widest = gemm_plan.conv3x3_max_width(8)
+    with pytest.raises(ValueError, match=f"W <= {widest}"):
         port_bf.conv3x3_affine_relu_stats(
-            torch.zeros((1, 2, 64, 64), device=cuda, dtype=bf16), a64, a64,
-            torch.zeros((3, 3, 64, 64), device=cuda, dtype=bf16))
-    with pytest.raises(ValueError):  # Cout % 64 != 0
-        port_bf.conv3x3_affine_relu_stats(y, a, a, torch.zeros((3, 3, 32, 48), device=cuda,
-                                                               dtype=bf16))
-    with pytest.raises(ValueError):  # K % 64 != 0
-        port_bf.conv1x1_affine_relu_stats(y, a, a, torch.zeros((32, 64), device=cuda, dtype=bf16))
-    with pytest.raises(ValueError):  # N % 64 != 0
-        port_bf.conv1x1_affine_relu_stats(
-            torch.zeros((2, 4, 4, 64), device=cuda, dtype=bf16), a64, a64,
-            torch.zeros((64, 96), device=cuda, dtype=bf16))
-    with pytest.raises(TypeError):  # f32 activations
-        port_bf.conv1x1_affine_relu_stats(y.float(), a, a, torch.zeros((32, 64), device=cuda))
+            torch.zeros((1, 1, widest + 1, 8), device=cuda, dtype=bf16), a[:8], a[:8],
+            torch.zeros((3, 3, 8, 8), device=cuda, dtype=bf16))
     with pytest.raises(ValueError):  # a on the wrong device
         port_bf.conv1x1_affine_relu_stats(y, a.cpu(), a, torch.zeros((32, 64), device=cuda,
                                                                    dtype=bf16))
     with pytest.raises(ValueError):  # not contiguous
         port_conv.gemm_with_stats_fwd(torch.zeros((64, 64), device=cuda, dtype=bf16).t()[:, :32],
                                       torch.zeros((32, 64), device=cuda, dtype=bf16))
+    assert sum(_build.LAUNCHES.values()) == 0
     with pytest.raises(TypeError):
         port_tsm.shift_fwd(torch.zeros((2, 2, 2, 16), device=cuda, dtype=torch.float16), 2)
     with pytest.raises(ValueError):  # N*T not a multiple of T
         port_tsm.shift_fwd(torch.zeros((3, 2, 2, 16), device=cuda), 2)
+
+
+# (NT, H = W, C, Cm): the JAX tests' geometries, one R50-like, a ragged one
+F32_BLOCK_GEOMETRIES = [(8, 14, 64, 16), (6, 7, 32, 8), (4, 9, 256, 64), (3, 5, 12, 20)]
+
+
+@pytest.mark.parametrize("geometry", F32_BLOCK_GEOMETRIES)
+def test_block_f32_kernels_match_plain(cuda, geometry):
+    """#6, #7 and #8 (both variant names) in float32 against their plain
+    versions (TF32 off), b > 0 on every channel (a halo or rows past M
+    through the prologue would show), the same bits on a second run."""
+    nt, hw, c, cm = geometry
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn((nt, hw, hw, c), generator=g, device=cuda)
+    y = torch.randn((nt, hw, hw, cm), generator=g, device=cuda)
+    a = torch.rand((cm,), generator=g, device=cuda) + 0.5
+    b = torch.rand((cm,), generator=g, device=cuda) * 0.5 + 0.1
+    w1 = torch.randn((c, cm), generator=g, device=cuda) * c ** -0.5
+    w2 = torch.randn((3, 3, cm, cm), generator=g, device=cuda) * (9 * cm) ** -0.5
+    w3 = torch.randn((cm, c), generator=g, device=cuda) * cm ** -0.5
+    assert not torch.backends.cuda.matmul.allow_tf32
+    _build.LAUNCHES.clear()
+    out1 = port_bf.conv1x1_stats(x, w1)
+    out3 = port_bf.conv1x1_affine_relu_stats(y, a, b, w3)
+    out2 = {v: port_bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v)
+            for v in port_bf.VARIANTS}
+    again = port_bf.conv3x3_affine_relu_stats(y, a, b, w2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV1_F32: 1, port_bf.CONV3_F32: 1, port_bf.CONV2_F32: 3}
+    _check_f32(out1, port_conv.gemm_stats_plain(x, w1))
+    _check_f32(out3, port_bf.conv1x1_affine_relu_stats_plain(y, a, b, w3))
+    for v, got in out2.items():
+        _check_f32(got, port_bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v))
+    assert all(torch.equal(u, v) for u, v in zip(out2["taps"], again))
+
+
+def test_f32_fused_block_launches_the_f32_kernels_only(cuda, monkeypatch):
+    """fused_bottleneck_fwd on float32 operands: one launch of each float32
+    kernel and three finalizes, no bf16 launch; the output within 1e-4 of the
+    terms' size of its plain composition and of the library block (TF32 off
+    in cuDNN too)."""
+    x = torch.randn((16, 14, 14, 256), generator=torch.Generator().manual_seed(18)).to(cuda)
+    p = port_bf.make_params(torch.Generator().manual_seed(19), c=256, cm=64,
+                            dtype=torch.float32, device=cuda)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # the library block's convs
+    for variant in port_bf.VARIANTS:
+        _build.LAUNCHES.clear()
+        out, stats = port_bf.fused_bottleneck_fwd(x, p, conv3x3_variant=variant)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {port_bf.CONV1_F32: 1, port_bf.CONV2_F32: 1,
+                                   port_bf.CONV3_F32: 1, port_bf.FINALIZE: 3,
+                                   port_bf.EPILOGUE_F32: 1}
+        assert out.dtype == torch.float32
+        ref, ref_stats = port_bf.fused_bottleneck_fwd_plain(x, p, conv3x3_variant=variant)
+        lib, lib_stats = port_bf.plain_bottleneck_fwd(x, p)
+        for want, want_stats in ((ref, ref_stats), (lib, lib_stats)):
+            assert_close_to_terms(out, want, (x, p.b3), tol=1e-4)
+            for got, w in zip(stats, want_stats):
+                for u, v in zip(got, w):
+                    torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-5)
+
+
+# (NT, H, W, Cin, Cout): Cin and Cout not multiples of 64 (the TMA's zero fill
+# past C in each tap) or of 8 (the wrapper's padding), W past one TMA box
+RAGGED_3X3 = [(8, 14, 14, 16, 16), (6, 7, 7, 8, 8), (4, 5, 9, 12, 20), (2, 3, 3, 3, 5),
+              (2, 64, 64, 64, 64), (1, 112, 112, 64, 64), (1, 9, 200, 32, 72),
+              (3, 7, 7, 96, 136)]
+
+
+@pytest.mark.parametrize("geometry", RAGGED_3X3)
+def test_wgmma_block_ops_at_any_channel_count_and_width(cuda, geometry):
+    """#8 and #7 in bf16 at channel counts off the 64-channel step and at
+    wide images against the plain versions, b > 0 on every channel; the C
+    side's 3x3 plan equal to ``gemm_plan.conv3x3_plan``."""
+    nt, h, w_, cin, cout = geometry
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn((nt, h, w_, cin), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.rand((cin,), generator=g, device=cuda) + 0.5
+    b = torch.rand((cin,), generator=g, device=cuda) * 0.5 + 0.1
+    w2 = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+          * (9 * cin) ** -0.5).to(torch.bfloat16)
+    w3 = (torch.randn((cin, cout), generator=g, device=cuda) * cin ** -0.5).to(torch.bfloat16)
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    assert gemm_plan.conv3x3_kernel_plan(nt * h * w_, cout8, w_, cin8, cuda) == \
+        gemm_plan.conv3x3_plan(nt * h * w_, cout8, w_, cin8, port_conv.sm_count(cuda))
+    _build.LAUNCHES.clear()
+    got2 = {v: port_bf.conv3x3_affine_relu_stats(x, a, b, w2, variant=v)
+            for v in port_bf.VARIANTS}
+    got3 = port_bf.conv1x1_affine_relu_stats(x, a, b, w3)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV2: 2, port_bf.CONV3: 1}
+    for v, got in got2.items():
+        _check_stats(got, port_bf.conv3x3_affine_relu_stats_plain(x, a, b, w2, variant=v))
+    _check_stats(got3, port_bf.conv1x1_affine_relu_stats_plain(x, a, b, w3))
 
 
 # --- the persistent wgmma core (csrc/gemm_stats_sm90.cuh): #3, #4, #6, #7 and #8 ---

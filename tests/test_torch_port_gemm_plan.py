@@ -2,17 +2,20 @@
 (``ops/gemm_plan.py``), against the kernels' shape rule.
 
 The kernels (``csrc/gemm_stats_sm90.cuh``) run only on the card, and so does
-their tile plan (``tests/test_torch_port_cuda.py`` checks it there). Here:
-the shapes the profiles and the card tests use are those of a configuration-A
-train forward and of the stride-1 bottlenecks, and every one of them is a
-whole number of the kernels' tiles (K or Cin % 64 == 0, N % 64 == 0; for the
-3x3, W <= 63, the rule its wrapper enforces). Ragged K and N of the 1x1 (the
-TMA's zero fill, the wrapper's padding) are card tests.
+their tile plan (``tests/test_torch_port_cuda.py`` holds the C plans to their
+Python copies there). Here: the shapes the profiles and the card tests use
+are those of a configuration-A train forward and of the stride-1
+bottlenecks, every one of them a whole number of the kernels' 64-channel
+steps and tiles (K or Cin % 64 == 0, N % 64 == 0), and each 3x3 width one
+that the 3x3's plan (``gemm_plan.conv3x3_plan``) serves with its window in
+one TMA box and the widest ring. Ragged K and N (the TMA's zero fill, the
+wrapper's padding) and wider images are in
+``tests/test_torch_port_block_dtypes.py`` and the card tests.
 """
 
 import pytest
 
-from bdvcil_torch.ops import block_fused, gemm_plan
+from bdvcil_torch.ops import gemm_plan
 
 BLOCK_K = 64  # the wgmma kernels' K step: K (the 3x3's Cin) % 64 == 0
 MIN_BLOCK_N = 64  # the narrowest tile: N % 64 == 0
@@ -33,9 +36,18 @@ def test_every_r50_shape_maps_to_an_instantiation(mkn):
 
 @pytest.mark.parametrize("geometry", gemm_plan.R50_3X3_SHAPES)
 def test_every_r50_3x3_width_fits_the_kernel(geometry):
+    """At 132 SMs (an H100 SXM): the plan the 1x1 would make, the widest ring
+    of its width, the window in one box of exactly 128 + 2 W + 2 rows (the
+    kernel's layout before it took wider images), within a CTA's shared
+    memory and below the widest image the kernel takes."""
     nt, h, w, c, n = geometry
     assert c % BLOCK_K == 0 and n % MIN_BLOCK_N == 0
-    assert w <= block_fused.MAX_WIDTH_3X3
+    plan = gemm_plan.conv3x3_plan(nt * h * w, n, w, c, 132)
+    assert plan[:5] == tuple(gemm_plan.wgmma_plan(nt * h * w, n, 132))
+    assert plan.stages == gemm_plan.CONV3X3_MAX_STAGES[plan.block_n]
+    assert (plan.boxes, plan.box_rows) == (1, 128 + 2 * w + 2)
+    assert plan.smem <= gemm_plan.MAX_SMEM
+    assert w <= gemm_plan.conv3x3_max_width(c)
     assert nt * h * w % gemm_plan.BLOCK_M == 0  # the R50 tiles are full; ragged M is a card test
 
 

@@ -106,8 +106,10 @@ def test_launch_name_routes_by_dtype(dtypes, want):
 
 
 def test_wrapper_refuses_a_dtype_before_it_builds_or_counts():
-    """float16, or float32 with the block's prologue, raise TypeError in the
-    CUDA wrapper before it reaches a compiler or a launch count."""
+    """float16, with or without the block's prologue, and two dtypes with it
+    raise TypeError in the CUDA wrapper before it reaches a compiler or a
+    launch count (float32 and bfloat16 take the prologue since the block
+    probe's f32 kernels)."""
     _build.LAUNCHES.clear()
     h = torch.zeros((4, 8), dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -115,8 +117,11 @@ def test_wrapper_refuses_a_dtype_before_it_builds_or_counts():
                                                                        dtype=torch.float16))
     a = torch.ones(64)
     with pytest.raises(TypeError):
+        port_conv.gemm_stats_cuda(port_conv.GEMM_KERNEL, torch.zeros((4, 64), dtype=torch.float16),
+                                  torch.zeros((64, 64), dtype=torch.float16), a, a)
+    with pytest.raises(TypeError):
         port_conv.gemm_stats_cuda(port_conv.GEMM_KERNEL, torch.zeros((4, 64)),
-                                  torch.zeros((64, 64)), a, a)
+                                  torch.zeros((64, 64), dtype=torch.bfloat16), a, a)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
