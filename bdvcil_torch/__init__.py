@@ -50,6 +50,8 @@ Layout:
   roofline           the HBM and FLOP bounds of the TSM-R50 train step
   bench_block_fused  the block-fused bottleneck against the plain schedule
   profile_kernels, profile_step  device-time profiles of the kernels and the step
+  tf32_witness       the float32 kernel's float64 witness over seeds, and a
+                     one-accumulator variant's, for the card test's factor
   profile_e2e        the fed train loop's wall time split into wait, put,
                      dispatch and device, with the producer's phases
   reference_loop     the reference's CIL loop in plain torch (the accuracy

@@ -1,23 +1,22 @@
-// Float32 GEMM with a BatchNorm-statistics epilogue, for Hopper (FFMA): every
-// float32 stats kernel, as gemm_stats_sm90.cuh is the core of the bf16 ones.
-// Three ways of loading A (Load) are one kernel template:
-//   kRows        A = x (M, K)                        #3 conv1x1_with_stats,
-//                                                    #4 gemm_with_stats,
-//                                                    #6 the block's conv1
+// Float32 GEMM with a BatchNorm-statistics epilogue, for Hopper (FFMA): the
+// float32 stats kernels with a prologue, as gemm_stats_sm90.cuh is the core of
+// the bf16 ones. Two ways of loading A (Load) are one kernel template:
 //   kRowsAffine  A = relu(x * a + b), x (M, K)        #7 the block's conv3
 //   kIm2col      A = the implicit 'SAME' 3x3 im2col   #8 the block's conv2
 //                of relu(x * a + b), x (NT, H, W, C),
 //                K = 9 C in (dy, dx, c) order
+// The float32 forms without a prologue (#3, #4, #6) run on the tensor cores
+// as three TF32 products (gemm_stats_tf32.cu).
 //
 //   y  = A @ w          w (K, N), y (M, N): f32, row-major; each y[m][n] one
 //                       f32 FMA chain over k = 0 .. K - 1
 //   s1 = sum_rows(y)    per column, over the stored y
 //   s2 = sum_rows(y * y)
 //
-// Full float32, as the plain versions compute it (torch.matmul with TF32
-// off): no TF32 tensor cores, whose 10-bit mantissa would put y ~1e-3 off.
-// Bound on the H100: at the ResNet-50 shapes the product is bound by the f32
-// FMA rate (67 TFLOP/s), not by bytes. The design is the classic SIMT tile:
+// Full float32 on the FMA units, as the plain versions compute it
+// (torch.matmul with TF32 off). Bound on the H100: at the ResNet-50 shapes
+// the f32 FMA rate (67 TFLOP/s), not bytes. The design is the classic SIMT
+// tile:
 //
 // * A CTA of 256 threads owns a 128 x BN output tile (BN 128, or 64 where the
 //   last 64 columns of a 128 tile would be empty: N % 128 in 1 .. 64, e.g.
@@ -54,12 +53,6 @@
 //
 // Replaces these Pallas kernels at float32, the dtype the JAX package's
 // trainer computes in by default (cil/trainer.py:78, models/builder.py:38):
-//   _kernel4 of bdvcil_tpu/ops/conv1x1_bn.py (:164), called by
-//     conv1x1_with_stats -> _conv1x1_with_stats_impl (:190);
-//   _kernel of bdvcil_tpu/ops/conv1x1_bn.py (:37), called by gemm_with_stats
-//     -> _gemm_with_stats_impl (:59), the 2-D form (M zero-padded there);
-//   _plain_stats_gemm_kernel of bdvcil_tpu/ops/block_fused.py (:96), the
-//     bottleneck's conv1 (block_fused.conv1x1_stats);
 //   _affine_stats_gemm_kernel of bdvcil_tpu/ops/block_fused.py (:73), the
 //     bottleneck's conv3: y = relu(x * a + b) @ w, the previous BatchNorm's
 //     normalize and relu as a prologue (block_fused.conv1x1_affine_relu_stats);
@@ -103,7 +96,7 @@ inline Plan make_plan(long long M, int N) {
   return Plan{BM, bn, (int)m_tiles, n_tiles, (int)(m_tiles * n_tiles)};
 }
 
-enum class Load { kRows, kRowsAffine, kIm2col };
+enum class Load { kRowsAffine, kIm2col };
 
 // The problem as the kernel sees it; the 3x3 reads H, W, C (K = 9 C).
 struct Problem {
@@ -124,7 +117,6 @@ __device__ __forceinline__ float relu_keep_nan(float v) { return isnan(v) ? v : 
 template <int BN, bool VEC, Load kLoad>
 __global__ void __launch_bounds__(kThreads, 2)  // two CTAs an SM: at most 128 registers
 gemm_stats_f32_kernel(const Problem p) {
-  constexpr bool kAffine = kLoad != Load::kRows;
   constexpr bool kIm2col = kLoad == Load::kIm2col;
   constexpr int G = BN / 64;                // column groups of 4 a thread
   constexpr int AS = BM + 4;                // a row of the transposed A slice, padded
@@ -172,8 +164,8 @@ gemm_stats_f32_kernel(const Problem p) {
     for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.f;
 
   float ra[A_LOADS][A_W], rb[B_LOADS][A_W];
-  unsigned taken = 0;  // with a prologue: the rows whose value was loaded from x
-  int ch = 0;          // with a prologue: the channel of a and b for this step's k
+  unsigned taken = 0;  // the rows whose value was loaded from x
+  int ch = 0;          // the channel of a and b for this step's k
   auto load = [&](int k0) {
     const int k = k0 + a_col;
     if constexpr (kIm2col) {
@@ -218,7 +210,7 @@ gemm_stats_f32_kernel(const Problem p) {
         } else {
           ra[i][0] = in ? p.x[row * p.K + k] : 0.f;
         }
-        if constexpr (kAffine) taken |= (in ? 1u : 0u) << i;
+        taken |= (in ? 1u : 0u) << i;
       }
     }
 #pragma unroll
@@ -238,29 +230,25 @@ gemm_stats_f32_kernel(const Problem p) {
   };
   auto store = [&](int buf) {
     float av[A_W], bv[A_W];
-    if constexpr (kAffine) {
 #pragma unroll
-      for (int j = 0; j < A_W; ++j) av[j] = bv[j] = 0.f;
-      if (taken) {  // some row was loaded, so ch .. ch + A_W - 1 lie below K (C)
-        if constexpr (VEC) {
-          const float4 a4 = *reinterpret_cast<const float4*>(p.a + ch);
-          const float4 b4 = *reinterpret_cast<const float4*>(p.b + ch);
-          av[0] = a4.x; av[1] = a4.y; av[2] = a4.z; av[3] = a4.w;
-          bv[0] = b4.x; bv[1] = b4.y; bv[2] = b4.z; bv[3] = b4.w;
-        } else {
-          av[0] = p.a[ch];
-          bv[0] = p.b[ch];
-        }
+    for (int j = 0; j < A_W; ++j) av[j] = bv[j] = 0.f;
+    if (taken) {  // some row was loaded, so ch .. ch + A_W - 1 lie below K (C)
+      if constexpr (VEC) {
+        const float4 a4 = *reinterpret_cast<const float4*>(p.a + ch);
+        const float4 b4 = *reinterpret_cast<const float4*>(p.b + ch);
+        av[0] = a4.x; av[1] = a4.y; av[2] = a4.z; av[3] = a4.w;
+        bv[0] = b4.x; bv[1] = b4.y; bv[2] = b4.z; bv[3] = b4.w;
+      } else {
+        av[0] = p.a[ch];
+        bv[0] = p.b[ch];
       }
     }
 #pragma unroll
     for (int i = 0; i < A_LOADS; ++i) {
 #pragma unroll
       for (int j = 0; j < A_W; ++j) {
-        float v = ra[i][j];
-        if constexpr (kAffine)
-          v = (taken >> i) & 1u ? relu_keep_nan(__fadd_rn(__fmul_rn(v, av[j]), bv[j])) : 0.f;
-        As[buf][a_col + j][a_row + i * A_ROW_STEP] = v;
+        As[buf][a_col + j][a_row + i * A_ROW_STEP] =
+            (taken >> i) & 1u ? relu_keep_nan(__fadd_rn(__fmul_rn(ra[i][j], av[j]), bv[j])) : 0.f;
       }
     }
 #pragma unroll
@@ -414,16 +402,9 @@ int bdv_gemm_stats_f32_plan(long long M, int N, int* out) {
 }
 
 // x (M, K), w (K, N), y (M, N): f32, row-major, contiguous; any M, K, N >= 1;
-// y 16-byte aligned. part: (2, part_rows, N) f32 scratch with part_rows ==
+// y 16-byte aligned; a, b: (K,) f32. y = relu(x * a + b) @ w, each operation
+// rounded to f32. part: (2, part_rows, N) f32 scratch with part_rows ==
 // m_tiles (bdv_gemm_stats_f32_plan). stats: (2, N) f32 = [sum y; sum y^2].
-int bdv_gemm_stats_f32(const void* x, const void* w, void* y, void* part, int part_rows,
-                       void* stats, long long M, int K, int N, void* stream) {
-  const bool vec = K % 4 == 0 && N % 4 == 0 && sm90::aligned16(x) && sm90::aligned16(w);
-  return (int)f32gemm::launch_f32_stats<f32gemm::Load::kRows>(
-      problem(x, w, y, part, M, K, N), part_rows, vec, stats, static_cast<cudaStream_t>(stream));
-}
-
-// The same on relu(x * a + b) (each operation rounded to f32); a, b: (K,) f32.
 int bdv_gemm_affine_relu_stats_f32(const void* x, const void* w, const void* a, const void* b,
                                    void* y, void* part, int part_rows, void* stats, long long M,
                                    int K, int N, void* stream) {

@@ -10,6 +10,8 @@ PyTorch version.
                conv3x3_affine_relu_stats, conv1x1_affine_relu_stats,
                bn_finalize, affine_residual_relu (kernels),
                fused_bottleneck_fwd, plain_bottleneck_fwd
+  gemm_plan    the GEMM-with-statistics kernels' tile plans, the R50 shapes
+  tf32         a plain emulation of the float32 kernel's 3xTF32 split (tests only)
   _build       nvcc build, ctypes loading, launch counts, CPU/CUDA dispatch
 
 The input path's ops hold no hand-written kernel; eager PyTorch on the

@@ -22,7 +22,7 @@ launches count under the op's name + ``"_f32"``, float16 raises, as no
 configuration of the JAX package computes in it):
 
   op                          bfloat16                    float32
-  conv1x1_stats               csrc/conv1x1_stats.cu       csrc/gemm_stats_f32.cu
+  conv1x1_stats               csrc/conv1x1_stats.cu       csrc/gemm_stats_tf32.cu
   conv1x1_affine_relu_stats   csrc/conv1x1_stats.cu       csrc/gemm_stats_f32.cu
   conv3x3_affine_relu_stats   csrc/conv3x3_stats.cu       csrc/gemm_stats_f32.cu
   bn_finalize                 csrc/block_epilogue.cu (f32 statistics either way)
@@ -33,9 +33,11 @@ The bf16 stats kernels run on the persistent wgmma core of
 shared memory; channel counts that are not multiples of 8 are zero-padded
 for the TMA (a = b = 0 on the padded channels: ``conv1x1_bn.aligned_call``),
 and the 3x3 takes any width up to ``gemm_plan.conv3x3_max_width`` (271 at
-Cin <= 512, 247 at 2048). The float32 ones run on the FFMA kernel of
-``csrc/gemm_stats_f32.cu`` at any shape, the prologue applied as A's slice
-enters shared memory. Each 3x3 kernel serves both of the JAX package's
+Cin <= 512, 247 at 2048). The float32 conv1 runs as three TF32 products on
+the tensor cores (``csrc/gemm_stats_tf32.cu``, the float32
+``conv1x1_with_stats`` kernel), the float32 conv3 and 3x3 on the FFMA kernel
+of ``csrc/gemm_stats_f32.cu`` at any shape, the prologue applied as A's
+slice enters shared memory. Each 3x3 kernel serves both of the JAX package's
 variant names ("taps", "im2col": one function, two ways of tiling the TPU's
 matrix unit). On a CPU tensor each op is its ``_plain`` version; the plain
 3x3 mirrors each variant's summation (nine f32 tap products accumulated in

@@ -19,12 +19,19 @@ count; the wrapper refuses a wider one with that number. Channel counts
 that are not multiples of 8 are zero-padded by the wrapper
 (``conv1x1_bn.aligned_call``), and the plan is made for the padded counts.
 
-``csrc/gemm_stats_f32.cu`` (every float32 stats kernel: #3, #4, #6, #7 and
-#8) runs one CTA per 128 x
-``block_n`` tile and one partial row per 128-row tile. ``f32_plan`` is the
-Python copy of its ``make_plan``; the wrapper sizes the partials with it and
-the kernel refuses a count that is not its own. ``f32_kernel_plan`` reads
-the C plan back.
+``csrc/gemm_stats_tf32.cu`` (#3, #4 and #6 in float32, as three TF32
+products) runs 128 x ``block_n`` tiles, ``block_n`` 128 or 64, on a
+persistent grid of at most one CTA per SM, one partial row a CTA;
+``tf32_plan`` is the Python copy of its ``make_plan`` (the bf16 core's cost
+model over the two widths, with each width's ring stages and shared memory),
+for the tests and reports. As for the bf16 core, the wrapper passes the SM
+count as the partials' rows, the C plan caps its grid there and the finish
+sums the grid's rows; ``tf32_kernel_plan`` reads the C plan back.
+
+``csrc/gemm_stats_f32.cu`` (the float32 stats kernels with a prologue: #7
+and #8) runs one CTA per 128 x ``block_n`` tile and one partial row per
+128-row tile. ``f32_plan`` is the Python copy of its ``make_plan``, used the
+same way; ``f32_kernel_plan`` reads the C plan back.
 """
 
 from __future__ import annotations
@@ -46,6 +53,9 @@ A_BYTES = BLOCK_M * BLOCK_K * 2  # one bf16 A tile
 # the 3x3's most ring stages per tile width (sm90::Layout<BN, kIm2col>::kMaxStages)
 CONV3X3_MAX_STAGES = {256: 3, 128: 4, 64: 6}
 F32_BLOCK_M = 128  # the FFMA kernel's tile rows
+TF32_BLOCK_K = 32  # the 3xTF32 kernel's K step: one 128-byte row of f32
+# the 3xTF32 kernel's ring stages per tile width (tf32gemm::Layout<BN>::kStages)
+TF32_STAGES = {128: 3, 64: 5}
 
 
 class Plan(NamedTuple):
@@ -83,6 +93,19 @@ class F32Plan(NamedTuple):
     grid: int
 
 
+class TF32Plan(NamedTuple):
+    """The 3xTF32 kernel's ``Plan`` fields, its ring stages and its CTA's
+    shared memory in bytes; ``grid`` is the partials' row count."""
+
+    block_n: int
+    m_tiles: int
+    n_tiles: int
+    tiles: int
+    grid: int
+    stages: int
+    smem: int
+
+
 def kernel_plan(m: int, n: int, device: torch.device) -> Plan:
     """The plan the wgmma kernels make for an (M, ., N) product on ``device``."""
     from .conv1x1_bn import _lib, sm_count
@@ -94,15 +117,16 @@ def kernel_plan(m: int, n: int, device: torch.device) -> Plan:
     return Plan(*out)
 
 
-def wgmma_plan(m: int, n: int, sms: int) -> Plan:
+def wgmma_plan(m: int, n: int, sms: int, widths=(256, 128, 64)) -> Plan:
     """``sm90::make_plan``: among the widths that divide N rounded up to 64,
     the fewest column-time units on the busiest SM, ceil(tiles / SMs) * (BN +
-    32); a tie goes to the wider tile. grid = min(tiles, sms)."""
+    32); a tie goes to the wider tile. grid = min(tiles, sms). ``widths``,
+    widest first: the kernel's tile widths (the 3xTF32 kernel has 128, 64)."""
     if m <= 0 or n <= 0 or sms <= 0:
         raise ValueError(f"wgmma_plan: M={m} N={n} SMs={sms}")
     best, best_cost = None, None
     m_tiles, n64 = -(-m // BLOCK_M), -(-n // 64) * 64
-    for bn in (256, 128, 64):
+    for bn in widths:
         if n64 % bn:
             continue
         tiles = m_tiles * (n64 // bn)
@@ -197,6 +221,36 @@ def f32_kernel_plan(m: int, n: int) -> F32Plan:
     out = (ctypes.c_int * 5)()
     _build.check(lib, lib.bdv_gemm_stats_f32_plan(m, n, out), "bdv_gemm_stats_f32_plan")
     return F32Plan(*out)
+
+
+def tf32_smem(block_n: int) -> int:
+    """Shared memory of one 3xTF32 CTA (``tf32gemm::Layout`` + 1024 bytes of
+    alignment slack): the ring (x's 128 x 32 tile, w's big and small block_n x
+    32 tiles a stage), y's 128 x block_n tile for the TMA store, the
+    statistics' cross-warp sums and the full and empty barriers."""
+    stages = TF32_STAGES[block_n]
+    ring = stages * (BLOCK_M + 2 * block_n) * TF32_BLOCK_K * 4
+    return 1024 + ring + BLOCK_M * block_n * 4 + 2 * 8 * block_n * 4 + 2 * stages * 8
+
+
+def tf32_plan(m: int, n: int, sms: int) -> TF32Plan:
+    """``tf32gemm::make_plan``: ``wgmma_plan`` over widths 128 and 64, with
+    the width's ring stages and shared memory."""
+    if m > 2 ** 31 - BLOCK_M:
+        raise ValueError(f"tf32_plan: M={m} past the kernel's int rows")
+    plan = wgmma_plan(m, n, sms, widths=(128, 64))
+    return TF32Plan(*plan, TF32_STAGES[plan.block_n], tf32_smem(plan.block_n))
+
+
+def tf32_kernel_plan(m: int, n: int, device: torch.device) -> TF32Plan:
+    """The plan the 3xTF32 kernel makes on ``device``, as its C side reports it."""
+    from .conv1x1_bn import _tf32_lib, sm_count
+
+    lib = _tf32_lib()
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, lib.bdv_gemm_stats_tf32_plan(m, n, sm_count(device), out),
+                 "bdv_gemm_stats_tf32_plan")
+    return TF32Plan(*out)
 
 
 def r50_1x1_shapes(nt: int = 128, size: int = 56) -> Counter:

@@ -2,8 +2,9 @@
 
 Runs ``conv1x1_with_stats`` (#3, the kernel that also serves #4 and #6) at
 the 12 1x1 shapes of one TSM-ResNet-50 train forward in configuration A, in
-bf16 (the wgmma core) and in float32 (the FFMA kernel of
-``csrc/gemm_stats_f32.cu``),
+bf16 (the wgmma core) and in float32 (three TF32 products on the tensor
+cores, ``csrc/gemm_stats_tf32.cu``: the GEMM, w's split and the statistics
+finish),
 ``conv3x3_affine_relu_stats`` (#8), ``conv1x1_affine_relu_stats`` (#7,
 the block's conv3), the block's tail (``bn_finalize`` at C and Cm,
 ``affine_residual_relu``) and the whole block forward
@@ -28,7 +29,9 @@ forward and reverse), #6-#9b one layer1 block; and #8 in bf16 at W = 64
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
-Writes ``chiprun_out/profile_kernels.json``. Needs a GPU.
+Writes ``chiprun_out/profile_kernels.json``. Needs a GPU. The ``host #3``
+lines sum the wrapper's host time over the 32 launches of one forward, in
+bf16 and in float32; ``--host-of FILE`` prints them from a saved JSON.
 """
 
 from __future__ import annotations
@@ -167,6 +170,18 @@ def kernel_table(rows):
     }
 
 
+def host_per_forward(rows):
+    """The wrapper's host ms of #3 over one forward's launches, bf16 and f32."""
+    return {kernel: sum(r["us"]["host"] * r["per_forward"] for r in rows
+                        if r["kernel"] == kernel) / 1e3
+            for kernel in ("conv1x1_with_stats", KERNEL_F32)}
+
+
+def print_host(rows, card):
+    for kernel, ms in host_per_forward(rows).items():
+        print(f"host #3 {kernel}: {ms:.4f} ms a forward [{card}]", flush=True)
+
+
 def f32_block_rows(gen, dev, reps):
     """The block's float32 kernels (#6, #7, #8, #9b) and the float32 block at
     layer1 (128 x 56 x 56, 256 -> 64 -> 64 -> 256), and #8 in bf16 at W = 64."""
@@ -207,7 +222,13 @@ def f32_block_rows(gen, dev, reps):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--host-of", type=pathlib.Path, default=None,
+                        help="print the host #3 lines of a saved profile_kernels.json")
     args = parser.parse_args(argv)
+    if args.host_of is not None:
+        saved = json.loads(args.host_of.read_text())
+        print_host(saved["rows"], saved["card"])
+        return 0
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -225,10 +246,12 @@ def main(argv=None) -> int:
         split = kernel_split(lambda: conv.conv1x1_with_stats_fwd(x, w), args.reps)
         rows.append(dict(kernel="conv1x1_with_stats", shape=[m, k, n], per_forward=count,
                          plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
-        xf, wf = x.float(), w.float()  # the float32 kernel (TF32 is not used either way)
+        # the float32 kernel: 3xTF32 on operands with all 24 bits of f32
+        xf = torch.randn((m, 1, 1, k), generator=gen, device=dev)
+        wf = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
         split = kernel_split(lambda: conv.conv1x1_with_stats_fwd(xf, wf), args.reps)
         rows.append(dict(kernel=KERNEL_F32, shape=[m, k, n], per_forward=count,
-                         plan=gemm_plan.f32_kernel_plan(m, n)._asdict(), us=split))
+                         plan=gemm_plan.tf32_kernel_plan(m, n, dev)._asdict(), us=split))
         del x, w, xf, wf
     for nt, h, w_, c, n in gemm_plan.R50_3X3_SHAPES:
         x = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(bf16)
@@ -296,6 +319,7 @@ def main(argv=None) -> int:
     table = kernel_table(rows)
     for name, ms in table.items():
         print(f"device {name}: {ms:.4f} ms [{card}]", flush=True)
+    print_host(rows, card)
     report = ptxas_report(_build.build_all())
     for src, funcs in report.items():
         for fn, lines in funcs.items():

@@ -12,7 +12,8 @@ hand-written kernels (the defaults reach none):
                                                         forward and backward
 
 Configuration A at the trainer's default float32 (phase 19) reaches the float32
-kernel of the same function, conv1x1_with_stats_f32 (and gemm_with_stats_f32).
+kernel of the same function, conv1x1_with_stats_f32 (and gemm_with_stats_f32):
+three TF32 products on the tensor cores (csrc/gemm_stats_tf32.cu).
 
 The main path is fed by the fast input path: JPEG rawframes decoded by the
 native pool into a yuv420 wire batch (uint8 planes, RandAugment draws, BGMix
@@ -230,7 +231,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the input functions' outputs within 1e-5; (c) no hand-written kernel
      launched, in this process or in any rank (the default pad + xla).
  19. f32, the GEMM with statistics in float32 and at any K and N, TF32 off:
-     (a) the float32 kernel (``csrc/gemm_stats_f32.cu``) through
+     (a) the float32 kernel (``csrc/gemm_stats_tf32.cu``, 3xTF32 on the
+     tensor cores: its tile, its bound at three TF32 products and the f32
+     FMA bound beside it) through
      ``conv1x1_with_stats`` at the 12 R50 1x1 shapes of a train forward and
      through ``gemm_with_stats`` at phase 2's 8, both at ragged (M, K, N)
      (``RAGGED_SHAPES``) where the bf16 core runs too: f32 y within rtol
@@ -249,7 +252,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the f32 kernel 32 launches a train step, finite accuracies.
  20. block dtypes, the block probe at every dtype and shape the JAX ops
      take, TF32 off: (a) ``fused_bottleneck_fwd`` in float32 at the four
-     stride-1 widths (128 frames): #6, #7 and #8 f32 (``gemm_stats_f32.cu``)
+     stride-1 widths (128 frames): #6 f32 (``gemm_stats_tf32.cu``), #7 and
+     #8 f32 (the FFMA kernel, ``gemm_stats_f32.cu``)
      against their plain versions (y rtol 1e-5,
      atol 1e-6 of max |y|, the statistics rtol 1e-4; a second run bit for
      bit), #9b f32 bit for bit (a NaN pack included), the block against its
@@ -297,6 +301,8 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores: the block tail's arithmetic
+# TF32 on the tensor cores: the float32 GEMM runs three TF32 products (3xTF32)
+PEAK_TF32_FLOPS = 495e12
 
 NT = 128  # 16 clips x 8 frames
 BATCH, SEGMENTS, SIZE = 16, 8, 224
@@ -333,11 +339,11 @@ KERNEL_META = {
                None),
     FINALIZE: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:262",
                None),
-    CONV_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:164",
+    CONV_F32: ("bdvcil_torch/csrc/gemm_stats_tf32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:164",
                F32_MATMUL_SUMS),
-    GEMM_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37",
+    GEMM_F32: ("bdvcil_torch/csrc/gemm_stats_tf32.cu", "bdvcil_tpu/ops/conv1x1_bn.py:37",
                F32_MATMUL_SUMS),
-    CONV1_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:96",
+    CONV1_F32: ("bdvcil_torch/csrc/gemm_stats_tf32.cu", "bdvcil_tpu/ops/block_fused.py:96",
                 F32_MATMUL_SUMS),
     CONV3_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:73",
                 F32_MATMUL_SUMS + " without the prologue: less work than the kernel"),
@@ -3516,8 +3522,33 @@ def assert_f32_stats(what, got, ref):
     return float((y - ry).abs().max())
 
 
+def tf32_tile_of(m, n):
+    """The 3xTF32 kernel's plan for an (M, ., N) product (N padded to 4, as the
+    wrapper pads it), as its C side reports it, held against its Python copy."""
+    from bdvcil_torch.ops import gemm_plan
+    from bdvcil_torch.ops.conv1x1_bn import F32_TMA_ALIGN, sm_count
+
+    dev = torch.device("cuda", 0)
+    n = -(-n // F32_TMA_ALIGN) * F32_TMA_ALIGN
+    p = gemm_plan.tf32_kernel_plan(m, n, dev)
+    if p != gemm_plan.tf32_plan(m, n, sm_count(dev)):
+        raise AssertionError(f"the 3xTF32 kernel plans {p} at {(m, n)}, its Python copy "
+                             f"{gemm_plan.tf32_plan(m, n, sm_count(dev))}")
+    return dict(block=[gemm_plan.BLOCK_M, p.block_n], tiles=p.tiles, grid=p.grid,
+                stages=p.stages, waves=p.tiles / sm_count(dev))
+
+
+def tf32_bounds(row, m, k, n):
+    """A 3xTF32 row's work as three TF32 products at the tensor cores' rate,
+    with the f32 FMA bound of the same product beside it (``ffma_bound_ms``)."""
+    row.update(flops=6 * m * k * n, peak_flops=PEAK_TF32_FLOPS,
+               ffma_bound_ms=bound_ms(row["bytes"], 2 * m * k * n, PEAK_F32_FLOPS)[0])
+    row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], 6 * m * k * n, PEAK_TF32_FLOPS)
+    return row
+
+
 def f32_tile_of(m, n):
-    """The float32 kernel's plan for an (M, ., N) product, as its C side reports it."""
+    """The FFMA kernel's plan for an (M, ., N) product, as its C side reports it."""
     from bdvcil_torch.ops import gemm_plan
 
     p = gemm_plan.f32_kernel_plan(m, n)
@@ -3548,8 +3579,9 @@ def stats_gemm_row(name, conv, gen, dev, mkn, dtype, per_path, path=None):
                     lambda: conv.gemm_stats_plain(x, w), lambda: stats_of(torch.matmul(x, w)),
                     (4 if f32 else 2) * (m * k + m * n + k * n) + 8 * n, 2 * m * k * n, err,
                     product=lambda: torch.matmul(x, w),
-                    tile=f32_tile_of(m, n) if f32 else tile_of(m, n),
-                    peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+                    tile=tf32_tile_of(m, n) if f32 else tile_of(m, n))
+    if f32:
+        tf32_bounds(row, m, k, n)
     row["dtype"] = str(dtype).removeprefix("torch.")
     if path is not None:
         row["path"] = path
@@ -3590,8 +3622,9 @@ def print_row(r):
     print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/{r.get('path', 'path')}: "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
           f"({KERNEL_META[r['kernel']][2]}), product {r['product_ms']}, bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['ms'] / r['bound_ms']:.2f}x), "
-          f"max_abs_err {r['max_abs_err']}"
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['ms'] / r['bound_ms']:.2f}x"
+          + (f"; f32 FMA bound {r['ffma_bound_ms']:.4f}" if "ffma_bound_ms" in r else "")
+          + f"), max_abs_err {r['max_abs_err']}"
           + ("" if tile is None else f", tile {tile['block'][0]}x{tile['block'][1]} "
              f"tiles {tile['tiles']} grid {tile['grid']} waves {tile['waves']:.2f}"),
           flush=True)
@@ -3626,8 +3659,9 @@ def f32_phase(dev, gen, seed, smi, conv, bf16_step_ms):
         out["gemm_launches"] = f32_gemm_path(dev, gen, conv)
     for r in rows:
         print_row(r)
-    sums = {name: sum(r["ms"] * r["per_path"] for r in rows if r["kernel"] == name
-                      and "path" not in r) for name in (CONV_F32, GEMM_F32)}
+    sums = {(name, key): sum(r[key] * r["per_path"] for r in rows if r["kernel"] == name
+                             and "path" not in r)
+            for name in (CONV_F32, GEMM_F32) for key in ("ms", "bound_ms", "ffma_bound_ms")}
     checksums = bf16_core_checksums(dev, conv)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if sms == BF16_CORE_SMS and checksums != BF16_CORE_CHECKSUMS:
@@ -3635,8 +3669,11 @@ def f32_phase(dev, gen, seed, smi, conv, bf16_step_ms):
                if v != BF16_CORE_CHECKSUMS.get(k)}
         raise AssertionError(f"the bf16 core's outputs changed at the R50 shapes: {bad}")
     out.update(checksums=checksums, checksums_held=sms == BF16_CORE_SMS)
-    print(f"f32 (a): {CONV_F32} over a train forward (12 shapes, 32 launches) {sums[CONV_F32]:.4f}"
-          f" ms, {GEMM_F32} over phase 2's 8 shapes {sums[GEMM_F32]:.4f} ms; both within y rtol "
+    print(f"f32 (a): the 3xTF32 kernel: {CONV_F32} over a train forward (12 shapes, 32 "
+          f"launches) {sums[CONV_F32, 'ms']:.4f} ms (3xTF32 bound "
+          f"{sums[CONV_F32, 'bound_ms']:.4f}, f32 FMA bound {sums[CONV_F32, 'ffma_bound_ms']:.4f}),"
+          f" {GEMM_F32} over phase 2's 8 shapes {sums[GEMM_F32, 'ms']:.4f} ms (bounds "
+          f"{sums[GEMM_F32, 'bound_ms']:.4f}, {sums[GEMM_F32, 'ffma_bound_ms']:.4f}); both within y rtol "
           f"{F32_Y_RTOL}, atol {F32_Y_ATOL} of max |y|, statistics rtol {F32_STATS_RTOL} of the "
           f"plain version (TF32 off) at the R50 and ragged shapes, bf16 within one ulp at the "
           f"ragged ones; f32 gemm path launches {out['gemm_launches']}; the bf16 core's "
@@ -3790,7 +3827,7 @@ def f32_block_rows(dev, gen, hw, c, cm, per, bf, conv):
         (CONV1_F32, (m, c, cm), lambda: bf.conv1x1_stats(x, w1),
          lambda: conv.gemm_stats_plain(x, w1), lambda: stats_of(torch.matmul(x, w1)),
          lambda: torch.matmul(x, w1), 4 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm,
-         f32_tile_of(m, cm)),
+         tf32_tile_of(m, cm)),
         (CONV3_F32, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
          lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
          lambda: stats_of(torch.matmul(y, w3)), lambda: torch.matmul(y, w3),
@@ -3809,9 +3846,9 @@ def f32_block_rows(dev, gen, hw, c, cm, per, bf, conv):
         first = same_twice(f"{name} {shape}", fn)
         err = assert_f32_stats(f"{name} {shape}", first, plain())
         weight = per if shape[-1] != "im2col" else 0  # one kernel: count its time once
-        rows.append(dict(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
-                                   product=product, tile=tile, peak=PEAK_F32_FLOPS),
-                         dtype="float32"))
+        row = dict(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
+                             product=product, tile=tile, peak=PEAK_F32_FLOPS), dtype="float32")
+        rows.append(tf32_bounds(row, m, c, cm) if name == CONV1_F32 else row)
         del first
     del y, w1, w2, w3, w2_lib, y_nchw
     y3 = torch.randn(x.shape, generator=gen, device=dev) * 3
@@ -4198,12 +4235,15 @@ def main(argv=None) -> int:
                        "ops/gemm_plan.py) for #3, #4, #6, #7 and #8. launches of #1 and #2: "
                        "phase 10's whole CIL run (tasks and cil_testing) plus phase 11's "
                        "(the ActorCutMix run, its cil_testing and the tools). The float32 "
-                       "kernel (phase 19): #3 f32 a task-0 train forward of batch 16, its "
-                       "launches phase 19 (b)'s two steps and (c)'s task; #4 f32 one call per "
-                       "shape, its launches the f32 gemm path; its tile is its own plan "
-                       "(ops/gemm_plan.f32_kernel_plan), bound_ms at the f32 FMA rate. The "
-                       "block's float32 kernels (phase 20): one layer1 block forward, their "
-                       "launches phase 20 (a)'s block runs")
+                       "kernel of #3, #4 and #6 (3xTF32, phase 19): #3 f32 a task-0 train "
+                       "forward of batch 16, its launches phase 19 (b)'s two steps and (c)'s "
+                       "task; #4 f32 one call per shape, its launches the f32 gemm path; its "
+                       "tile is its own plan (ops/gemm_plan.tf32_kernel_plan), bound_ms at "
+                       "three TF32 products on the tensor cores (495 TFLOP/s); kernel_rows' "
+                       "ffma_bound_ms is the same product at the f32 FMA rate. The block's "
+                       "float32 kernels (phase 20): one layer1 block forward, their launches "
+                       "phase 20 (a)'s block runs; #7 and #8 f32 (the FFMA kernel) bound at "
+                       "the f32 FMA rate")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)
@@ -4214,5 +4254,28 @@ def main(argv=None) -> int:
     return 0
 
 
+def failure_summary(exc: BaseException) -> str:
+    """One line for the end of stderr: the phase and line of this script the
+    error was raised under, and the error's first and last lines without a C++
+    backtrace's ``frame #`` lines (a CUDA or c10d error's backtrace, or a rank's
+    log quoted in the error, can fill a log's tail)."""
+    import traceback
+
+    mine = [f for f in traceback.extract_tb(exc.__traceback__) if f.name != "<module>"
+            and os.path.abspath(f.filename) == os.path.abspath(__file__)]
+    where = " > ".join(f"{f.name}:{f.lineno}" for f in mine) or "<module>"
+    text = [line.strip() for line in str(exc).splitlines()
+            if line.strip() and not line.lstrip().startswith(("frame #", "Exception raised from"))]
+    shown = text if len(text) <= 8 else text[:3] + ["..."] + text[-5:]
+    return f"chip_smoke failed in {where}: {type(exc).__name__}: {' | '.join(shown)}"
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as exc:
+        import traceback
+
+        traceback.print_exc()
+        print(failure_summary(exc), file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -2,9 +2,9 @@
 
 The JAX package's block ops (``bdvcil_tpu/ops/block_fused.py``) take any
 dtype and any (NT, H, W, C): their kernels cast to ``x_ref.dtype`` and their
-BlockSpecs take any h, w, k and n. The port's run float32 on the FFMA
-kernels and bfloat16 on the wgmma core at any channel count (zero-padded to
-multiples of 8 for the TMA) and any width up to
+BlockSpecs take any h, w, k and n. The port's run float32 on the 3xTF32
+kernel (conv1) and the FFMA kernel (conv3, the 3x3), and bfloat16 on the
+wgmma core, at any channel count (zero-padded for the TMA) and any width up to
 ``gemm_plan.conv3x3_max_width``. Here the ops run their plain versions, and
 these tests hold them and what surrounds the kernels against the JAX
 package, with the same numpy inputs (JAX's Pallas kernels in interpret

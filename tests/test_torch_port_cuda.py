@@ -15,13 +15,14 @@ gemm_with_stats, the block's three stats ops): y within one bf16 ulp
 (accumulation order; near zero the ulp is taken at 1/256 of the tensor's
 rms), the statistics rtol 1e-3 (f32 sums in another order), and the same
 statistics bit for bit on a second run; the float32 GEMM with statistics
-(csrc/gemm_stats_f32.cu): y rtol 1e-5, atol 1e-6 of max |y| (another order of
-f32 FMAs than the library product's), the statistics rtol 1e-4, atol 1e-4 of
-the largest (another summation order), and the same bits on a second run;
-so are the block's float32 kernels (#6, #7 and #8 on the FFMA kernel), whose
-tail (#9b) is bit for bit; the float32 block against its plain composition
-within 1e-4 of the terms' size (f32 sums of another order through three
-BatchNorms).
+(csrc/gemm_stats_tf32.cu, three TF32 products on the tensor cores: #3, #4
+and the block's #6): y rtol 1e-5, atol 1e-6 of max |y| (another order of
+summation than the library product's f32 FMAs), the statistics rtol 1e-4,
+atol 1e-4 of the largest (another summation order), and the same bits on a
+second run; so are the block's float32 kernels with a prologue (#7 and #8 on
+the FFMA kernel of csrc/gemm_stats_f32.cu), whose tail (#9b) is bit for bit;
+the float32 block against its plain composition within 1e-4 of the terms'
+size (f32 sums of another order through three BatchNorms).
 """
 
 import numpy as np
@@ -31,7 +32,7 @@ import torch
 from bdvcil_torch.ops import _build
 from bdvcil_torch.ops import block_fused as port_bf
 from bdvcil_torch.ops import conv1x1_bn as port_conv
-from bdvcil_torch.ops import gemm_plan
+from bdvcil_torch.ops import gemm_plan, tf32
 from bdvcil_torch.ops import tsm_shift as port_tsm
 
 pytestmark = pytest.mark.cuda
@@ -174,7 +175,7 @@ def test_interpret_mode_launches_no_conv1x1_kernel(cuda):
     assert err <= 3e-2 * float(ref.abs().max())
 
 
-# --- the float32 GEMM with statistics (csrc/gemm_stats_f32.cu): #3 and #4 in f32 ---
+# --- the float32 GEMM with statistics (csrc/gemm_stats_tf32.cu): #3, #4, #6 in f32 ---
 
 # (M, K, N) off every tile multiple: the JAX test's two and K, N not multiples of 8
 RAGGED_1X1 = [(100, 32, 128), (896, 96, 128), (1000, 3, 5), (4096, 100, 101), (4096, 96, 101)]
@@ -216,6 +217,144 @@ def test_f32_plan_is_the_kernels(cuda):
     its C side makes, at every R50 shape and the ragged ones."""
     for m, _, n in sorted(gemm_plan.r50_1x1_shapes()) + RAGGED_1X1 + [(1, 1, 1), (129, 8, 192)]:
         assert gemm_plan.f32_kernel_plan(m, n) == gemm_plan.f32_plan(m, n)
+
+
+R50_1X1 = sorted(gemm_plan.r50_1x1_shapes())
+
+
+@pytest.mark.parametrize("mkn", R50_1X1 + RAGGED_1X1)
+def test_tf32_kernel_matches_plain_at_r50_and_ragged_shapes(cuda, mkn):
+    """#3, #4 and #6 in float32, all on the 3xTF32 kernel, against the plain
+    version with TF32 off at the 12 R50 1x1 shapes and the ragged ones (K, N
+    zero-padded to multiples of 4); a second run gives the same bits."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ref = port_conv.gemm_stats_plain(x, w)
+    x4 = x.reshape(m, 1, 1, k)
+    _build.LAUNCHES.clear()
+    got = {port_conv.KERNEL_F32: port_conv.conv1x1_with_stats_fwd(x4, w),
+           port_conv.GEMM_KERNEL_F32: port_conv.gemm_with_stats_fwd(x, w),
+           port_bf.CONV1_F32: port_bf.conv1x1_stats(x4, w)}
+    again = port_conv.gemm_with_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_conv.KERNEL_F32: 1, port_conv.GEMM_KERNEL_F32: 2,
+                               port_bf.CONV1_F32: 1}
+    for y, s1, s2 in got.values():
+        _check_f32((y.reshape(m, n), s1, s2), ref)
+    assert all(torch.equal(u, v) for u, v in zip(got[port_conv.GEMM_KERNEL_F32], again))
+
+
+def test_tf32_plan_is_the_kernels(cuda):
+    """The Python plan that sizes the 3xTF32 kernel's partials equals the one
+    its C side makes, at every R50 shape, the ragged ones (N padded to 4) and
+    fewer rows and columns than a tile."""
+    sms = port_conv.sm_count(cuda)
+    mns = [(m, n) for m, _, n in R50_1X1] + [(m, -(-n // 4) * 4) for m, _, n in RAGGED_1X1]
+    for m, n in mns + [(1, 4), (129, 192), (4096, 104)]:
+        assert gemm_plan.tf32_kernel_plan(m, n, cuda) == gemm_plan.tf32_plan(m, n, sms)
+
+
+def test_f32_forms_run_on_their_libraries(cuda, monkeypatch):
+    """#3, #4 and #6 in float32 load the 3xTF32 library only; #7 and #8 (with
+    the prologue) the FFMA one only."""
+    used = []
+
+    def recording(lib, tag):
+        def load():
+            used.append(tag)
+            return lib()
+        return load
+
+    for mod, attr, tag in ((port_conv, "_tf32_lib", "tf32"), (port_conv, "_f32_lib", "ffma"),
+                           (port_bf, "_f32_lib", "ffma")):
+        monkeypatch.setattr(mod, attr, recording(getattr(mod, attr), tag))
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn((2, 6, 6, 64), generator=g, device=cuda)
+    w = torch.randn((64, 64), generator=g, device=cuda) * 0.125
+    w2 = torch.randn((3, 3, 64, 64), generator=g, device=cuda) * 0.04
+    a, b = torch.ones(64, device=cuda), torch.full((64,), 0.1, device=cuda)
+    calls = {"tf32": [lambda: port_conv.conv1x1_with_stats_fwd(x, w),
+                      lambda: port_conv.gemm_with_stats_fwd(x.reshape(-1, 64), w),
+                      lambda: port_bf.conv1x1_stats(x, w)],
+             "ffma": [lambda: port_bf.conv1x1_affine_relu_stats(x, a, b, w),
+                      lambda: port_bf.conv3x3_affine_relu_stats(x, a, b, w2)]}
+    for tag, fns in calls.items():
+        for fn in fns:
+            used.clear()
+            fn()
+            assert used == [tag]
+
+
+# the kernel's largest error against x @ w in float64, over the emulation's
+WITNESS_FACTOR = 1.6
+
+
+@pytest.mark.parametrize("k", [64, 512, 2048])
+def test_tf32_kernel_error_within_the_emulations(cuda, k):
+    """A float64 witness: against x @ w in float64, the kernel's largest error
+    is within WITNESS_FACTOR times that of the emulated 3xTF32
+    (``ops/tf32.gemm_3xtf32``: the same split, each TF32 product exact in
+    f32, the sums IEEE f32, TF32 off). The tensor cores truncate their sum of
+    a k-step's 12 products, so the kernel's error is not the emulation's.
+
+    Ratios read by ``python -m bdvcil_torch.tf32_witness`` over 16 seeds
+    (18, this test's, and 0-14), NVIDIA H100 80GB HBM3, 700.00 W:
+
+        K      kernel        one accumulator
+        64     0.77-1.06     1.94-3.70
+        512    1.07-1.34     17.3-24.8
+        2048   0.98-1.28     38.6-48.2
+
+    (seed 18: 0.88, 1.16, 1.03). "One accumulator" is the kernel with all of
+    K summed in the tensor cores' accumulator, without the IEEE f32 add a
+    32-wide k-step. The factor lies between the kernel's largest ratio and
+    that variant's smallest."""
+    m, n = 8192, 256
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    y64 = x.double() @ w.double()
+    got = port_conv.gemm_with_stats_fwd(x, w)[0]
+    emulated = tf32.gemm_3xtf32(x, w)
+    err, bound = (float((v.double() - y64).abs().max()) for v in (got, emulated))
+    assert err <= WITNESS_FACTOR * bound, f"kernel {err}, emulation {bound}"
+
+
+def test_tf32_kernel_gives_nan_past_tf32_max_as_the_emulation(cuda):
+    """The pinned divergence: x past TF32's largest finite rounds to inf, so
+    the row's y is NaN on the card as in ``ops/tf32`` (the f32 product is
+    finite there); the other rows stay finite."""
+    x = torch.ones((4, 8), device=cuda)
+    x[1, 0] = float(np.finfo(np.float32).max)
+    w = torch.full((8, 8), 2.0 ** -100, device=cuda)
+    w[1:] = 1.0
+    y, _, _ = port_conv.gemm_with_stats_fwd(x, w)
+    want = tf32.gemm_stats_3xtf32_emulated(x, w)[0]
+    assert bool(torch.isfinite(x @ w).all())
+    assert torch.equal(torch.isnan(y), torch.isnan(want))
+    assert bool(torch.isnan(y[1]).all()) and bool(torch.isfinite(y[[0, 2, 3]]).all())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_tf32_kernel_takes_a_misaligned_x(cuda, offset):
+    """A contiguous float32 x at a storage offset of 1-3 floats, so not
+    16-byte aligned as the TMA needs (K = 64: no padding copies it): the
+    plain result, one launch counted."""
+    m, k, n = 1000, 64, 96
+    g = torch.Generator(device=cuda).manual_seed(19)
+    buf = torch.randn((m * k + 4,), generator=g, device=cuda)
+    x = buf[offset:offset + m * k].view(m, k)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    assert x.is_contiguous() and x.data_ptr() % 16
+    ref = port_conv.gemm_stats_plain(x, w)
+    _build.LAUNCHES.clear()
+    got = port_conv.gemm_with_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_conv.GEMM_KERNEL_F32: 1}
+    _check_f32(got, ref)
 
 
 @pytest.mark.parametrize("mkn", RAGGED_1X1)

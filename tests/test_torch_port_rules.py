@@ -8,7 +8,8 @@
     NotImplementedError naming the ROADMAP item;
   * the package's layout docstrings name every module;
   * chip_smoke.py fails, and prints no result, without a GPU or without the
-    rest of the repo;
+    rest of the repo, and on a failure its last line of stderr names the
+    phase and the error without a C++ backtrace;
   * the port carries its own JPEG codec: no source includes ``jpeglib.h``,
     the host libraries are built without ``-ljpeg`` and need no libjpeg.
 """
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 import importlib
+import importlib.util
 
 from bdvcil_torch.models import build_model, init_model_params
 from bdvcil_torch.optim import build_optimizer
@@ -175,6 +177,46 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _smoke_module():
+    spec = importlib.util.spec_from_file_location("chip_smoke_rules", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _cuda_error():
+    lines = ["CUDA error: an illegal memory access was encountered",
+             "Exception raised from c10_cuda_check_implementation at CUDAException.cpp:44 "
+             "(most recent call first):"]
+    lines += [f"frame #{i}: <unknown function> + 0x{i:x} (0x1 in libc10.so)" for i in range(30)]
+    raise RuntimeError("\n".join(lines))
+
+
+def _rank_log_error():
+    log = [f"rank line {i}" for i in range(12)] + ["RuntimeError: CUDA error: out of memory"]
+    log += [f"frame #{i}: <unknown function>" for i in range(30)]
+    raise AssertionError("distributed (b): rank exit codes [0, 1]\n--- rank 1:\n" + "\n".join(log))
+
+
+@pytest.mark.parametrize("case", ["gate", "cuda_error", "rank_log"])
+def test_chip_smoke_failure_summary_names_the_phase_and_the_error(case):
+    """The last line of stderr on a failure: where in the script, and the
+    error's own lines without a C++ backtrace, so a log's tail shows why."""
+    smoke = _smoke_module()
+    calls = dict(gate=lambda: smoke._close("loss", 1.0, 2.0, 1e-3),
+                 cuda_error=lambda: smoke.same_twice("y", _cuda_error),
+                 rank_log=lambda: smoke.same_twice("ranks", _rank_log_error))
+    with pytest.raises(Exception) as info:
+        calls[case]()
+    line = smoke.failure_summary(info.value)
+    assert "\n" not in line and "frame #" not in line
+    want = dict(gate=("_close:", "AssertionError: loss: 1.0 vs 2.0 (rtol 0.001)"),
+                cuda_error=("same_twice:", "RuntimeError: CUDA error: an illegal memory access"),
+                rank_log=("same_twice:", "RuntimeError: CUDA error: out of memory"))[case]
+    assert line.startswith(f"chip_smoke failed in {want[0]}"), line
+    assert want[1] in line, line
 
 
 def _native_sources():

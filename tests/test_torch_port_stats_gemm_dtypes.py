@@ -1,8 +1,10 @@
 """The GEMM with statistics in float32 and at any K and N, on the CPU.
 
-On the card the port runs float32 on its FFMA kernel (``csrc/gemm_stats_f32.cu``)
-and bfloat16 on the wgmma core, zero-padding K and N to multiples of 8 for
-the TMA (``ops/conv1x1_bn.aligned_call``). Here the wrappers run the plain
+On the card the port runs float32 as three TF32 products on the tensor cores
+(``csrc/gemm_stats_tf32.cu``, K and N zero-padded to multiples of 4; with the
+block's prologue, the FFMA kernel of ``csrc/gemm_stats_f32.cu``) and bfloat16
+on the wgmma core, zero-padding K and N to multiples of 8 for the TMA
+(``ops/conv1x1_bn.aligned_call``). Here the wrappers run the plain
 version, and these tests hold what surrounds the kernels:
 
   * the port's ``gemm_with_stats`` and ``conv1x1_with_stats`` against the JAX
@@ -14,12 +16,12 @@ version, and these tests hold what surrounds the kernels:
     package's own tests/test_conv1x1_bn.py: y rtol 2e-2, atol 2e-2 (one ulp of
     accumulation order), the statistics against each side's own rounded y
     rtol 1e-5, atol 1e-4;
-  * the dtype routing (``launch_name``): float32 to the FFMA kernel's count,
+  * the dtype routing (``launch_name``): float32 to the float32 kernels' count,
     bfloat16 to the wgmma core's, anything else a TypeError before a build;
   * the padding for the TMA applied to the plain version: y bit for bit the
     unpadded plain version's, the statistics rtol 1e-6 (the CPU's sum over
     8 columns takes another path than over 5);
-  * the float32 kernel's tile plan (``gemm_plan.f32_plan``), which sizes the
+  * the FFMA kernel's tile plan (``gemm_plan.f32_plan``), which sizes the
     wrapper's partials and which the kernel checks on the card.
 """
 
