@@ -52,6 +52,8 @@ Layout:
   profile_kernels, profile_step  device-time profiles of the kernels and the step
   tf32_witness       the float32 kernel's float64 witness over seeds, and a
                      one-accumulator variant's, for the card test's factor
+  tf32_variants      the float32 kernel's device time at the block's shapes
+                     beside variants that each leave one part of the work out
   profile_e2e        the fed train loop's wall time split into wait, put,
                      dispatch and device, with the producer's phases
   reference_loop     the reference's CIL loop in plain torch (the accuracy

@@ -1,5 +1,5 @@
 // 1x1 convolution as a GEMM with a BatchNorm-statistics epilogue, for Hopper:
-// the bf16 forms (float32 runs in gemm_stats_f32.cu).
+// the bf16 forms (float32 runs in gemm_stats_tf32.cu).
 //
 // Replaces these Pallas kernels, all the same GEMM over (M, K) x (K, N) with
 // M = N*T*H*W rows of an NHWC activation, so a 1x1 conv reads x in place:

@@ -23,8 +23,8 @@ configuration of the JAX package computes in it):
 
   op                          bfloat16                    float32
   conv1x1_stats               csrc/conv1x1_stats.cu       csrc/gemm_stats_tf32.cu
-  conv1x1_affine_relu_stats   csrc/conv1x1_stats.cu       csrc/gemm_stats_f32.cu
-  conv3x3_affine_relu_stats   csrc/conv3x3_stats.cu       csrc/gemm_stats_f32.cu
+  conv1x1_affine_relu_stats   csrc/conv1x1_stats.cu       csrc/gemm_stats_tf32.cu
+  conv3x3_affine_relu_stats   csrc/conv3x3_stats.cu       csrc/gemm_stats_tf32.cu
   bn_finalize                 csrc/block_epilogue.cu (f32 statistics either way)
   affine_residual_relu        csrc/block_epilogue.cu, 16-byte packs of 8 bf16 or 4 f32
 
@@ -33,11 +33,12 @@ The bf16 stats kernels run on the persistent wgmma core of
 shared memory; channel counts that are not multiples of 8 are zero-padded
 for the TMA (a = b = 0 on the padded channels: ``conv1x1_bn.aligned_call``),
 and the 3x3 takes any width up to ``gemm_plan.conv3x3_max_width`` (271 at
-Cin <= 512, 247 at 2048). The float32 conv1 runs as three TF32 products on
-the tensor cores (``csrc/gemm_stats_tf32.cu``, the float32
-``conv1x1_with_stats`` kernel), the float32 conv3 and 3x3 on the FFMA kernel
-of ``csrc/gemm_stats_f32.cu`` at any shape, the prologue applied as A's
-slice enters shared memory. Each 3x3 kernel serves both of the JAX package's
+Cin <= 512, 247 at 2048). The float32 stats ops run as three TF32 products
+on the tensor cores (``csrc/gemm_stats_tf32.cu``), conv3 with the prologue
+applied to A's fragments in registers, the 3x3 as an implicit im2col from a
+window of x that the prologue has been applied to once, at any W < 65536
+(channel counts zero-padded to multiples of 4, as for the float32 conv1).
+Each 3x3 kernel serves both of the JAX package's
 variant names ("taps", "im2col": one function, two ways of tiling the TPU's
 matrix unit). On a CPU tensor each op is its ``_plain`` version; the plain
 3x3 mirrors each variant's summation (nine f32 tap products accumulated in
@@ -64,8 +65,8 @@ import torch.nn.functional as F
 from .. import _device
 from . import _build
 from . import gemm_plan
-from .conv1x1_bn import (F32, _f32_lib, aligned_call, check_affine, gemm_stats_cuda,
-                         gemm_stats_plain, launch_name, sm_count, stats_scratch)
+from .conv1x1_bn import (F32, F32_TMA_ALIGN, _tf32_lib, aligned_call, aligned_x, check_affine,
+                         gemm_stats_cuda, gemm_stats_plain, launch_name, sm_count, stats_scratch)
 
 CONV1 = "block_conv1x1_stats"
 CONV2 = "conv3x3_affine_relu_stats"
@@ -215,18 +216,25 @@ def _conv3x3_wgmma(x, w, a, b):
 
 
 def _conv3x3_f32(x, w, a, b):
-    """The float32 3x3 on the FFMA kernel, any shape."""
+    """The float32 3x3 as three TF32 products: Cin and Cout % 4 == 0, any W
+    < 65536 (the window in three bands where it is wide). w is split into a
+    (2, Cout, 9, Cin rounded up to 32) scratch; a and b go as one (2, Cin)
+    operand."""
     nt, h, w_, k = x.shape
     n = w.shape[-1]
     if h >= 1 << 15 or w_ >= 1 << 16:
         raise ValueError(f"{CONV2_F32}: needs H < 32768 and W < 65536, got H={h} W={w_}")
-    lib = _f32_lib()
+    lib = _tf32_lib()
+    x = aligned_x(x)
     y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
-    part_rows = gemm_plan.f32_plan(nt * h * w_, n).m_tiles  # one partial per 128-row tile
+    part_rows = sm_count(x.device)  # one partial per persistent CTA, at most one CTA per SM
     part, stats = stats_scratch((2, part_rows, n), n, x.device)
-    code = lib.bdv_conv3x3_affine_relu_stats_f32(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), part.data_ptr(),
-        part_rows, stats.data_ptr(), nt, h, w_, k, n,
+    c_pad = -(-k // gemm_plan.TF32_BLOCK_K) * gemm_plan.TF32_BLOCK_K
+    wsplit = torch.empty((2, n, 9 * c_pad), dtype=torch.float32, device=x.device)
+    ab = torch.stack((a, b))
+    code = lib.bdv_conv3x3_affine_relu_stats_tf32(
+        x.data_ptr(), w.data_ptr(), ab.data_ptr(), wsplit.data_ptr(), y.data_ptr(),
+        part.data_ptr(), part_rows, stats.data_ptr(), nt, h, w_, k, n,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, CONV2_F32)
@@ -244,7 +252,7 @@ def _conv3x3_cuda(x, a, b, w, variant):
         raise ValueError(f"{CONV2}: operands must be contiguous (NHWC x, HWIO w)")
     check_affine(CONV2, x.shape[-1], a, b, x.device)
     if x.dtype == torch.float32:
-        out = _conv3x3_f32(x, w, a, b)
+        out = aligned_call(_conv3x3_f32, x, w, a, b, align=F32_TMA_ALIGN)
     else:
         out = aligned_call(_conv3x3_wgmma, x, w, a, b)
     _build.LAUNCHES[counter] += 1

@@ -13,10 +13,10 @@ On a CUDA tensor the forward is a hand-written kernel, chosen by dtype
 bfloat16 runs ``csrc/conv1x1_stats.cu`` on the persistent wgmma core of
 ``csrc/gemm_stats_sm90.cuh`` (K and N not multiples of 8 are zero-padded
 for the TMA, a and b with zeros: ``aligned_call``); float32 runs as three
-TF32 products on the tensor cores in ``csrc/gemm_stats_tf32.cu`` (K and N
-zero-padded to multiples of 4), with the prologue on the FFMA kernel of
-``csrc/gemm_stats_f32.cu`` (any M, K, N); float32 launches count under the
-wrapper's name + ``"_f32"``; any other dtype raises. On a CPU tensor it is
+TF32 products on the tensor cores in ``csrc/gemm_stats_tf32.cu``, the
+prologue applied to A's fragments in registers (K and N zero-padded to
+multiples of 4); float32 launches count under the wrapper's name +
+``"_f32"``; any other dtype raises. On a CPU tensor it is
 ``gemm_stats_plain``; ``interpret=True`` names the plain version
 on every device, the counterpart of JAX's Pallas interpreter
 (``conv1x1_mode='pallas_stats_interpret'``). The backward is plain PyTorch on
@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import distributed
-from . import _build, gemm_plan
+from . import _build
 
 KERNEL = "conv1x1_with_stats"
 GEMM_KERNEL = "gemm_with_stats"
@@ -84,34 +84,21 @@ def _lib() -> ctypes.CDLL:
 def _tf32_lib() -> ctypes.CDLL:
     lib = _build.library("gemm_stats_tf32")
     if not getattr(lib, "_bdv_typed", False):
-        lib.bdv_gemm_stats_tf32.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.bdv_gemm_stats_tf32.restype = ctypes.c_int
+        tail = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+        lib.bdv_gemm_stats_tf32.argtypes = [ctypes.c_void_p] * 5 + tail + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.bdv_gemm_affine_relu_stats_tf32.argtypes = [ctypes.c_void_p] * 6 + tail + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.bdv_conv3x3_affine_relu_stats_tf32.argtypes = [ctypes.c_void_p] * 6 + tail + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.bdv_gemm_stats_tf32_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                  ctypes.c_void_p]
-        lib.bdv_gemm_stats_tf32_plan.restype = ctypes.c_int
-        lib._bdv_typed = True
-    return lib
-
-
-def _f32_lib() -> ctypes.CDLL:
-    lib = _build.library("gemm_stats_f32")
-    if not getattr(lib, "_bdv_typed", False):
-        lib.bdv_gemm_affine_relu_stats_f32.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.bdv_gemm_affine_relu_stats_f32.restype = ctypes.c_int
-        lib.bdv_conv3x3_affine_relu_stats_f32.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.bdv_conv3x3_affine_relu_stats_f32.restype = ctypes.c_int
-        lib.bdv_gemm_stats_f32_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                                ctypes.c_void_p]
-        lib.bdv_gemm_stats_f32_plan.restype = ctypes.c_int
+        lib.bdv_conv3x3_stats_tf32_plan.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        for fn in (lib.bdv_gemm_stats_tf32, lib.bdv_gemm_affine_relu_stats_tf32,
+                   lib.bdv_conv3x3_affine_relu_stats_tf32, lib.bdv_gemm_stats_tf32_plan,
+                   lib.bdv_conv3x3_stats_tf32_plan):
+            fn.restype = ctypes.c_int
         lib._bdv_typed = True
     return lib
 
@@ -143,8 +130,7 @@ def check_affine(name: str, k: int, a: torch.Tensor, b: torch.Tensor, device) ->
 
 def launch_name(name: str, x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
     """The launch count a GEMM-with-statistics call adds to: ``name`` for
-    bfloat16 (the wgmma core), ``name + F32`` for float32 (the 3xTF32 kernel,
-    or the FFMA kernel with a prologue).
+    bfloat16 (the wgmma core), ``name + F32`` for float32 (the 3xTF32 kernel).
     Any other dtype, or two dtypes, raise TypeError: no configuration of the
     JAX package computes in float16 (its trainer maps only float32 and
     bfloat16, ``cil/trainer.py:78``)."""
@@ -200,43 +186,35 @@ def _wgmma_stats(name: str, x: torch.Tensor, w: torch.Tensor,
     return y, stats[0], stats[1]
 
 
-def _tf32_stats(name: str, x: torch.Tensor, w: torch.Tensor):
+def aligned_x(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where it is not 16-byte aligned (a view at an odd
+    offset), for the 3xTF32 kernel's TMA."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _tf32_stats(name: str, x: torch.Tensor, w: torch.Tensor,
+                a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
     """The float32 GEMM as three TF32 products on x (..., K) and w (K, N), K
-    and N % 4 == 0: the kernel splits w into its (2, N, K) scratch first. An
-    x not 16-byte aligned (a view at an odd offset) is copied for the TMA."""
+    and N % 4 == 0: the kernel splits w into its (2, N, K) scratch first; with
+    (a, b), on relu(x * a + b), a and b passed as one (2, K) operand."""
     lib = _tf32_lib()
     k, n = w.shape
     m = x.numel() // k
-    if x.data_ptr() % 16:
-        x = x.clone()
+    x = aligned_x(x)
     y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     part_rows = sm_count(x.device)  # one partial per persistent CTA, at most one CTA per SM
     part, stats = stats_scratch((2, part_rows, n), n, x.device)
     wsplit = torch.empty((2, n, k), dtype=torch.float32, device=x.device)
-    code = lib.bdv_gemm_stats_tf32(
-        x.data_ptr(), w.data_ptr(), wsplit.data_ptr(), y.data_ptr(), part.data_ptr(),
-        part_rows, stats.data_ptr(), m, k, n,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, name + F32)
-    return y, stats[0], stats[1]
-
-
-def _f32_affine_stats(name: str, x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-                      b: torch.Tensor):
-    """The float32 FFMA kernel on relu(x * a + b) (x (..., K)) and w (K, N),
-    any K and N."""
-    lib = _f32_lib()
-    k, n = w.shape
-    m = x.numel() // k
-    y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    part_rows = gemm_plan.f32_plan(m, n).m_tiles  # one partial per 128-row tile
-    part, stats = stats_scratch((2, part_rows, n), n, x.device)
-    code = lib.bdv_gemm_affine_relu_stats_f32(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        part.data_ptr(), part_rows, stats.data_ptr(), m, k, n,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if a is None:
+        code = lib.bdv_gemm_stats_tf32(
+            x.data_ptr(), w.data_ptr(), wsplit.data_ptr(), y.data_ptr(), part.data_ptr(),
+            part_rows, stats.data_ptr(), m, k, n, stream)
+    else:
+        ab = torch.stack((a, b))
+        code = lib.bdv_gemm_affine_relu_stats_tf32(
+            x.data_ptr(), w.data_ptr(), ab.data_ptr(), wsplit.data_ptr(), y.data_ptr(),
+            part.data_ptr(), part_rows, stats.data_ptr(), m, k, n, stream)
     _build.check(lib, code, name + F32)
     return y, stats[0], stats[1]
 
@@ -245,9 +223,8 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
                     a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None):
     """Launch the GEMM-with-statistics kernel of x's dtype on the rows of x
     (..., K) and w (K, N): float32 on the 3xTF32 kernel, bfloat16 on the wgmma
-    core; with (a, b), on the rows of relu(x * a + b) in x's dtype (float32
-    on the FFMA kernel). Counts one launch under ``launch_name``. Returns y
-    (..., N), s1 (N,), s2 (N,)."""
+    core; with (a, b), on the rows of relu(x * a + b) in x's dtype. Counts
+    one launch under ``launch_name``. Returns y (..., N), s1 (N,), s2 (N,)."""
     if x.dim() < 2 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(x.shape)} x {tuple(w.shape)}")
     counter = launch_name(name, x.dtype, w.dtype)
@@ -257,10 +234,8 @@ def gemm_stats_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{name}: operands must be contiguous (row-major x, (K, N) w)")
     if a is not None:
         check_affine(name, w.shape[0], a, b, x.device)
-    if x.dtype == torch.float32 and a is None:
-        out = aligned_call(partial(_tf32_stats, name), x, w, align=F32_TMA_ALIGN)
-    elif x.dtype == torch.float32:
-        out = _f32_affine_stats(name, x, w, a, b)
+    if x.dtype == torch.float32:
+        out = aligned_call(partial(_tf32_stats, name), x, w, a, b, align=F32_TMA_ALIGN)
     else:
         out = aligned_call(partial(_wgmma_stats, name), x, w, a, b)
     _build.LAUNCHES[counter] += 1

@@ -19,19 +19,21 @@ count; the wrapper refuses a wider one with that number. Channel counts
 that are not multiples of 8 are zero-padded by the wrapper
 (``conv1x1_bn.aligned_call``), and the plan is made for the padded counts.
 
-``csrc/gemm_stats_tf32.cu`` (#3, #4 and #6 in float32, as three TF32
-products) runs 128 x ``block_n`` tiles, ``block_n`` 128 or 64, on a
-persistent grid of at most one CTA per SM, one partial row a CTA;
+``csrc/gemm_stats_tf32.cu`` (every float32 stats kernel: #3, #4, #6, #7 and
+#8, as three TF32 products) runs 128 x ``block_n`` tiles, ``block_n`` 128 or
+64, on a persistent grid of at most one CTA per SM, one partial row a CTA;
 ``tf32_plan`` is the Python copy of its ``make_plan`` (the bf16 core's cost
-model over the two widths, with each width's ring stages and shared memory),
-for the tests and reports. As for the bf16 core, the wrapper passes the SM
-count as the partials' rows, the C plan caps its grid there and the finish
-sums the grid's rows; ``tf32_kernel_plan`` reads the C plan back.
-
-``csrc/gemm_stats_f32.cu`` (the float32 stats kernels with a prologue: #7
-and #8) runs one CTA per 128 x ``block_n`` tile and one partial row per
-128-row tile. ``f32_plan`` is the Python copy of its ``make_plan``, used the
-same way; ``f32_kernel_plan`` reads the C plan back.
+model over the two widths, with each width's ring stages and shared
+memory), for the tests and reports. As for the bf16 core, the wrapper passes
+the SM count as the partials' rows, the C plan caps its grid there and the
+finish sums the grid's rows; ``tf32_kernel_plan`` reads the C plan back.
+Its 3x3 (``tf32gemm::conv3x3_plan``, Python copy ``tf32_conv3x3_plan``, read
+back by ``tf32_conv3x3_kernel_plan``) reads, for each tile and 32-channel
+slice, a window of x twice buffered (``tf32_window_plan``): 128 + 2 W + 2
+rows in boxes of at most 256 rows, or, where that is more, three bands of
+136 rows that fit at any W; it takes the widest tile (each column tile
+reloads the windows) with the most ring stages that fit beside them, then
+the narrower tile.
 """
 
 from __future__ import annotations
@@ -52,10 +54,10 @@ MAX_BOX_ROWS = 256  # a TMA box's most rows
 A_BYTES = BLOCK_M * BLOCK_K * 2  # one bf16 A tile
 # the 3x3's most ring stages per tile width (sm90::Layout<BN, kIm2col>::kMaxStages)
 CONV3X3_MAX_STAGES = {256: 3, 128: 4, 64: 6}
-F32_BLOCK_M = 128  # the FFMA kernel's tile rows
 TF32_BLOCK_K = 32  # the 3xTF32 kernel's K step: one 128-byte row of f32
-# the 3xTF32 kernel's ring stages per tile width (tf32gemm::Layout<BN>::kStages)
+# the 3xTF32 kernel's most ring stages per tile width (tf32gemm::Layout<BN>::kMaxStages)
 TF32_STAGES = {128: 3, 64: 5}
+TF32_BAND_ROWS = 136  # a band of the 3xTF32 3x3's wide window: 130 rows, rounded up to 8
 
 
 class Plan(NamedTuple):
@@ -81,16 +83,6 @@ class Conv3x3Plan(NamedTuple):
     boxes: int
     box_rows: int
     smem: int
-
-
-class F32Plan(NamedTuple):
-    """block_m x block_n tiles, m_tiles x n_tiles of them, one CTA each."""
-
-    block_m: int
-    block_n: int
-    m_tiles: int
-    n_tiles: int
-    grid: int
 
 
 class TF32Plan(NamedTuple):
@@ -201,41 +193,30 @@ def conv3x3_kernel_plan(m: int, n: int, w: int, c: int, device: torch.device) ->
     return Conv3x3Plan(*out)
 
 
-def f32_plan(m: int, n: int) -> F32Plan:
-    """The float32 kernel's tiles for an (M, ., N) product (``f32gemm::make_plan``):
-    128 columns, or 64 where a 128-wide last tile would hold 64 empty columns
-    or more (N % 128 in 1 .. 64)."""
-    if m <= 0 or n <= 0:
-        raise ValueError(f"f32_plan: M={m} N={n}")
-    rest = n % 128
-    block_n = 128 if rest == 0 or rest > 64 else 64
-    m_tiles, n_tiles = -(-m // F32_BLOCK_M), -(-n // block_n)
-    return F32Plan(F32_BLOCK_M, block_n, m_tiles, n_tiles, m_tiles * n_tiles)
-
-
-def f32_kernel_plan(m: int, n: int) -> F32Plan:
-    """The plan the float32 kernel makes, as its C side reports it."""
-    from .conv1x1_bn import _f32_lib
-
-    lib = _f32_lib()
-    out = (ctypes.c_int * 5)()
-    _build.check(lib, lib.bdv_gemm_stats_f32_plan(m, n, out), "bdv_gemm_stats_f32_plan")
-    return F32Plan(*out)
-
-
-def tf32_smem(block_n: int) -> int:
+def tf32_smem(block_n: int, load: str = "rows", stages: int = 0, boxes: int = 0,
+              box_rows: int = 0) -> int:
     """Shared memory of one 3xTF32 CTA (``tf32gemm::Layout`` + 1024 bytes of
-    alignment slack): the ring (x's 128 x 32 tile, w's big and small block_n x
-    32 tiles a stage), y's 128 x block_n tile for the TMA store, the
-    statistics' cross-warp sums and the full and empty barriers."""
-    stages = TF32_STAGES[block_n]
-    ring = stages * (BLOCK_M + 2 * block_n) * TF32_BLOCK_K * 4
-    return 1024 + ring + BLOCK_M * block_n * 4 + 2 * 8 * block_n * 4 + 2 * stages * 8
+    alignment slack), ``load`` "rows", "affine" (with the prologue) or
+    "im2col" (the 3x3): the ring of ``stages`` (0: the width's most) with w's
+    big and small block_n x 32 tiles a stage and x's 128 x 32 tile for the
+    1x1s, y's 128 x block_n tile for the TMA store, the 3x3's two windows of
+    ``boxes`` x ``box_rows`` rows, a and b's 32 channels (a stage's with the
+    prologue, a window's for the 3x3), the statistics' cross-warp sums and the
+    barriers (full and empty a stage, and a window)."""
+    stages = stages or TF32_STAGES[block_n]
+    im2col = load == "im2col"
+    stage = (0 if im2col else BLOCK_M * TF32_BLOCK_K * 4) + 2 * block_n * TF32_BLOCK_K * 4
+    window = -(-boxes * box_rows * 128 // 1024) * 1024 if im2col else 0
+    ab = {"rows": 0, "affine": stages, "im2col": 2}[load] * 2 * TF32_BLOCK_K * 4
+    barriers = 2 * stages + (4 if im2col else 0)
+    return (1024 + stages * stage + BLOCK_M * block_n * 4 + 2 * window + ab
+            + 2 * 8 * block_n * 4 + 8 * barriers)
 
 
 def tf32_plan(m: int, n: int, sms: int) -> TF32Plan:
     """``tf32gemm::make_plan``: ``wgmma_plan`` over widths 128 and 64, with
-    the width's ring stages and shared memory."""
+    the width's ring stages and shared memory (the 1x1 without a
+    prologue)."""
     if m > 2 ** 31 - BLOCK_M:
         raise ValueError(f"tf32_plan: M={m} past the kernel's int rows")
     plan = wgmma_plan(m, n, sms, widths=(128, 64))
@@ -251,6 +232,80 @@ def tf32_kernel_plan(m: int, n: int, device: torch.device) -> TF32Plan:
     _build.check(lib, lib.bdv_gemm_stats_tf32_plan(m, n, sm_count(device), out),
                  "bdv_gemm_stats_tf32_plan")
     return TF32Plan(*out)
+
+
+class TF32Window(NamedTuple):
+    """The 3xTF32 3x3's window of a tile and channel slice: ``boxes`` TMA
+    boxes of ``box_rows`` rows, box i from row m0 - W - 1 + i * box_step of
+    x as an (M, C) matrix; tap (dy, dx) of the tile's row r reads window row
+    (dy + 1) * band + 1 + r + dx."""
+
+    boxes: int
+    box_rows: int
+    box_step: int
+    band: int
+
+
+def tf32_window_plan(w: int) -> TF32Window:
+    """``tf32gemm::window_plan``: rows m0 - W - 1 .. m0 + 128 + W in the
+    fewest equal boxes of at most 256 rows (``window_plan``'s), the bands of
+    dy W rows apart; where that is more than three bands of 136 rows, those
+    bands, band dy + 1 from row m0 + dy W - 1, at any W."""
+    boxes, box_rows = window_plan(w)
+    if boxes * box_rows <= 3 * TF32_BAND_ROWS:
+        return TF32Window(boxes, box_rows, box_rows, w)
+    return TF32Window(3, TF32_BAND_ROWS, w, TF32_BAND_ROWS)
+
+
+class TF32Conv3x3Plan(NamedTuple):
+    """The 3xTF32 3x3's tiles (``Plan``'s fields), its ring stages, its
+    window (``TF32Window``'s fields) and its CTA's shared memory in bytes."""
+
+    block_n: int
+    m_tiles: int
+    n_tiles: int
+    tiles: int
+    grid: int
+    stages: int
+    boxes: int
+    box_rows: int
+    box_step: int
+    band: int
+    smem: int
+
+
+def tf32_conv3x3_plan(m: int, n: int, w: int, sms: int) -> TF32Conv3x3Plan:
+    """``tf32gemm::conv3x3_plan`` for M = NT*H*W pixels of width W and N
+    channels out (a multiple of 4): the widest tile (128 where it divides N
+    rounded up to 64; each column tile reloads the window and reruns its
+    prologue) with the most ring stages (at least 2) that fit beside two
+    windows, then the narrower width. A banded window fits at 64 columns, so
+    every W has a plan."""
+    if m <= 0 or n <= 0 or sms <= 0 or m > 2 ** 31 - BLOCK_M:
+        raise ValueError(f"tf32_conv3x3_plan: M={m} N={n} SMs={sms}")
+    win = tf32_window_plan(w)
+    m_tiles, n64 = -(-m // BLOCK_M), -(-n // 64) * 64
+    bn = 128 if n64 % 128 == 0 else 64
+    while bn >= 64:
+        for stages in range(TF32_STAGES[bn], 1, -1):
+            smem = tf32_smem(bn, "im2col", stages, win.boxes, win.box_rows)
+            if smem <= MAX_SMEM:
+                tiles = m_tiles * (n64 // bn)
+                return TF32Conv3x3Plan(bn, m_tiles, n64 // bn, tiles, min(tiles, sms), stages,
+                                       *win, smem)
+        bn //= 2
+    raise ValueError(f"tf32_conv3x3_plan: no plan at W={w}")
+
+
+def tf32_conv3x3_kernel_plan(m: int, n: int, w: int, device: torch.device) -> TF32Conv3x3Plan:
+    """The plan the 3xTF32 3x3 makes on ``device``, as its C side reports it."""
+    from .conv1x1_bn import _tf32_lib, sm_count
+
+    lib = _tf32_lib()
+    out = (ctypes.c_int * 11)()
+    _build.check(lib, lib.bdv_conv3x3_stats_tf32_plan(m, n, w, sm_count(device), out),
+                 "bdv_conv3x3_stats_tf32_plan")
+    return TF32Conv3x3Plan(*out)
 
 
 def r50_1x1_shapes(nt: int = 128, size: int = 56) -> Counter:

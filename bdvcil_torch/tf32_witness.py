@@ -49,30 +49,46 @@ ONE_ACCUMULATOR = (
 )
 
 
-def variant_library() -> ctypes.CDLL:
-    """Build the one-accumulator variant of ``gemm_stats_tf32.cu`` and load
-    it, typed as the kernel's own library."""
+ENTRY_POINTS = ("bdv_gemm_stats_tf32", "bdv_gemm_affine_relu_stats_tf32",
+                "bdv_conv3x3_affine_relu_stats_tf32", "bdv_gemm_stats_tf32_plan",
+                "bdv_conv3x3_stats_tf32_plan", "bdv_cuda_error_string")
+
+
+def build_variant(edits, tag: str) -> ctypes.CDLL:
+    """Build ``gemm_stats_tf32.cu`` with each (old, new) of ``edits`` replaced
+    (each old exactly once) and load it, typed as the kernel's own library,
+    so that ``ops/conv1x1_bn._tf32_lib`` and ``ops/block_fused._tf32_lib``
+    can be pointed at it. Built under ``bdvcil_torch/_build/``; the package
+    never loads it."""
     src = (_build.CSRC / "gemm_stats_tf32.cu").read_text()
-    for old, new in ONE_ACCUMULATOR:
+    for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"tf32_witness: the kernel's source no longer has {old!r}")
+            raise RuntimeError(f"tf32 variant {tag}: the kernel's source no longer has {old!r}")
         src = src.replace(old, new)
     # a namespace of its own: the static flags of an inline launcher are one
     # per process across libraries (GNU unique symbols), so in the kernel's
     # namespace the variant would skip its own shared-memory attribute
-    src = src.replace("tf32gemm", "tf32gemm_one_acc")
-    out = _build.BUILD_ROOT / "tf32_one_accumulator"
+    src = src.replace("tf32gemm", f"tf32gemm_{tag}")
+    out = _build.BUILD_ROOT / f"tf32_{tag}"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "gemm_stats_tf32_one_acc.cu").write_text(src)
-    so = out / "libgemm_stats_tf32_one_acc.so"
+    (out / f"gemm_stats_tf32_{tag}.cu").write_text(src)
+    so = out / f"libgemm_stats_tf32_{tag}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
-                    str(out / "gemm_stats_tf32_one_acc.cu")], check=True, capture_output=True)
+                    str(out / f"gemm_stats_tf32_{tag}.cu")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     own = conv._tf32_lib()
-    for fn in ("bdv_gemm_stats_tf32", "bdv_cuda_error_string"):
+    for fn in ENTRY_POINTS:
         getattr(lib, fn).argtypes = getattr(own, fn).argtypes
         getattr(lib, fn).restype = getattr(own, fn).restype
+    lib._bdv_typed = True
     return lib
+
+
+def variant_library() -> ctypes.CDLL:
+    """The one-accumulator variant of ``gemm_stats_tf32.cu``, loaded. Read at
+    the test's shape, whose tile is 128 columns wide: the kernel's one
+    accumulator a warpgroup."""
+    return build_variant(ONE_ACCUMULATOR, "one_acc")
 
 
 def errors(k: int, seed: int, variant: ctypes.CDLL, dev: torch.device) -> dict:

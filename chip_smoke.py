@@ -252,9 +252,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the f32 kernel 32 launches a train step, finite accuracies.
  20. block dtypes, the block probe at every dtype and shape the JAX ops
      take, TF32 off: (a) ``fused_bottleneck_fwd`` in float32 at the four
-     stride-1 widths (128 frames): #6 f32 (``gemm_stats_tf32.cu``), #7 and
-     #8 f32 (the FFMA kernel, ``gemm_stats_f32.cu``)
-     against their plain versions (y rtol 1e-5,
+     stride-1 widths (128 frames): #6, #7 and #8 f32 (three TF32 products,
+     ``gemm_stats_tf32.cu``) against their plain versions (y rtol 1e-5,
      atol 1e-6 of max |y|, the statistics rtol 1e-4; a second run bit for
      bit), #9b f32 bit for bit (a NaN pack included), the block against its
      plain composition and against ``plain_bottleneck_fwd`` (every output
@@ -267,7 +266,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      C plan equal to ``gemm_plan.conv3x3_plan``; (c) the bf16 core's #7 and
      #8 at the R50 shapes equal to checksums recorded before it took any
      channel count and width (``BLOCK_CORE_CHECKSUMS``); (d) the f32 rows
-     and #8 bf16 at W = 64 timed as phase 2's.
+     and #8 bf16 at W = 64 timed as phase 2's, the f32 rows bound by three
+     TF32 products; (e) #8 f32 at W = 112 (two boxes a window) and 200
+     (three bands) and at Cin 12 and 3, both variant names, #7 f32 at ragged
+     K and N, against their plain versions as (a), the 3x3's C plan equal to
+     ``gemm_plan.tf32_conv3x3_plan``.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -345,9 +348,9 @@ KERNEL_META = {
                F32_MATMUL_SUMS),
     CONV1_F32: ("bdvcil_torch/csrc/gemm_stats_tf32.cu", "bdvcil_tpu/ops/block_fused.py:96",
                 F32_MATMUL_SUMS),
-    CONV3_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:73",
+    CONV3_F32: ("bdvcil_torch/csrc/gemm_stats_tf32.cu", "bdvcil_tpu/ops/block_fused.py:73",
                 F32_MATMUL_SUMS + " without the prologue: less work than the kernel"),
-    CONV2_F32: ("bdvcil_torch/csrc/gemm_stats_f32.cu", "bdvcil_tpu/ops/block_fused.py:110",
+    CONV2_F32: ("bdvcil_torch/csrc/gemm_stats_tf32.cu", "bdvcil_tpu/ops/block_fused.py:110",
                 "F.conv2d (f32, TF32 off, channels_last) + two f32 sums without the prologue: "
                 "less work than the kernel"),
     EPILOGUE_F32: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:290",
@@ -3547,16 +3550,21 @@ def tf32_bounds(row, m, k, n):
     return row
 
 
-def f32_tile_of(m, n):
-    """The FFMA kernel's plan for an (M, ., N) product, as its C side reports it."""
+def tf32_conv3x3_tile_of(m, n, w):
+    """The 3xTF32 3x3's plan for M pixels of width W and N (padded to 4)
+    channels out, as its C side reports it, held against its Python copy."""
     from bdvcil_torch.ops import gemm_plan
+    from bdvcil_torch.ops.conv1x1_bn import F32_TMA_ALIGN, sm_count
 
-    p = gemm_plan.f32_kernel_plan(m, n)
-    if p != gemm_plan.f32_plan(m, n):
-        raise AssertionError(f"the f32 kernel plans {p} at {(m, n)}, its wrapper "
-                             f"{gemm_plan.f32_plan(m, n)}")
-    return dict(block=[p.block_m, p.block_n], tiles=p.grid, grid=p.grid,
-                waves=p.grid / torch.cuda.get_device_properties(0).multi_processor_count)
+    dev = torch.device("cuda", 0)
+    n = -(-n // F32_TMA_ALIGN) * F32_TMA_ALIGN
+    p = gemm_plan.tf32_conv3x3_kernel_plan(m, n, w, dev)
+    if p != gemm_plan.tf32_conv3x3_plan(m, n, w, sm_count(dev)):
+        raise AssertionError(f"the 3xTF32 3x3 plans {p} at {(m, n, w)}, its Python copy "
+                             f"{gemm_plan.tf32_conv3x3_plan(m, n, w, sm_count(dev))}")
+    return dict(block=[gemm_plan.BLOCK_M, p.block_n], tiles=p.tiles, grid=p.grid,
+                stages=p.stages, boxes=p.boxes, box_rows=p.box_rows, band=p.band,
+                waves=p.tiles / sm_count(dev))
 
 
 def stats_gemm_row(name, conv, gen, dev, mkn, dtype, per_path, path=None):
@@ -3831,16 +3839,19 @@ def f32_block_rows(dev, gen, hw, c, cm, per, bf, conv):
         (CONV3_F32, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
          lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
          lambda: stats_of(torch.matmul(y, w3)), lambda: torch.matmul(y, w3),
-         4 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, f32_tile_of(m, c)),
+         4 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, tf32_tile_of(m, c)),
     ] + [
         (CONV2_F32, (NT, hw, hw, cm, cm, variant),
          lambda v=variant: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
          lambda v=variant: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v),
          lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
          lambda: F.conv2d(y_nchw, w2_lib, padding=1),
-         4 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm, f32_tile_of(m, cm))
+         4 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm,
+         tf32_conv3x3_tile_of(m, cm, hw))
         for variant in bf.VARIANTS
     ]
+    # (M, K, N) of each product, for its three TF32 products' bound
+    products = {CONV1_F32: (m, c, cm), CONV3_F32: (m, cm, c), CONV2_F32: (m, 9 * cm, cm)}
     rows = []
     for name, shape, fn, plain, library, product, nbytes, flops, tile in cases:
         first = same_twice(f"{name} {shape}", fn)
@@ -3848,7 +3859,7 @@ def f32_block_rows(dev, gen, hw, c, cm, per, bf, conv):
         weight = per if shape[-1] != "im2col" else 0  # one kernel: count its time once
         row = dict(timed_row(name, shape, weight, fn, plain, library, nbytes, flops, err,
                              product=product, tile=tile, peak=PEAK_F32_FLOPS), dtype="float32")
-        rows.append(tf32_bounds(row, m, c, cm) if name == CONV1_F32 else row)
+        rows.append(tf32_bounds(row, *products[name]))
         del first
     del y, w1, w2, w3, w2_lib, y_nchw
     y3 = torch.randn(x.shape, generator=gen, device=dev) * 3
@@ -3868,6 +3879,56 @@ def f32_block_rows(dev, gen, hw, c, cm, per, bf, conv):
     del x, y3
     torch.cuda.empty_cache()
     return rows
+
+
+# #8 f32 where the R50 widths do not go, (NT, H, W, Cin, Cout): a window in two
+# boxes (W = 112), three bands (W = 200), Cin off 32 (12) and off 4 (3: padded)
+F32_WIDE_3X3 = [(8, 112, 112, 64, 64), (2, 20, 200, 32, 72), (16, 14, 14, 12, 20),
+                (4, 9, 9, 3, 5)]
+# #7 f32 at (M, K, N) off the multiples of 32 and of 4
+F32_RAGGED_1X1 = [(4096, 100, 101), (1000, 3, 5), (6272, 36, 20)]
+
+
+def f32_wide_and_ragged(dev, gen, bf):
+    """#8 f32 at wide images and ragged channels (both variant names) and #7
+    f32 at ragged K and N against their plain versions (the F32_* gates, a
+    second run bit for bit), the 3x3's C plan equal to its Python copy; each
+    call counted."""
+    from bdvcil_torch.ops import _build
+
+    checks, want = {}, collections.Counter()
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        for nt, h, w_, cin, cout in F32_WIDE_3X3:
+            y = torch.randn((nt, h, w_, cin), generator=gen, device=dev)
+            a = torch.rand((cin,), generator=gen, device=dev) + 0.5
+            b = torch.rand((cin,), generator=gen, device=dev) * 0.5 + 0.1
+            w2 = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / math.sqrt(9 * cin)
+            plan = tf32_conv3x3_tile_of(nt * h * w_, cout, w_)
+            for v in bf.VARIANTS:
+                what = f"{CONV2_F32} {nt}x{h}x{w_}x{cin}/{cout} {v}"
+                got = same_twice(what, lambda v=v: bf.conv3x3_affine_relu_stats(y, a, b, w2,
+                                                                                 variant=v))
+                ref = bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v)
+                checks[what] = dict(max_abs_err=assert_f32_stats(what, got, ref), plan=plan, w=w_)
+                want[CONV2_F32] += 2
+            del y, w2
+        for m, k, n in F32_RAGGED_1X1:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            a = torch.rand((k,), generator=gen, device=dev) + 0.5
+            b = torch.rand((k,), generator=gen, device=dev) * 0.5 + 0.1
+            w3 = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+            what = f"{CONV3_F32} {(m, k, n)}"
+            got = same_twice(what, lambda: bf.conv1x1_affine_relu_stats(x, a, b, w3))
+            checks[what] = dict(max_abs_err=assert_f32_stats(
+                what, got, bf.conv1x1_affine_relu_stats_plain(x, a, b, w3)))
+            want[CONV3_F32] += 2
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != dict(want):
+        raise AssertionError(f"f32 wide and ragged: kernel launches {launches}, expected "
+                             f"{dict(want)}")
+    torch.cuda.empty_cache()
+    return dict(checks=checks, launches=launches)
 
 
 def assert_f32_block_close(what, out, ref, terms):
@@ -4032,6 +4093,7 @@ def block_dtype_phase(dev, gen, seed, smi, bf, conv):
             rows += f32_block_rows(dev, gen, hw, c, cm, 1 if (hw, c, cm) == BLOCKS[0] else 0,
                                    bf, conv)
         out["block"] = f32_block_path(dev, seed, smi, bf)
+        out["f32_wide"] = f32_wide_and_ragged(dev, gen, bf)
     blk = out["block"]
     print(f"block dtypes (a): fused_bottleneck_fwd in float32 at the four stride-1 widths "
           f"(128 frames, TF32 off) within {F32_BLOCK_TOL} of the terms against its plain "
@@ -4041,6 +4103,16 @@ def block_dtype_phase(dev, gen, seed, smi, bf, conv):
           f"launches {blk['launches']}; layer1 chained {blk['fused_taps_ms_per_block']:.4f} ms "
           f"a block (im2col {blk['fused_im2col_ms_per_block']:.4f}, library "
           f"{blk['plain_ms_per_block']:.4f}) [{smi}]", flush=True)
+    wide = out["f32_wide"]
+    print(f"block dtypes (e): #8 f32 at W = 112 and 200 and at Cin 12 and 3, both variant "
+          f"names, #7 f32 at ragged K and N, within the f32 gates of the plain versions "
+          f"(max abs err {max(v['max_abs_err'] for v in wide['checks'].values()):.3g}), a "
+          f"second run bit for bit; 3x3 plans "
+          + "; ".join(f"W={v['w']}: {v['plan']['block'][1]} columns, "
+                      f"{v['plan']['stages']} stages, {v['plan']['boxes']} x "
+                      f"{v['plan']['box_rows']} rows" for k, v in wide["checks"].items()
+                      if k.endswith("taps"))
+          + f"; launches {wide['launches']} [{smi}]", flush=True)
     out["bf16"] = bf16_block_shapes(dev, gen, seed, bf, conv)
     rows += out["bf16"].pop("rows")
     print(f"block dtypes (b): bf16 #6, #7, #8 and the block at the JAX tests' geometries, "
@@ -4242,8 +4314,8 @@ def main(argv=None) -> int:
                        "three TF32 products on the tensor cores (495 TFLOP/s); kernel_rows' "
                        "ffma_bound_ms is the same product at the f32 FMA rate. The block's "
                        "float32 kernels (phase 20): one layer1 block forward, their launches "
-                       "phase 20 (a)'s block runs; #7 and #8 f32 (the FFMA kernel) bound at "
-                       "the f32 FMA rate")
+                       "phase 20 (a)'s block runs; #6, #7 and #8 f32 bound at three TF32 "
+                       "products (#8: K = 9 Cin), ffma_bound_ms beside it")
     (outdir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     print(smi, flush=True)

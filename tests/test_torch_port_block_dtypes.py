@@ -3,7 +3,7 @@
 The JAX package's block ops (``bdvcil_tpu/ops/block_fused.py``) take any
 dtype and any (NT, H, W, C): their kernels cast to ``x_ref.dtype`` and their
 BlockSpecs take any h, w, k and n. The port's run float32 on the 3xTF32
-kernel (conv1) and the FFMA kernel (conv3, the 3x3), and bfloat16 on the
+kernel (conv1, conv3 and the 3x3, any width below 65536), and bfloat16 on the
 wgmma core, at any channel count (zero-padded for the TMA) and any width up to
 ``gemm_plan.conv3x3_max_width``. Here the ops run their plain versions, and
 these tests hold them and what surrounds the kernels against the JAX
@@ -16,7 +16,10 @@ mode):
     may contract the prologue's product and sum into one FMA); the
     statistics rtol 1e-5, atol 1e-6 of the largest; the block's output
     within 1e-4 of the terms' size and its (mean, var) rtol 1e-4, atol 1e-5,
-    as the card holds the f32 block (``chip_smoke.F32_BLOCK_TOL``);
+    as the card holds the f32 block (``chip_smoke.F32_BLOCK_TOL``); the same
+    block composed of the 3xTF32 kernels' emulated arithmetic
+    (``ops/tf32``: #6, #7 and #8, the tail plain) against JAX's, both
+    variant names, at the same tolerances;
   * bf16 at W = 64 and 112 and at channel counts that are not multiples of
     8: y within one bf16 ulp, the ulp taken at no less than 1/256 of y's rms
     (near zero the f32 accumulation order, not the rounding, sets the error:
@@ -44,6 +47,7 @@ from bdvcil_torch.models.convert import block_params_from_jax
 from bdvcil_torch.ops import _build, gemm_plan
 from bdvcil_torch.ops import block_fused as pbf
 from bdvcil_torch.ops import conv1x1_bn as port_conv
+from bdvcil_torch.ops import tf32
 
 VARIANTS = ["taps", "im2col"]
 # (seed, NT, H = W, C, Cm): tests/test_block_fused.py's two geometries and W > 63
@@ -158,6 +162,36 @@ def test_f32_block_matches_jax_fused_block(geometry, variant):
                                               conv3x3_variant=variant)
     assert p_out.dtype == torch.float32 and p_out.shape == tuple(j_out.shape)
     ref = _np(j_out)
+    scale = 1 + np.abs(ref) + np.abs(x) + np.abs(np.asarray(jp.b3)).reshape(-1)
+    assert np.all(np.abs(p_out.numpy() - ref) <= F32_BLOCK_TOL * scale)
+    for (pm, pv), (jm, jv) in zip(p_stats, j_stats):
+        for p, j in ((pm, jm), (pv, jv)):
+            np.testing.assert_allclose(p.numpy(), _np(j), rtol=F32_BLOCK_STATS_RTOL,
+                                       atol=F32_BLOCK_STATS_ATOL)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=IDS)
+def test_f32_block_on_the_3xtf32_arithmetic_matches_jax_fused_block(geometry, variant):
+    """The f32 block as the card computes it: #6, #7 and #8 in the 3xTF32
+    kernel's arithmetic (``ops/tf32``'s emulations: the prologue rounded,
+    then the split; 32-wide k-steps, the 3x3 slice by slice and tap by tap),
+    the BatchNorm finalizes and the tail plain, against JAX's fused block at
+    F32_BLOCK_TOL of the terms' size, (mean, var) rtol 1e-4, atol 1e-5."""
+    seed, nt, hw, c, cm = geometry
+    rng = np.random.default_rng(seed + 10)
+    jp = jbf.make_params(jax.random.PRNGKey(seed), c=c, cm=cm, dtype=jnp.float32)
+    pp = block_params_from_jax({k: np.asarray(v) for k, v in jp._asdict().items()},
+                               dtype=torch.float32)
+    x = rng.standard_normal((nt, hw, hw, c)).astype(np.float32)
+    p_out, p_stats = pbf._bottleneck(
+        torch.from_numpy(x), pp, 1e-5, tf32.gemm_stats_3xtf32_emulated,
+        tf32.conv3x3_affine_relu_stats_3xtf32_emulated, tf32.affine_relu_stats_3xtf32_emulated,
+        pbf.bn_finalize_plain, pbf.affine_residual_relu_plain)
+    j_out, j_stats = jbf.fused_bottleneck_fwd(jnp.asarray(x), jp, interpret=True,
+                                              conv3x3_variant=variant)
+    ref = _np(j_out)
+    assert p_out.dtype == torch.float32 and p_out.shape == ref.shape
     scale = 1 + np.abs(ref) + np.abs(x) + np.abs(np.asarray(jp.b3)).reshape(-1)
     assert np.all(np.abs(p_out.numpy() - ref) <= F32_BLOCK_TOL * scale)
     for (pm, pv), (jm, jv) in zip(p_stats, j_stats):

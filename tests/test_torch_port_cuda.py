@@ -19,8 +19,10 @@ statistics bit for bit on a second run; the float32 GEMM with statistics
 and the block's #6): y rtol 1e-5, atol 1e-6 of max |y| (another order of
 summation than the library product's f32 FMAs), the statistics rtol 1e-4,
 atol 1e-4 of the largest (another summation order), and the same bits on a
-second run; so are the block's float32 kernels with a prologue (#7 and #8 on
-the FFMA kernel of csrc/gemm_stats_f32.cu), whose tail (#9b) is bit for bit;
+second run; so are the block's float32 kernels with a prologue (#7 and #8, on
+the same 3xTF32 kernel), whose tail (#9b) is bit for bit; against x @ w in
+float64 each 3xTF32 form's error stays within WITNESS_FACTOR of its plain
+emulation's (ops/tf32);
 the float32 block against its plain composition within 1e-4 of the terms'
 size (f32 sums of another order through three BatchNorms).
 """
@@ -212,13 +214,6 @@ def test_f32_kernel_matches_plain(cuda, mkn):
     assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
-def test_f32_plan_is_the_kernels(cuda):
-    """The Python plan that sizes the float32 kernel's partials equals the one
-    its C side makes, at every R50 shape and the ragged ones."""
-    for m, _, n in sorted(gemm_plan.r50_1x1_shapes()) + RAGGED_1X1 + [(1, 1, 1), (129, 8, 192)]:
-        assert gemm_plan.f32_kernel_plan(m, n) == gemm_plan.f32_plan(m, n)
-
-
 R50_1X1 = sorted(gemm_plan.r50_1x1_shapes())
 
 
@@ -258,34 +253,32 @@ def test_tf32_plan_is_the_kernels(cuda):
 
 
 def test_f32_forms_run_on_their_libraries(cuda, monkeypatch):
-    """#3, #4 and #6 in float32 load the 3xTF32 library only; #7 and #8 (with
-    the prologue) the FFMA one only."""
+    """#3, #4, #6, #7 and #8 in float32 (#7 and #8 with the prologue) all
+    load the 3xTF32 library, and only it."""
     used = []
 
-    def recording(lib, tag):
+    def recording(lib):
         def load():
-            used.append(tag)
+            used.append("tf32")
             return lib()
         return load
 
-    for mod, attr, tag in ((port_conv, "_tf32_lib", "tf32"), (port_conv, "_f32_lib", "ffma"),
-                           (port_bf, "_f32_lib", "ffma")):
-        monkeypatch.setattr(mod, attr, recording(getattr(mod, attr), tag))
+    for mod in (port_conv, port_bf):
+        monkeypatch.setattr(mod, "_tf32_lib", recording(mod._tf32_lib))
     g = torch.Generator(device=cuda).manual_seed(17)
     x = torch.randn((2, 6, 6, 64), generator=g, device=cuda)
     w = torch.randn((64, 64), generator=g, device=cuda) * 0.125
     w2 = torch.randn((3, 3, 64, 64), generator=g, device=cuda) * 0.04
     a, b = torch.ones(64, device=cuda), torch.full((64,), 0.1, device=cuda)
-    calls = {"tf32": [lambda: port_conv.conv1x1_with_stats_fwd(x, w),
-                      lambda: port_conv.gemm_with_stats_fwd(x.reshape(-1, 64), w),
-                      lambda: port_bf.conv1x1_stats(x, w)],
-             "ffma": [lambda: port_bf.conv1x1_affine_relu_stats(x, a, b, w),
-                      lambda: port_bf.conv3x3_affine_relu_stats(x, a, b, w2)]}
-    for tag, fns in calls.items():
-        for fn in fns:
-            used.clear()
-            fn()
-            assert used == [tag]
+    for fn in (lambda: port_conv.conv1x1_with_stats_fwd(x, w),
+               lambda: port_conv.gemm_with_stats_fwd(x.reshape(-1, 64), w),
+               lambda: port_bf.conv1x1_stats(x, w),
+               lambda: port_bf.conv1x1_affine_relu_stats(x, a, b, w),
+               lambda: port_bf.conv3x3_affine_relu_stats(x, a, b, w2)):
+        used.clear()
+        fn()
+        assert used == ["tf32"]
+    assert not hasattr(port_conv, "_f32_lib") and not hasattr(port_bf, "_f32_lib")
 
 
 # the kernel's largest error against x @ w in float64, over the emulation's
@@ -355,6 +348,162 @@ def test_tf32_kernel_takes_a_misaligned_x(cuda, offset):
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {port_conv.GEMM_KERNEL_F32: 1}
     _check_f32(got, ref)
+
+
+# --- #7 and #8 in float32 on the 3xTF32 kernel ------------------------------------
+
+def _block_f32_operands(cuda, shape, seed):
+    """#7's (x (M, K), a, b, w (K, N)) or #8's (x (NT, H, W, C), a, b, w (3, 3,
+    C, N)), b > 0 on every channel (a halo or a row past M read through the
+    prologue would show)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    *xs, k, n = shape
+    x = torch.randn((*xs, k), generator=g, device=cuda)
+    a = torch.rand((k,), generator=g, device=cuda) + 0.5
+    b = torch.rand((k,), generator=g, device=cuda) * 0.5 + 0.1
+    fan = (9 if len(xs) == 3 else 1) * k
+    w = torch.randn(((3, 3) if len(xs) == 3 else ()) + (k, n), generator=g,
+                    device=cuda) * fan ** -0.5
+    return x, a, b, w
+
+
+def _conv3x3_f64(xa, w):
+    """conv3x3(pad(xa, 1), w) in float64 as nine tap products, (M, N)."""
+    nt, h, w_, c = xa.shape
+    xp = torch.nn.functional.pad(xa.double(), (0, 0, 1, 1, 1, 1))
+    y = 0
+    for dy in range(3):
+        for dx in range(3):
+            y = y + xp[:, dy:dy + h, dx:dx + w_].reshape(-1, c) @ w[dy, dx].double()
+    return y
+
+
+# (op, shape): #7 at the layer1 and layer4 conv3, #8 at the layer1 and layer4 3x3
+BLOCK_WITNESS = [("conv3", (401408, 64, 256)), ("conv3", (6272, 512, 2048)),
+                 ("conv2", (128, 56, 56, 64, 64)), ("conv2", (128, 7, 7, 512, 512))]
+
+
+@pytest.mark.parametrize("op,shape", BLOCK_WITNESS)
+def test_tf32_block_kernels_error_within_the_emulations(cuda, op, shape):
+    """The float64 witness for #7 and #8 in float32: against the product of
+    the prologue's output (relu(x * a + b) in f32, as both compute it) in
+    float64, the kernel's largest error is within WITNESS_FACTOR times that
+    of the emulated 3xTF32 (``ops/tf32``: the same split and k-steps, the 3x3
+    slice by slice and tap by tap, each step's sums in IEEE f32, TF32 off),
+    at the layer1 and layer4 shapes."""
+    x, a, b, w = _block_f32_operands(cuda, shape, 20)
+    xa = tf32.affine_relu(x, a, b)
+    if op == "conv3":
+        y64 = xa.double() @ w.double()
+        got = port_bf.conv1x1_affine_relu_stats(x, a, b, w)[0]
+        emulated = tf32.gemm_3xtf32(xa, w)
+    else:
+        y64 = _conv3x3_f64(xa, w)
+        got = port_bf.conv3x3_affine_relu_stats(x, a, b, w)[0].reshape(y64.shape)
+        emulated = tf32.conv3x3_3xtf32(x, a, b, w)
+    err, bound = (float((v.double() - y64).abs().max()) for v in (got, emulated))
+    assert err <= WITNESS_FACTOR * bound, f"kernel {err}, emulation {bound}"
+
+
+@pytest.mark.parametrize("op", ["conv3", "conv2"])
+def test_tf32_block_kernels_give_nan_past_tf32_max_as_the_emulation(cuda, op):
+    """The pinned divergence with the prologue: relu(x * a + b) past TF32's
+    largest finite rounds to inf, so y is NaN where the emulation has it
+    (the f32 product is finite there) and finite elsewhere."""
+    x = torch.ones((1, 5, 5, 8), device=cuda)
+    x[0, 2, 2, 0] = float(np.finfo(np.float32).max)
+    a, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    if op == "conv3":
+        w = torch.ones((8, 8), device=cuda)
+        w[0] = 2.0 ** -100
+        got = port_bf.conv1x1_affine_relu_stats(x, a, b, w)[0]
+        want = tf32.affine_relu_stats_3xtf32_emulated(x, a, b, w)[0]
+        plain = port_bf.conv1x1_affine_relu_stats_plain(x, a, b, w)[0]
+    else:
+        w = torch.zeros((3, 3, 8, 8), device=cuda)
+        w[1, 1] = 1.0
+        w[1, 1, 0] = 2.0 ** -100
+        got = port_bf.conv3x3_affine_relu_stats(x, a, b, w)[0]
+        want = tf32.conv3x3_affine_relu_stats_3xtf32_emulated(x, a, b, w)[0]
+        plain = port_bf.conv3x3_affine_relu_stats_plain(x, a, b, w)[0]
+    assert bool(torch.isfinite(plain).all()) and bool(torch.isnan(want).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isfinite(got[~torch.isnan(want)]).all())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("op", ["conv3", "conv2"])
+def test_tf32_block_kernels_take_a_misaligned_x(cuda, op, offset):
+    """A contiguous float32 x at a storage offset of 1-3 floats (channels a
+    multiple of 4: no padding copies it): the plain result, one launch."""
+    shape = (1000, 64, 96) if op == "conv3" else (2, 9, 11, 64, 40)
+    x0, a, b, w = _block_f32_operands(cuda, shape, 21)
+    buf = torch.empty((x0.numel() + 4,), device=cuda)
+    x = buf[offset:offset + x0.numel()].view(x0.shape)
+    x.copy_(x0)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _build.LAUNCHES.clear()
+    if op == "conv3":
+        got = port_bf.conv1x1_affine_relu_stats(x, a, b, w)
+        ref = port_bf.conv1x1_affine_relu_stats_plain(x0, a, b, w)
+        name = port_bf.CONV3_F32
+    else:
+        got = port_bf.conv3x3_affine_relu_stats(x, a, b, w)
+        ref = port_bf.conv3x3_affine_relu_stats_plain(x0, a, b, w)
+        name = port_bf.CONV2_F32
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {name: 1}
+    _check_f32(got, ref)
+
+
+# (NT, H, W, Cin, Cout): W past one box (64, 112), three bands (200, 1000, the
+# widest W), Cin off 32 (12, 40) and off 4 (3, 13: padded), Cout off 4
+WIDE_F32_3X3 = [(2, 64, 64, 64, 64), (1, 112, 112, 64, 64), (1, 9, 200, 32, 72),
+                (1, 4, 1000, 40, 24), (1, 2, 65535, 4, 4), (4, 5, 9, 12, 20), (2, 3, 3, 3, 5),
+                (2, 6, 7, 13, 9)]
+
+
+@pytest.mark.parametrize("geometry", WIDE_F32_3X3)
+def test_tf32_conv3x3_at_wide_images_and_ragged_channels(cuda, geometry):
+    """#8 in float32 at wide images (a window in boxes, or in three bands)
+    and ragged channel counts against its plain version (TF32 off), both
+    variant names, the same bits on a second run, the C plan equal to
+    ``gemm_plan.tf32_conv3x3_plan``."""
+    nt, h, w_, cin, cout = geometry
+    x, a, b, w = _block_f32_operands(cuda, geometry, 22)
+    m, n4 = nt * h * w_, -(-cout // 4) * 4
+    assert (gemm_plan.tf32_conv3x3_kernel_plan(m, n4, w_, cuda)
+            == gemm_plan.tf32_conv3x3_plan(m, n4, w_, port_conv.sm_count(cuda)))
+    _build.LAUNCHES.clear()
+    got = {v: port_bf.conv3x3_affine_relu_stats(x, a, b, w, variant=v) for v in port_bf.VARIANTS}
+    again = port_bf.conv3x3_affine_relu_stats(x, a, b, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV2_F32: 3}
+    for v, out in got.items():
+        _check_f32(out, port_bf.conv3x3_affine_relu_stats_plain(x, a, b, w, variant=v))
+    assert all(torch.equal(u, v) for u, v in zip(got["taps"], again))
+
+
+@pytest.mark.parametrize("mkn", RAGGED_1X1 + [(300, 36, 20), (128, 6, 10)])
+def test_tf32_affine_at_ragged_k_and_n(cuda, mkn):
+    """#7 in float32 where K or N is off 32 or off 4 (padded) and M off a
+    tile: the plain result, the same bits on a second run."""
+    x, a, b, w = _block_f32_operands(cuda, mkn, 23)
+    got = port_bf.conv1x1_affine_relu_stats(x, a, b, w)
+    again = port_bf.conv1x1_affine_relu_stats(x, a, b, w)
+    _check_f32(got, port_bf.conv1x1_affine_relu_stats_plain(x, a, b, w))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_tf32_conv3x3_plan_is_the_kernels(cuda):
+    """The Python copy of the 3x3's plan equals the one its C side makes, at
+    the R50 widths, wide images and ragged Cout (padded to 4)."""
+    sms = port_conv.sm_count(cuda)
+    mnw = [(nt * h * w, n, w) for nt, h, w, _, n in gemm_plan.R50_3X3_SHAPES]
+    mnw += [(nt * h * w, -(-n // 4) * 4, w) for nt, h, w, _, n in WIDE_F32_3X3]
+    for m, n, w in mnw + [(1, 4, 1), (128 * 139 * 139, 64, 139), (128 * 140 * 140, 64, 140)]:
+        assert gemm_plan.tf32_conv3x3_kernel_plan(m, n, w, cuda) == gemm_plan.tf32_conv3x3_plan(
+            m, n, w, sms)
 
 
 @pytest.mark.parametrize("mkn", RAGGED_1X1)

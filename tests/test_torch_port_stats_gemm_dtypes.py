@@ -1,9 +1,8 @@
 """The GEMM with statistics in float32 and at any K and N, on the CPU.
 
 On the card the port runs float32 as three TF32 products on the tensor cores
-(``csrc/gemm_stats_tf32.cu``, K and N zero-padded to multiples of 4; with the
-block's prologue, the FFMA kernel of ``csrc/gemm_stats_f32.cu``) and bfloat16
-on the wgmma core, zero-padding K and N to multiples of 8 for the TMA
+(``csrc/gemm_stats_tf32.cu``, K and N zero-padded to multiples of 4, with or
+without the block's prologue) and bfloat16 on the wgmma core, zero-padding K and N to multiples of 8 for the TMA
 (``ops/conv1x1_bn.aligned_call``). Here the wrappers run the plain
 version, and these tests hold what surrounds the kernels:
 
@@ -20,9 +19,7 @@ version, and these tests hold what surrounds the kernels:
     bfloat16 to the wgmma core's, anything else a TypeError before a build;
   * the padding for the TMA applied to the plain version: y bit for bit the
     unpadded plain version's, the statistics rtol 1e-6 (the CPU's sum over
-    8 columns takes another path than over 5);
-  * the FFMA kernel's tile plan (``gemm_plan.f32_plan``), which sizes the
-    wrapper's partials and which the kernel checks on the card.
+    8 columns takes another path than over 5).
 """
 
 import jax.numpy as jnp
@@ -31,7 +28,7 @@ import pytest
 import torch
 
 from bdvcil_tpu.ops import conv1x1_bn as jax_conv
-from bdvcil_torch.ops import _build, gemm_plan
+from bdvcil_torch.ops import _build
 from bdvcil_torch.ops import conv1x1_bn as port_conv
 
 # (M, K, N): JAX's own test shapes (100, 32, 128) and (896, 96, 128), and K, N
@@ -142,28 +139,3 @@ def test_tma_padding_keeps_the_plain_result(shape, dtype):
     for got, ref in ((s1, rs1), (s2, rs2)):
         assert got.shape == (n,)
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * float(ref.abs().max()))
-
-
-@pytest.mark.parametrize("mn,want", [
-    ((401408, 64), (128, 64, 3136, 1, 3136)),      # layer1 conv1: one 64-wide tile
-    ((401408, 256), (128, 128, 3136, 2, 6272)),
-    ((6272, 2048), (128, 128, 49, 16, 784)),
-    ((100, 5), (128, 64, 1, 1, 1)),                # fewer rows and columns than a tile
-    ((4096, 101), (128, 128, 32, 1, 32)),          # 27 empty columns: one 128 tile
-    ((1000, 192), (128, 64, 8, 3, 24)),            # a 128 tile would leave 64 empty
-    ((129, 200), (128, 128, 2, 2, 4)),
-])
-def test_f32_plan(mn, want):
-    assert gemm_plan.f32_plan(*mn) == gemm_plan.F32Plan(*want)
-
-
-@pytest.mark.parametrize("mkn", sorted(gemm_plan.r50_1x1_shapes()) + RAGGED)
-def test_f32_plan_tiles_cover_the_product_once(mkn):
-    """Every row and column lies in exactly one tile: the last tile starts
-    inside the product and ends at or past its edge."""
-    m, _, n = mkn
-    p = gemm_plan.f32_plan(m, n)
-    assert p.block_m == gemm_plan.F32_BLOCK_M and p.block_n in (64, 128)
-    assert (p.m_tiles - 1) * p.block_m < m <= p.m_tiles * p.block_m
-    assert (p.n_tiles - 1) * p.block_n < n <= p.n_tiles * p.block_n
-    assert p.grid == p.m_tiles * p.n_tiles
