@@ -54,6 +54,8 @@ Layout:
                      one-accumulator variant's, for the card test's factor
   tf32_variants      the float32 kernel's device time at the block's shapes
                      beside variants that each leave one part of the work out
+  bf16_witness       the bf16 core's float64 error on deep products, beside a
+                     variant that sums all of K in one accumulator
   profile_e2e        the fed train loop's wall time split into wait, put,
                      dispatch and device, with the producer's phases
   reference_loop     the reference's CIL loop in plain torch (the accuracy

@@ -77,13 +77,15 @@ def median_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2) -> floa
     return statistics.median(elapsed_ms(fn, device) for _ in range(reps))
 
 
-def block_inputs(rows: int, hw: int, c: int, cm: int, seed: int, device: torch.device,
+def block_inputs(rows: int, hw, c: int, cm: int, seed: int, device: torch.device,
                  dtype: torch.dtype = torch.bfloat16):
-    """x (rows, hw, hw, c) and the block's conv weights in ``dtype`` (its
-    BatchNorm parameters in f32), made from ``seed``."""
+    """x (rows, H, W, c), ``hw`` H = W or (H, W), and the block's conv
+    weights in ``dtype`` (its BatchNorm parameters in f32), made from
+    ``seed``."""
+    h, w = hw if isinstance(hw, tuple) else (hw, hw)
     gen = torch.Generator().manual_seed(seed)
     p = bf.make_params(gen, c=c, cm=cm, dtype=dtype, device=device)
-    x = torch.randn((rows, hw, hw, c), generator=gen).to(dtype).to(device)
+    x = torch.randn((rows, h, w, c), generator=gen).to(dtype).to(device)
     return x, p
 
 

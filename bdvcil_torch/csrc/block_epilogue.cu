@@ -16,18 +16,21 @@
 //                           out = T(relu(f32(y) * a + b + f32(x)))
 //                         with a, b per channel (the last BatchNorm's affine).
 //
-// Both are bound by bytes. bn_finalize moves 32 bytes a channel (C <= 2048)
-// and its time is the launch; its point is one launch where the eager
-// expression takes thirteen. affine_residual_relu reads y and x and writes out, each
-// once (3 x 205.5 MB at TSM-R50 layer1, 128 x 56 x 56 x 256, in bf16; 3 x 411
-// MB in f32), with four f32 operations an element, far below the card's
-// ridge point. Its design keeps the HBM busy:
+// Both are bound by bytes. bn_finalize moves 32 bytes a channel (C <= 2048
+// in ResNet-50) and its time is the launch; its point is one launch where
+// the eager expression takes thirteen. affine_residual_relu reads y and x
+// and writes out, each once (3 x 205.5 MB at TSM-R50 layer1, 128 x 56 x 56
+// x 256, in bf16; 3 x 411 MB in f32), with four f32 operations an element,
+// far below the card's ridge point. Its design keeps the HBM busy:
 //   - each thread owns 16-byte packs (8 bf16 or 4 f32), neighbouring threads
 //     on neighbouring addresses, so every load and store is one full sector
 //     run; where C is not a whole number of packs, or an operand does not
 //     start on a 16-byte boundary, a per-element form of the same loop;
-//   - a and b are staged once per CTA in shared memory (2 x C x 4 bytes, at
-//     most 48 KB), so the per-element lookup never reaches device memory;
+//   - a and b are staged once per CTA in shared memory where 2 x C x 4
+//     bytes fit in 48 KB (C <= 6144, every ResNet-50 width), so the
+//     per-element lookup never reaches device memory; past that (any C, as
+//     the JAX op takes) they are read through the read-only cache (__ldg):
+//     neighbouring threads read neighbouring channels;
 //   - a grid-stride loop over chunks of kThreads x kUnroll packs with a few
 //     CTAs per SM; each thread issues all of its kUnroll pairs of loads
 //     before its first store, 128 bytes in flight a thread, enough to cover
@@ -56,7 +59,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;     // packs in flight a thread
 constexpr int kCtasPerSm = 4;  // 1024 threads an SM
-constexpr int kMaxChannels = 48 * 1024 / (2 * sizeof(float));  // a, b in 48 KB of shared memory
+constexpr int kStagedChannels = 48 * 1024 / (2 * sizeof(float));  // a, b in 48 KB of shared
 
 template <typename T>
 constexpr int kPack = 16 / sizeof(T);  // elements a 16-byte pack: 8 bf16, 4 f32
@@ -80,13 +83,27 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat1
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
+// a[0 .. 3] (16-byte aligned) and a[0]: from shared memory where a and b are
+// staged, else through the read-only cache
+template <bool kStaged>
+__device__ __forceinline__ float4 load4(const float* a) {
+  if constexpr (kStaged) return *reinterpret_cast<const float4*>(a);
+  else return __ldg(reinterpret_cast<const float4*>(a));
+}
+template <bool kStaged>
+__device__ __forceinline__ float load1(const float* a) {
+  if constexpr (kStaged) return *a;
+  else return __ldg(a);
+}
+
 // one pack of 8 bf16 (a, b: 8 floats, 16-byte aligned)
+template <bool kStaged>
 __device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv, const float* a,
                                                const float* b, bf16) {
-  const float4 a0 = reinterpret_cast<const float4*>(a)[0];
-  const float4 a1 = reinterpret_cast<const float4*>(a)[1];
-  const float4 b0 = reinterpret_cast<const float4*>(b)[0];
-  const float4 b1 = reinterpret_cast<const float4*>(b)[1];
+  const float4 a0 = load4<kStaged>(a);
+  const float4 a1 = load4<kStaged>(a + 4);
+  const float4 b0 = load4<kStaged>(b);
+  const float4 b1 = load4<kStaged>(b + 4);
   const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
   const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
   const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yv);
@@ -104,10 +121,11 @@ __device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv,
 }
 
 // one pack of 4 f32 (a, b: 4 floats, 16-byte aligned)
+template <bool kStaged>
 __device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv, const float* a,
                                                const float* b, float) {
-  const float4 av = *reinterpret_cast<const float4*>(a);
-  const float4 bv = *reinterpret_cast<const float4*>(b);
+  const float4 av = load4<kStaged>(a);
+  const float4 bv = load4<kStaged>(b);
   const float4 yf = *reinterpret_cast<const float4*>(&yv);
   const float4 xf = *reinterpret_cast<const float4*>(&xv);
   const float4 o = make_float4(affine_residual(yf.x, av.x, bv.x, xf.x),
@@ -118,20 +136,25 @@ __device__ __forceinline__ uint4 pack_epilogue(const uint4& yv, const uint4& xv,
 }
 
 // The 16-byte pack form: C % kPack<T> == 0, every operand 16-byte aligned.
-template <typename T, typename Index>
+// kStaged: a and b staged in shared memory (C <= kStagedChannels).
+template <typename T, typename Index, bool kStaged>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 affine_residual_relu_kernel(const uint4* __restrict__ y, const uint4* __restrict__ x,
                             const float* __restrict__ a, const float* __restrict__ b,
                             uint4* __restrict__ out, Index n_packs, int c) {
   constexpr int kN = kPack<T>;
-  extern __shared__ float4 smem[];  // a, then b: c floats each
-  float* sa = reinterpret_cast<float*>(smem);
-  float* sb = sa + c;
-  for (int i = threadIdx.x; i < c / 4; i += kThreads) {
-    smem[i] = reinterpret_cast<const float4*>(a)[i];
-    smem[c / 4 + i] = reinterpret_cast<const float4*>(b)[i];
+  extern __shared__ float4 smem[];  // kStaged: a, then b, c floats each
+  const float* sa = a;
+  const float* sb = b;
+  if constexpr (kStaged) {
+    for (int i = threadIdx.x; i < c / 4; i += kThreads) {
+      smem[i] = reinterpret_cast<const float4*>(a)[i];
+      smem[c / 4 + i] = reinterpret_cast<const float4*>(b)[i];
+    }
+    __syncthreads();
+    sa = reinterpret_cast<const float*>(smem);
+    sb = sa + c;
   }
-  __syncthreads();
   const Index c_packs = (Index)(c / kN);
   const Index chunk = (Index)kThreads * kUnroll;
   for (Index base = (Index)blockIdx.x * chunk + threadIdx.x; base < n_packs;
@@ -150,30 +173,36 @@ affine_residual_relu_kernel(const uint4* __restrict__ y, const uint4* __restrict
       const Index i = base + (Index)k * kThreads;
       if (i < n_packs) {
         const int ch = (int)(i % c_packs) * kN;
-        out[i] = pack_epilogue(yv[k], xv[k], sa + ch, sb + ch, T());
+        out[i] = pack_epilogue<kStaged>(yv[k], xv[k], sa + ch, sb + ch, T());
       }
     }
   }
 }
 
 // The per-element form: any C, any alignment (the JAX op takes any C).
-template <typename T, typename Index>
+template <typename T, typename Index, bool kStaged>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 affine_residual_relu_elem_kernel(const T* __restrict__ y, const T* __restrict__ x,
                                  const float* __restrict__ a, const float* __restrict__ b,
                                  T* __restrict__ out, Index n, int c) {
-  extern __shared__ float4 smem[];  // a, then b: c floats each
-  float* sa = reinterpret_cast<float*>(smem);
-  float* sb = sa + c;
-  for (int i = threadIdx.x; i < c; i += kThreads) {
-    sa[i] = a[i];
-    sb[i] = b[i];
+  extern __shared__ float4 smem[];  // kStaged: a, then b, c floats each
+  const float* sa = a;
+  const float* sb = b;
+  if constexpr (kStaged) {
+    float* s = reinterpret_cast<float*>(smem);
+    for (int i = threadIdx.x; i < c; i += kThreads) {
+      s[i] = a[i];
+      s[c + i] = b[i];
+    }
+    __syncthreads();
+    sa = s;
+    sb = s + c;
   }
-  __syncthreads();
   for (Index i = (Index)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (Index)gridDim.x * kThreads) {
     const int ch = (int)(i % (Index)c);
-    out[i] = from_f32<T>(affine_residual(to_f32(y[i]), sa[ch], sb[ch], to_f32(x[i])));
+    out[i] = from_f32<T>(affine_residual(to_f32(y[i]), load1<kStaged>(sa + ch),
+                                         load1<kStaged>(sb + ch), to_f32(x[i])));
   }
 }
 
@@ -193,33 +222,36 @@ __global__ void bn_finalize_kernel(const float* __restrict__ s, const float* __r
   out[3 * c + i] = var;
 }
 
-template <typename T, typename Index>
+template <typename T, typename Index, bool kStaged>
 cudaError_t launch_epilogue(const void* y, const void* x, const void* a, const void* b,
                             void* out, long long n_packs, int c, int sms, cudaStream_t stream) {
   const long long chunks = (n_packs + kThreads * kUnroll - 1) / (kThreads * kUnroll);
   const long long cap = (long long)sms * kCtasPerSm;
   const int grid = (int)(chunks < cap ? chunks : cap);
-  affine_residual_relu_kernel<T, Index><<<grid, kThreads, 2 * c * sizeof(float), stream>>>(
+  const size_t smem = kStaged ? 2 * c * sizeof(float) : 0;
+  affine_residual_relu_kernel<T, Index, kStaged><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint4*>(y), static_cast<const uint4*>(x), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<uint4*>(out), (Index)n_packs, c);
   return cudaGetLastError();
 }
 
-template <typename T, typename Index>
+template <typename T, typename Index, bool kStaged>
 cudaError_t launch_epilogue_elem(const void* y, const void* x, const void* a, const void* b,
                                  void* out, long long n, int c, int sms, cudaStream_t stream) {
   const long long blocks = (n + kThreads - 1) / kThreads;
   const long long cap = (long long)sms * kCtasPerSm;
   const int grid = (int)(blocks < cap ? blocks : cap);
-  affine_residual_relu_elem_kernel<T, Index><<<grid, kThreads, 2 * c * sizeof(float), stream>>>(
+  const size_t smem = kStaged ? 2 * c * sizeof(float) : 0;
+  affine_residual_relu_elem_kernel<T, Index, kStaged><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(x), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<T*>(out), (Index)n, c);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t affine_residual_relu(const void* y, const void* x, const void* a, const void* b,
-                                 void* out, long long numel, int c, int sms, cudaStream_t st) {
+template <typename T, bool kStaged>
+cudaError_t launch_affine_residual_relu(const void* y, const void* x, const void* a, const void* b,
+                                        void* out, long long numel, int c, int sms,
+                                        cudaStream_t st) {
   const bool packs = c % kPack<T> == 0 && aligned16(y) && aligned16(x) && aligned16(a) &&
                      aligned16(b) && aligned16(out);
   // a 32-bit index while base + one grid stride stays below 2^32
@@ -227,19 +259,25 @@ cudaError_t affine_residual_relu(const void* y, const void* x, const void* a, co
   if (packs) {
     const long long n_packs = numel / kPack<T>;
     if (n_packs + stride < (1ll << 32))
-      return launch_epilogue<T, uint32_t>(y, x, a, b, out, n_packs, c, sms, st);
-    return launch_epilogue<T, int64_t>(y, x, a, b, out, n_packs, c, sms, st);
+      return launch_epilogue<T, uint32_t, kStaged>(y, x, a, b, out, n_packs, c, sms, st);
+    return launch_epilogue<T, int64_t, kStaged>(y, x, a, b, out, n_packs, c, sms, st);
   }
   if (numel + stride < (1ll << 32))
-    return launch_epilogue_elem<T, uint32_t>(y, x, a, b, out, numel, c, sms, st);
-  return launch_epilogue_elem<T, int64_t>(y, x, a, b, out, numel, c, sms, st);
+    return launch_epilogue_elem<T, uint32_t, kStaged>(y, x, a, b, out, numel, c, sms, st);
+  return launch_epilogue_elem<T, int64_t, kStaged>(y, x, a, b, out, numel, c, sms, st);
+}
+
+template <typename T>
+cudaError_t affine_residual_relu(const void* y, const void* x, const void* a, const void* b,
+                                 void* out, long long numel, int c, int sms, cudaStream_t st) {
+  if (c <= kStagedChannels)
+    return launch_affine_residual_relu<T, true>(y, x, a, b, out, numel, c, sms, st);
+  return launch_affine_residual_relu<T, false>(y, x, a, b, out, numel, c, sms, st);
 }
 
 }  // namespace
 
 extern "C" {
-
-int bdv_block_epilogue_max_channels() { return kMaxChannels; }
 
 // (s, q, gamma, beta) f32 (c,) -> out f32 (4, c): a, b, mean, var
 int bdv_bn_finalize(const void* s, const void* q, const void* gamma, const void* beta, void* out,
@@ -255,13 +293,12 @@ int bdv_bn_finalize(const void* s, const void* q, const void* gamma, const void*
 }
 
 // y, x, out (numel / c, c) contiguous, bf16 (elem_bytes 2) or f32 (4); a, b
-// f32 (c,); c <= bdv_block_epilogue_max_channels(). 16-byte packs where c is
-// a whole number of them and every pointer is 16-byte aligned, else one
-// element a thread and step.
+// f32 (c,), any c. 16-byte packs where c is a whole number of them and every
+// pointer is 16-byte aligned, else one element a thread and step.
 int bdv_affine_residual_relu(const void* y, const void* x, const void* a, const void* b,
                              void* out, long long numel, int c, int elem_bytes, int sms,
                              void* stream) {
-  if (numel <= 0 || c <= 0 || c > kMaxChannels || numel % c != 0 || sms <= 0)
+  if (numel <= 0 || c <= 0 || numel % c != 0 || sms <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2) return (int)affine_residual_relu<bf16>(y, x, a, b, out, numel, c, sms, st);

@@ -55,11 +55,11 @@ sm90::Problem problem(const void* x, void* y, void* part, long long M, int K, in
 
 extern "C" {
 
-// the plan the wgmma core makes for an (M, ., N) 1x1 on `sms` SMs (the 3x3
+// the plan the wgmma core makes for an (M, K, N) 1x1 on `sms` SMs (the 3x3
 // starts from it): out = {block_n, m_tiles, n_tiles, tiles, grid}
-int bdv_wgmma_stats_plan(long long M, int N, int sms, int* out) {
-  if (M <= 0 || N <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
-  const sm90::Plan p = sm90::make_plan(M, N, sms);
+int bdv_wgmma_stats_plan(long long M, int K, int N, int sms, int* out) {
+  if (M <= 0 || K <= 0 || N <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
+  const sm90::Plan p = sm90::make_plan(M, N, sms, (K + sm90::BK - 1) / sm90::BK);
   out[0] = p.block_n; out[1] = p.m_tiles; out[2] = p.n_tiles; out[3] = p.tiles; out[4] = p.grid;
   return 0;
 }

@@ -37,19 +37,26 @@
 //   that nothing links libcuda.
 // * The 3x3's A comes by TMA too. Its K steps run channel slice by channel
 //   slice (64 channels, the last zero-filled past C), the 9 taps of a slice
-//   in a row, and all 9 read one window: rows m0 - W - 1 .. m0 + 128 + W of
-//   x seen as an (M, C) matrix, zero-filled where it leaves x, in as few 2-D
-//   TMA boxes of equal rows as the box's 256-row limit allows, all on one
-//   mbarrier (window_plan). Where two windows and the widest ring do not fit
-//   the 227 KB a CTA has, the ring takes fewer stages, then a narrower tile
-//   (conv3x3_plan). Both consumer warpgroups apply the prologue
-//   bf16(relu(x * a + b)) to the window once, in place; then, for each tap,
-//   each warpgroup copies its 64 rows of A from the window, shifted by
-//   W + 1 + dy * W + dx rows, into one of two A buffers in the swizzled
-//   layout wgmma reads, writing zero where the tap leaves the image (the
-//   halo) or the row is past M, as the reference pads after the prologue.
-//   So the prologue runs once per input pixel and slice, not once per tap,
-//   and A leaves L2 about twice per tile instead of nine times. (Earlier
+//   in a row, and all 9 read one window of x seen as an (M, C) matrix,
+//   zero-filled where it leaves x, all its 2-D TMA boxes on one mbarrier
+//   (window_plan, which the 3xTF32 kernel shares): rows m0 - W - 1 .. m0 +
+//   128 + W in as few boxes of equal rows as the box's 256-row limit allows,
+//   or, where that is more than three bands of 136 rows, those bands, band
+//   dy + 1 from row m0 + dy W - 1, which fit at any W (51 KB a window).
+//   Where two windows and the widest ring do not fit the 227 KB a CTA has,
+//   the ring takes fewer stages, then a narrower tile (conv3x3_plan); 64
+//   columns and 2 stages always fit. Both consumer warpgroups apply the
+//   prologue bf16(relu(x * a + b)) to the window once, in place, box by box
+//   (a and b staged once a CTA in shared memory over all of C up to
+//   kStagedC channels, every ResNet-50 width; past that a 64-channel slice
+//   a window, which the producer brings with the window by a bulk copy, so C
+//   has no limit); then, for each tap, each warpgroup copies its
+//   64 rows of A from the window (row (dy + 1) * band + 1 + r + dx for output
+//   row r) into one of two A buffers in the swizzled layout wgmma reads,
+//   writing zero where the tap leaves the image (the halo) or the row is
+//   past M, as the reference pads after the prologue. So the prologue runs
+//   once per input pixel and slice, not once per tap, and A leaves L2 about
+//   twice per tile instead of nine times. (Earlier
 //   designs: a cp.async gather moved A at about half the TMA's rate; one
 //   TMA box per tap with the prologue on it, per tap, spent most of the 3x3's
 //   time in the prologue, whether the producer, the consumers or a fourth
@@ -67,6 +74,15 @@
 // * wgmma.mma_async m64nBNk16 (bf16 in, f32 accumulate), w read MN-major
 //   (its (K, N) row-major layout as it lies in memory). setmaxnreg moves
 //   registers from the producer to the consumers.
+// * Deep products. The tensor cores' f32 sum drifts as the accumulator
+//   grows (on an H100, against float64: 0.78 of a bf16 ulp of y at K =
+//   4608, 1.8 at 18432, 3.8 at 36864; bf16_witness.py), so one accumulator
+//   sums at most kWholeSteps k-steps (K = 4608: the deepest ResNet-50
+//   product, the 3x3 at Cin 512, which keeps its bits). A deeper product
+//   (kDeep) restarts the accumulator every kChunkSteps k-steps and, once a
+//   chunk's products are done, adds it into a second register array in
+//   IEEE f32 (0.51-0.52 of an ulp at every K). That array needs BN / 2 more
+//   registers, so a deep product takes at most 128 columns (make_plan).
 // * Epilogue from registers: each accumulator is rounded to bf16 and stored
 //   with 16-byte stores (after a 4 x 4 transpose inside each quad of lanes),
 //   and the rounded values are summed per column: in the thread (its two
@@ -97,38 +113,71 @@ constexpr int BK = 64;
 constexpr int kConsumers = 2;                  // warpgroups of 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kTileOverhead = 32;              // make_plan's cost model
+constexpr int kWholeSteps = 72;                // k-steps one accumulator sums (K = 4608)
+constexpr int kChunkSteps = 8;                 // beyond that, a fresh accumulator each 8
 constexpr int A_BYTES = BM * BK * 2;           // 16 KB per stage
 constexpr int B_BOX_BYTES = 64 * BK * 2;       // one 64-column TMA box of w
 
 // How the kernel gets A: the rows of x (1x1), the rows of x with the prologue
 // bf16(relu(x * a + b)) applied in the ring stage (1x1), or the implicit 3x3
-// im2col of the prologue's output, built from a window of x.
-enum class ALoad { kRows, kRowsAffine, kIm2col };
+// im2col of the prologue's output, built from a window of x, with a and b
+// staged over all of C (C <= kStagedC) or a 64-channel slice a window
+// (kIm2colSlices: any C).
+enum class ALoad { kRows, kRowsAffine, kIm2col, kIm2colSlices };
+
+constexpr int kMaxBoxRows = 256;  // a TMA box's most rows
+constexpr int kBandRows = 136;    // a band of a 3x3 window: 130 rows, rounded up to 8
+constexpr int kStagedC = 2048;    // the 3x3 stages a and b over all of C up to here (16 KB)
+
+// A 3x3 window of a tile and channel slice, as the bf16 and the 3xTF32
+// kernels read it (one 128-byte row a pixel): `boxes` TMA boxes of box_rows
+// rows, box i from row m0 - W - 1 + i * box_step of x; tap (dy, dx) of
+// output row r reads window row (dy + 1) * band + 1 + r + dx.
+struct Window {
+  int boxes, box_rows, box_step, band;
+};
+
+// Rows m0 - W - 1 .. m0 + 128 + W (128 + 2 W + 2) in the fewest boxes of
+// equal rows: one box of exactly the window where it fits (W <= 63), else
+// rows rounded up to 8 so that each box starts on a 1024-byte period of the
+// 128-byte swizzle; the bands of dy lie W rows apart. Where that is more
+// than three bands of kBandRows, the three bands: rows m0 + dy W - 1 ..
+// m0 + dy W + 134 of each dy, at any W (each on a swizzle period: 136 rows
+// are 17 periods).
+inline Window window_plan(int W) {
+  const int rows = BM + 2 * W + 2;
+  const int boxes = (rows + kMaxBoxRows - 1) / kMaxBoxRows;
+  const int box_rows = boxes == 1 ? rows : ((rows + boxes - 1) / boxes + 7) / 8 * 8;
+  if (boxes * box_rows <= 3 * kBandRows) return Window{boxes, box_rows, box_rows, W};
+  return Window{3, kBandRows, W, kBandRows};
+}
 
 // Shared memory, in byte offsets from a 1024-byte aligned base. The ring
 // holds w's slices, and for the 1x1 A's; the 3x3 builds each A tile in
 // `abuf` from a window of x that its prologue has been applied to (`win`,
 // two buffers of `boxes` TMA boxes of `box_rows` rows each). Then the
-// statistics' cross-warp sums, the barriers and, for the 3x3, a and b over
-// C rounded up to 64 channels (zero past C).
+// statistics' cross-warp sums, the barriers and, for the 3x3, a and b: over
+// C rounded up to 64 channels (zero past C), or (kIm2colSlices) each
+// window's 64-channel slice.
 template <int BN, ALoad kLoad>
 struct Layout {
-  static constexpr bool kIm2col = kLoad == ALoad::kIm2col;
+  static constexpr bool kSlices = kLoad == ALoad::kIm2colSlices;
+  static constexpr bool kIm2col = kLoad == ALoad::kIm2col || kSlices;
   // the most ring stages; the 3x3 may take fewer where its windows are large
   static constexpr int kMaxStages =
       kIm2col ? (BN == 256 ? 3 : (BN == 128 ? 4 : 6)) : (BN == 256 ? 4 : (BN == 128 ? 5 : 6));
   static constexpr int B_BYTES = BK * BN * 2;
   static constexpr int STAGE_BYTES = (kIm2col ? 0 : A_BYTES) + B_BYTES;
-  int win_rows, win_bytes, abuf, win, red, bar, ab, total;
-  __host__ __device__ Layout(int W, int C, int stages, int boxes, int box_rows) {
-    win_rows = kIm2col ? BM + 2 * W + 2 : 0;  // output rows and a W + 1 halo each side
+  int win_bytes, abuf, win, red, bar, ab, total;
+  __host__ __device__ Layout(int stages, int boxes, int box_rows, int C) {
     win_bytes = kIm2col ? (boxes * box_rows * 128 + 1023) / 1024 * 1024 : 0;
     abuf = stages * STAGE_BYTES;
     win = abuf + (kIm2col ? 2 * A_BYTES : 0);
     red = win + 2 * win_bytes;                     // [s1 | s2][warp][BN] f32
     bar = red + 2 * 8 * BN * 4;                    // full, empty [stages]; wfull, wempty [2]
     ab = (bar + (2 * stages + 4) * 8 + 15) / 16 * 16;  // 16-byte aligned for float4 reads
-    total = ab + (kIm2col ? 8 * ((C + BK - 1) / BK * BK) : 0);
+    const int ab_floats = kSlices ? 2 * 2 * BK : 2 * ((C + BK - 1) / BK * BK);
+    total = ab + (kIm2col ? 4 * ab_floats : 0);
   }
 };
 
@@ -143,8 +192,8 @@ struct Problem {
   int M, K, N;
   int H, W, C;
   int n_tiles, tiles;
-  int stages;               // the 3x3's ring stages (the 1x1 takes Layout::kMaxStages)
-  int win_boxes, box_rows;  // the 3x3's window: TMA boxes of box_rows rows
+  int stages;  // the 3x3's ring stages (the 1x1 takes Layout::kMaxStages)
+  Window win;  // the 3x3's window
 };
 
 // ---- PTX helpers -------------------------------------------------------------
@@ -202,6 +251,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
+// aligned), completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -384,18 +443,30 @@ __device__ __forceinline__ void tile_prologue(unsigned char* a_s, int t, int row
       *swizzled(a_s, t / 8 + 16 * it, t % 8) = affine_relu_chunk(v[it], av, bv);
 }
 
-// The 3x3's prologue, once per window, in place on the window's rows that
-// hold pixels of x (row j is row row0 + j of x as an (M, C) matrix; rows
-// outside x keep the zero fill, as the reference pads after the prologue):
-// thread ct (of the 256 consumer threads) takes chunk ct % 8 of rows
-// ct / 8 + 32 q.
-__device__ __forceinline__ void window_prologue(unsigned char* win, int rows, int row0, int ct,
-                                                int M, const float (&av)[8],
-                                                const float (&bv)[8]) {
+// The 3x3's prologue on `rows` rows of a window from row `row0` of x as an
+// (M, C) matrix on, in place where they hold pixels of x (rows outside x
+// keep the zero fill, as the reference pads after the prologue): thread ct
+// (of the 256 consumer threads) takes chunk ct % 8 of rows ct / 8 + 32 q.
+__device__ __forceinline__ void prologue_rows(unsigned char* rows_s, int rows, int row0, int ct,
+                                              int M, const float (&av)[8], const float (&bv)[8]) {
   for (int j = ct / 8; j < rows; j += 32) {
     if (static_cast<unsigned>(row0 + j) >= static_cast<unsigned>(M)) continue;
-    uint4* q4 = swizzled(win, j, ct % 8);
+    uint4* q4 = swizzled(rows_s, j, ct % 8);
     *q4 = affine_relu_chunk(*q4, av, bv);
+  }
+}
+
+// The 3x3's prologue, once per window, on the rows the taps read: boxes end
+// to end hold rows m0 - W - 1 .. m0 + 128 + W of x in a row; a band, rows
+// m0 + dy W - 1 .. m0 + dy W + 128 of its 136.
+__device__ __forceinline__ void window_prologue(unsigned char* win, const Window& wp, int m0,
+                                                int W, int ct, int M, const float (&av)[8],
+                                                const float (&bv)[8]) {
+  if (wp.box_step == wp.box_rows) {
+    prologue_rows(win, BM + 2 * W + 2, m0 - W - 1, ct, M, av, bv);
+  } else {
+    for (int i = 0; i < wp.boxes; ++i)
+      prologue_rows(win + i * wp.box_rows * 128, BM + 2, m0 + (i - 1) * W - 1, ct, M, av, bv);
   }
 }
 
@@ -417,16 +488,16 @@ __device__ __forceinline__ bool inside(int hw, int dy, int dx, const Problem& p)
 }
 
 // One tap's A rows from the window, into `a_s`: row r of the tile is window
-// row r + W + 1 + dy * W + dx where the tap lies inside the image, zero where
-// it does not (the halo, and the rows past M), as the reference pads after
-// the prologue. Thread t of consumer warpgroup wg copies chunk t % 8 of its
-// rows 64 wg + t / 8 + 16 it; hw: their output pixels (pixel_of).
+// row (dy + 1) * band + 1 + r + dx where the tap lies inside the image, zero
+// where it does not (the halo, and the rows past M), as the reference pads
+// after the prologue. Thread t of consumer warpgroup wg copies chunk t % 8
+// of its rows 64 wg + t / 8 + 16 it; hw: their output pixels (pixel_of).
 __device__ __forceinline__ void copy_tap(unsigned char* a_s, const unsigned char* win, int tap,
                                          const int (&hw)[4], int wg, int t, const Problem& p) {
   const int chunk = t % 8;
   const int dy = tap / 3 - 1;
   const int dx = tap % 3 - 1;
-  const int shift = p.W + 1 + dy * p.W + dx;
+  const int shift = (dy + 1) * p.win.band + 1 + dx;
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
     const int r = 64 * wg + t / 8 + 16 * it;
@@ -440,15 +511,16 @@ __device__ __forceinline__ void copy_tap(unsigned char* a_s, const unsigned char
 
 // ---- the kernel ----------------------------------------------------------------
 
-template <int BN, ALoad kLoad>
+template <int BN, ALoad kLoad, bool kDeep>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_w, const Problem p) {
   using Lay = Layout<BN, kLoad>;
   constexpr bool kIm2col = Lay::kIm2col;
   const int S = kIm2col ? p.stages : Lay::kMaxStages;
-  const Lay L(p.W, p.C, S, p.win_boxes, p.box_rows);
-  const int c64 = kIm2col ? (p.C + BK - 1) / BK * BK : 0;  // a, b in shared memory, zero past C
+  const Lay L(S, p.win.boxes, p.win.box_rows, p.C);
+  const int c64 = kIm2col ? (p.C + BK - 1) / BK * BK : 0;
+  constexpr bool staged = !Lay::kSlices;  // im2col: a and b over all of C, else a window's slice
   constexpr int kProducerRegs = 40;
   constexpr int kConsumerRegs = 232;
 
@@ -461,7 +533,8 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
   uint64_t* empty = full + S;
   uint64_t* wfull = full + 2 * S;   // the 3x3's windows: loaded
   uint64_t* wempty = wfull + 2;     // and released by both consumer warpgroups
-  float* ab = reinterpret_cast<float*>(smem + L.ab);  // im2col: a then b
+  // im2col: a then b over C (staged), or window wb's slice at + 2 BK wb
+  float* ab = reinterpret_cast<float*>(smem + L.ab);
   auto stage_a = [&](int s) { return smem + s * Lay::STAGE_BYTES; };  // 1x1 only
   auto stage_b = [&](int s) { return smem + s * Lay::STAGE_BYTES + (kIm2col ? 0 : A_BYTES); };
   auto window = [&](int wb) { return smem + L.win + wb * L.win_bytes; };
@@ -482,7 +555,7 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
   __syncthreads();
 
   // past K (the 3x3: past C in each tap) the TMA's zero fill
-  const int ktiles = kIm2col ? 9 * (c64 / BK) : (p.K + BK - 1) / BK;
+  const int ktiles = kIm2col ? 9 * ((p.C + BK - 1) / BK) : (p.K + BK - 1) / BK;
   const int grid = static_cast<int>(gridDim.x);
   const int my_tiles = (p.tiles - static_cast<int>(blockIdx.x) + grid - 1) / grid;
   const int total = my_tiles * ktiles;  // this CTA's (tile, k-step) stream
@@ -499,18 +572,24 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         int w_row = kt * BK;  // the k-step's rows of w
         if constexpr (kIm2col) {
           // k-step kt of the 3x3 is channel slice kt / 9 of tap kt % 9 (w's
-          // box (tap, cs * 64, columns)). Each slice's 9 taps read one window:
-          // rows m0 - W - 1 .. m0 + 128 + W of x as an (M, C) matrix, in
-          // win_boxes TMA boxes, zero-filled where it leaves x.
+          // box (tap, cs * 64, columns)). Each slice's 9 taps read one window
+          // of x as an (M, C) matrix (window_plan's boxes), zero-filled where
+          // it leaves x.
           const int cs = kt / 9;
           const int tap = kt - 9 * cs;
           w_row = cs * BK;
           if (tap == 0) {
+            // not staged: a and b over the slice's channels below C (% 8)
+            const int ab_n = staged ? 0 : (p.C - cs * BK < BK ? p.C - cs * BK : BK);
             mbar_wait(&wempty[wb], wph ^ 1);
-            mbar_expect_tx(&wfull[wb], p.win_boxes * p.box_rows * 128);
-            for (int r = 0; r < p.win_boxes; ++r)
-              tma_load_2d(window(wb) + r * p.box_rows * 128, &tm_a, &wfull[wb], cs * BK,
-                          mt * BM - p.W - 1 + r * p.box_rows);
+            mbar_expect_tx(&wfull[wb], p.win.boxes * p.win.box_rows * 128 + 2 * 4 * ab_n);
+            for (int r = 0; r < p.win.boxes; ++r)
+              tma_load_2d(window(wb) + r * p.win.box_rows * 128, &tm_a, &wfull[wb], cs * BK,
+                          mt * BM - p.W - 1 + r * p.win.box_step);
+            if constexpr (!staged) {
+              bulk_load(ab + wb * 2 * BK, p.a + cs * BK, 4 * ab_n, &wfull[wb]);
+              bulk_load(ab + wb * 2 * BK + BK, p.b + cs * BK, 4 * ab_n, &wfull[wb]);
+            }
             if (++wb == 2) {
               wb = 0;
               wph ^= 1;
@@ -541,7 +620,9 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
   } else {
     // ---- consumers: warpgroup wg owns rows 64 * wg .. 64 * wg + 63 of each tile ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    static_assert(!kDeep || BN <= 128, "a deep product's two arrays need BN <= 128");
     float acc[BN / 2];
+    float sum[kDeep ? BN / 2 : 1];  // kDeep: the chunks done so far
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     const int warp = t / 32;
@@ -558,7 +639,8 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         part1[c] = 0.f;
         part2[c] = 0.f;
       }
-    if constexpr (kIm2col) {
+
+    if constexpr (kIm2col && staged) {
       for (int c = ct; c < c64; c += 128 * kConsumers) {
         ab[c] = c < p.C ? p.a[c] : 0.f;
         ab[c64 + c] = c < p.C ? p.b[c] : 0.f;
@@ -583,10 +665,13 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
         uint32_t a_addr;
         if constexpr (kIm2col) {
           if (tap == 0) {  // a new window: its prologue, by both warpgroups
-            float av[8], bv[8];
-            load_affine(ab, ab + c64, cs * BK + 8 * (ct % 8), c64, av, bv);
+            float av[8], bv[8];  // the slice's a and b, 0 past C
+            if constexpr (staged) load_affine(ab, ab + c64, cs * BK + 8 * (ct % 8), c64, av, bv);
             mbar_wait(&wfull[wb], wph);
-            window_prologue(window(wb), L.win_rows, mt * BM - p.W - 1, ct, p.M, av, bv);
+            if constexpr (!staged)
+              load_affine(ab + wb * 2 * BK, ab + wb * 2 * BK + BK, 8 * (ct % 8), p.C - cs * BK,
+                          av, bv);
+            window_prologue(window(wb), p.win, mt * BM, p.W, ct, p.M, av, bv);
             consumer_barrier();
           }
           // A in one of two buffers: the products of k-step kt - 2 that read
@@ -620,6 +705,8 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
           mbar_wait(&full[s], ph);
         }
         const uint32_t b_addr = smem_u32(stage_b(s));
+        // the k-step's place in its accumulator's run (kDeep: a chunk)
+        const int step = kDeep ? kt % kChunkSteps : kt;
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
@@ -628,10 +715,25 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
           // w: MN-major, k rows 128 bytes apart, 8-row groups 1024 apart, 64-column
           //    boxes B_BOX_BYTES apart, +16 rows per k16.
           Wgmma<BN>::mma(acc, smem_desc(a_addr + kk * 32, 16, 1024),
-                         smem_desc(b_addr + kk * 16 * 128, B_BOX_BYTES, 1024), (kt | kk) != 0);
+                         smem_desc(b_addr + kk * 16 * 128, B_BOX_BYTES, 1024), (step | kk) != 0);
         wgmma_commit();
         fence_acc(acc);
-        wgmma_wait<1>();  // the previous k-step's products are done: release its stage
+        if (kDeep && (step == kChunkSteps - 1 || kt == ktiles - 1)) {
+          // the chunk's products are done: into the sum, in IEEE f32
+          wgmma_wait<0>();
+          fence_acc(acc);
+          if constexpr (kDeep) {
+            if (kt < kChunkSteps) {
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) sum[i] = acc[i];
+            } else {
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+            }
+          }
+        } else {
+          wgmma_wait<1>();  // the previous k-step's products are done: release its stage
+        }
         fence_acc(acc);
         if (kt > 0 && t == 0) mbar_arrive(&empty[prev]);
         prev = s;
@@ -643,6 +745,10 @@ wgmma_stats_kernel(const __grid_constant__ CUtensorMap tm_a,
       wgmma_wait<0>();
       fence_acc(acc);
       if (t == 0) mbar_arrive(&empty[prev]);
+      if constexpr (kDeep) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i];
+      }
 
       // Epilogue. acc[4j + 2i + c] is row 16 * warp + lane / 4 + 8 i, column
       // 8 j + 2 (lane % 4) + c of the warpgroup's 64 x BN block.
@@ -755,18 +861,19 @@ struct Plan {
   int block_n, m_tiles, n_tiles, tiles, grid;
 };
 
-// The tile width and persistent grid of an (M, ., N) product on `sms` SMs:
-// among the widths that divide N rounded up to 64 (N itself where N % 64 ==
-// 0), the fewest column-time units on the busiest SM, ceil(tiles / SMs) *
-// (BN + kTileOverhead); a tie goes to the wider tile, which reads A fewer
-// times. grid = min(tiles, sms).
-inline Plan make_plan(long long M, int N, int sms) {
+// The tile width and persistent grid of an (M, ., N) product of `ksteps`
+// k-steps on `sms` SMs: among the widths that divide N rounded up to 64 (N
+// itself where N % 64 == 0), at most 128 for a deep product (ksteps >
+// kWholeSteps), the fewest column-time units on the busiest SM,
+// ceil(tiles / SMs) * (BN + kTileOverhead); a tie goes to the wider tile,
+// which reads A fewer times. grid = min(tiles, sms).
+inline Plan make_plan(long long M, int N, int sms, int ksteps) {
   Plan best{0, 0, 0, 0, 0};
   long long best_cost = -1;
   const long long m_tiles = (M + BM - 1) / BM;
   const int n64 = (N + 63) / 64 * 64;
   for (int bn : {256, 128, 64}) {
-    if (n64 % bn != 0) continue;
+    if (n64 % bn != 0 || (bn > 128 && ksteps > kWholeSteps)) continue;
     const long long tiles = m_tiles * (n64 / bn);
     const long long cost = (tiles + sms - 1) / sms * (bn + kTileOverhead);
     if (best_cost < 0 || cost < best_cost) {
@@ -778,25 +885,20 @@ inline Plan make_plan(long long M, int N, int sms) {
 }
 
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may have on sm_90
-constexpr int kMaxBoxRows = 256;  // a TMA box's most rows
-
-// The 3x3's window of 128 + 2 W + 2 rows of x, in the fewest TMA boxes of
-// equal rows: one box of exactly the window where it fits (W <= 63), else
-// ceil(rows / 256) boxes of rows rounded up to 8, so that each box starts
-// on a 1024-byte period of the 128-byte swizzle. out = {boxes, box_rows}.
-inline void window_plan(int W, int* boxes, int* box_rows) {
-  const int rows = BM + 2 * W + 2;
-  *boxes = (rows + kMaxBoxRows - 1) / kMaxBoxRows;
-  *box_rows = *boxes == 1 ? rows : ((rows + *boxes - 1) / *boxes + 7) / 8 * 8;
-}
 
 // Shared memory of one 3x3 CTA, alignment slack included.
-inline int conv3x3_smem(int bn, int stages, int W, int C, int boxes, int box_rows) {
+template <ALoad kLoad>
+inline int conv3x3_smem_of(int bn, int stages, const Window& win, int C) {
   switch (bn) {
-    case 256: return 1024 + Layout<256, ALoad::kIm2col>(W, C, stages, boxes, box_rows).total;
-    case 128: return 1024 + Layout<128, ALoad::kIm2col>(W, C, stages, boxes, box_rows).total;
-    default: return 1024 + Layout<64, ALoad::kIm2col>(W, C, stages, boxes, box_rows).total;
+    case 256: return 1024 + Layout<256, kLoad>(stages, win.boxes, win.box_rows, C).total;
+    case 128: return 1024 + Layout<128, kLoad>(stages, win.boxes, win.box_rows, C).total;
+    default: return 1024 + Layout<64, kLoad>(stages, win.boxes, win.box_rows, C).total;
   }
+}
+
+inline int conv3x3_smem(int bn, int stages, const Window& win, int C) {
+  return C <= kStagedC ? conv3x3_smem_of<ALoad::kIm2col>(bn, stages, win, C)
+                       : conv3x3_smem_of<ALoad::kIm2colSlices>(bn, stages, win, C);
 }
 
 inline int im2col_max_stages(int bn) {
@@ -807,20 +909,25 @@ inline int im2col_max_stages(int bn) {
 
 struct Conv3x3Plan {
   Plan tiles;
-  int stages, boxes, box_rows, smem;
+  int stages, smem;
+  Window win;
 };
+
+// The k-steps of a 3x3 over C input channels: 9 taps of each 64-channel slice
+inline int conv3x3_ksteps(int C) { return 9 * ((C + BK - 1) / BK); }
 
 // The 3x3's plan: make_plan's tile width, with the most ring stages (at
 // least 2) that fit two windows into a CTA's shared memory; where none fit,
-// the next narrower width. Returns false where not even 64 columns and 2
-// stages fit (W too large).
+// the next narrower width. A window is at most three bands of kBandRows
+// rows (51 KB), so 64 columns and 2 stages fit at any W; false only if that
+// ever changed.
 inline bool conv3x3_plan(long long M, int N, int W, int C, int sms, Conv3x3Plan* out) {
-  window_plan(W, &out->boxes, &out->box_rows);
-  const Plan first = make_plan(M, N, sms);
+  out->win = window_plan(W);
+  const Plan first = make_plan(M, N, sms, conv3x3_ksteps(C));
   const int n64 = (N + 63) / 64 * 64;
   for (int bn = first.block_n; bn >= 64; bn /= 2) {
     for (int st = im2col_max_stages(bn); st >= 2; --st) {
-      const int smem = conv3x3_smem(bn, st, W, C, out->boxes, out->box_rows);
+      const int smem = conv3x3_smem(bn, st, out->win, C);
       if (smem > kMaxSmem) continue;
       const long long m_tiles = (M + BM - 1) / BM;
       const long long tiles = m_tiles * (n64 / bn);
@@ -874,14 +981,14 @@ inline bool encode(CUtensorMap* map, const void* base, cuuint32_t rank, const cu
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, ALoad kLoad>
+template <int BN, ALoad kLoad, bool kDeep>
 cudaError_t launch_bn(const CUtensorMap& tm_a, const CUtensorMap& tm_w, const Problem& p, int grid,
                       cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
-  auto kernel = wgmma_stats_kernel<BN, kLoad>;
-  const int stages = kLoad == ALoad::kIm2col ? p.stages : Layout<BN, kLoad>::kMaxStages;
+  auto kernel = wgmma_stats_kernel<BN, kLoad, kDeep>;
+  const int stages = Layout<BN, kLoad>::kIm2col ? p.stages : Layout<BN, kLoad>::kMaxStages;
   const int smem =  // + alignment slack
-      1024 + Layout<BN, kLoad>(p.W, p.C, stages, p.win_boxes, p.box_rows).total;
+      1024 + Layout<BN, kLoad>(stages, p.win.boxes, p.win.box_rows, p.C).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // allow the kernel the most shared memory once per device, not per launch
   static bool allowed[kMaxDevices] = {};
@@ -918,15 +1025,14 @@ cudaError_t launch_wgmma_stats(Problem p, int part_rows, const void* w, void* st
     if (!conv3x3_plan(p.M, p.N, p.W, p.C, part_rows, &cp)) return cudaErrorInvalidValue;
     plan = cp.tiles;
     p.stages = cp.stages;
-    p.win_boxes = cp.boxes;
-    p.box_rows = cp.box_rows;
+    p.win = cp.win;
     const cuuint64_t w_dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.C, 9};
     const cuuint64_t x_dims[2] = {(cuuint64_t)p.C, (cuuint64_t)p.M};
-    if (!encode(&tm_w, w, 3, w_dims, BK) || !encode(&tm_a, p.x, 2, x_dims, p.box_rows))
+    if (!encode(&tm_w, w, 3, w_dims, BK) || !encode(&tm_a, p.x, 2, x_dims, p.win.box_rows))
       return cudaErrorInvalidValue;
   } else {
     // w as (K, N), x as (M, K) rows in 128-row boxes
-    plan = make_plan(p.M, p.N, part_rows);
+    plan = make_plan(p.M, p.N, part_rows, (p.K + BK - 1) / BK);
     const cuuint64_t w_dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.K};
     const cuuint64_t x_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
     if (!encode(&tm_w, w, 2, w_dims, BK) || !encode(&tm_a, p.x, 2, x_dims, BM))
@@ -934,11 +1040,21 @@ cudaError_t launch_wgmma_stats(Problem p, int part_rows, const void* w, void* st
   }
   p.n_tiles = plan.n_tiles;
   p.tiles = plan.tiles;
-  cudaError_t err;
-  switch (plan.block_n) {
-    case 256: err = launch_bn<256, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;
-    case 128: err = launch_bn<128, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;
-    default: err = launch_bn<64, kLoad>(tm_a, tm_w, p, plan.grid, stream); break;
+  const bool deep = (kIm2col ? conv3x3_ksteps(p.C) : (p.K + BK - 1) / BK) > kWholeSteps;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kIm2col && p.C > kStagedC) {  // a and b a slice a window; so deep, so <= 128 columns
+    if constexpr (kIm2col)
+      err = plan.block_n == 128
+                ? launch_bn<128, ALoad::kIm2colSlices, true>(tm_a, tm_w, p, plan.grid, stream)
+                : launch_bn<64, ALoad::kIm2colSlices, true>(tm_a, tm_w, p, plan.grid, stream);
+  } else {
+    switch (plan.block_n * 2 + (deep ? 1 : 0)) {  // make_plan gives a deep product <= 128
+      case 512: err = launch_bn<256, kLoad, false>(tm_a, tm_w, p, plan.grid, stream); break;
+      case 256: err = launch_bn<128, kLoad, false>(tm_a, tm_w, p, plan.grid, stream); break;
+      case 257: err = launch_bn<128, kLoad, true>(tm_a, tm_w, p, plan.grid, stream); break;
+      case 129: err = launch_bn<64, kLoad, true>(tm_a, tm_w, p, plan.grid, stream); break;
+      default: err = launch_bn<64, kLoad, false>(tm_a, tm_w, p, plan.grid, stream); break;
+    }
   }
   if (err != cudaSuccess) return err;
   partials_finish_kernel<<<(p.N + 31) / 32, 256, 0, stream>>>(p.part, static_cast<float*>(stats),

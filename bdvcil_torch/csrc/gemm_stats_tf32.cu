@@ -87,14 +87,14 @@
 // * The 3x3's K steps run channel slice by channel slice (32 channels), the
 //   9 taps of a slice in a row, and all 9 read one window of x seen as an
 //   (M, C) matrix, brought by TMA with a and b's 32 channels, zero-filled
-//   where it leaves x, twice buffered (window_plan): rows m0 - W - 1 .. m0 +
-//   128 + W in one to three boxes of at most 256 rows, or, where that is
-//   more, three bands of 136 rows, band dy + 1 from row m0 + dy W - 1, which
-//   fit at any W. Both consumer warpgroups apply the prologue to the window
-//   once, in place (rows outside x keep the zero fill); then for each tap
-//   each thread reads its fragments at rows shifted by dy W + dx, writing
-//   zero where the tap leaves the image (the halo) or the row lies past M,
-//   and splits them. The 128-byte swizzle keeps these reads free of bank
+//   where it leaves x, twice buffered (sm90::window_plan, the bf16 3x3's
+//   too): rows m0 - W - 1 .. m0 + 128 + W in one to three boxes of at most
+//   256 rows, or, where that is more, three bands of 136 rows, band dy + 1
+//   from row m0 + dy W - 1, which fit at any W. Both consumer warpgroups
+//   apply the prologue to the window once, in place (rows outside x keep the
+//   zero fill); then for each tap each thread reads its fragments at rows
+//   shifted by dy W + dx, writing zero where the tap leaves the image (the
+//   halo) or the row lies past M, and splits them. The 128-byte swizzle keeps these reads free of bank
 //   conflicts at any shift: rows g = 0 .. 7 of a warp land on 8 chunks. So
 //   x leaves L2 about twice a tile and slice (not nine times) and the
 //   prologue runs once a pixel and slice (not once a tap).
@@ -121,8 +121,7 @@ using sm90::kThreads;                          // and the producer's
 constexpr int BK = 32;                         // f32: one 128-byte swizzled row
 constexpr int A_BYTES = BM * BK * 4;           // 16 KB: x's tile of a stage
 constexpr int AB_BYTES = 2 * BK * 4;           // a's and b's 32 channels of a k-step
-constexpr int kBandRows = 136;                 // a band of the 3x3's window: 130 rows, to 8
-constexpr int kMaxBoxRows = 256;               // a TMA box's most rows
+using sm90::Window;                            // the 3x3's window (sm90::window_plan)
 
 // How the kernel gets A: the rows of x, the rows of relu(x * a + b), or the
 // implicit 3x3 im2col of relu(x * a + b) built from a window of x.
@@ -152,27 +151,6 @@ struct Layout {
     total = bar + (2 * stages + (kIm2col ? 4 : 0)) * 8;  // and the windows' full, empty [2]
   }
 };
-
-// The 3x3's window of a tile and channel slice: `boxes` TMA boxes of
-// box_rows rows, box i from row m0 - W - 1 + i * box_step of x; tap (dy, dx)
-// of output row r reads window row (dy + 1) * band + 1 + r + dx.
-struct Window {
-  int boxes, box_rows, box_step, band;
-};
-
-// Rows m0 - W - 1 .. m0 + 128 + W (128 + 2 W + 2) in the fewest boxes of
-// equal rows: one box of exactly the window where it fits (W <= 63), else
-// rows rounded up to 8 so that each box starts on a 1024-byte period of the
-// 128-byte swizzle; the bands of dy lie W rows apart. Where that is more
-// than three bands of kBandRows, the three bands: rows m0 + dy W - 1 ..
-// m0 + dy W + 128 of each dy, at any W.
-inline Window window_plan(int W) {
-  const int rows = BM + 2 * W + 2;
-  const int boxes = (rows + kMaxBoxRows - 1) / kMaxBoxRows;
-  const int box_rows = boxes == 1 ? rows : ((rows + boxes - 1) / boxes + 7) / 8 * 8;
-  if (boxes * box_rows <= 3 * kBandRows) return Window{boxes, box_rows, box_rows, W};
-  return Window{3, kBandRows, W, kBandRows};
-}
 
 struct Problem {
   float* part;
@@ -695,7 +673,7 @@ inline Plan make_plan(long long M, int N, int sms) {
 // columns against 392 of 64). A banded window (52 KB) fits at 64 columns
 // and 2 stages, so every W has a plan. grid = min(tiles, sms).
 inline bool conv3x3_plan(long long M, int N, int W, int sms, Plan* out, Window* win) {
-  *win = window_plan(W);
+  *win = sm90::window_plan(W);
   const long long m_tiles = (M + BM - 1) / BM;
   const int n64 = (N + 63) / 64 * 64;
   for (int bn = n64 % 128 == 0 ? 128 : 64; bn >= 64; bn /= 2)
@@ -891,7 +869,7 @@ int bdv_conv3x3_affine_relu_stats_tf32(const void* x, const void* w, const void*
   // pixel_of packs (h << 16) | w into an int; a window's rows stay in int
   if (NT <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || C % 4 != 0 || N % 4 != 0 ||
       part_rows <= 0 || H >= (1 << 15) || W >= (1 << 16) || C >= (1 << 17) || N >= (1 << 21) ||
-      NT * H * W > (1ll << 31) - BM - 4ll * W - 4 * kBandRows)
+      NT * H * W > (1ll << 31) - BM - 4ll * W - 4 * sm90::kBandRows)
     return (int)cudaErrorInvalidValue;
   if (!sm90::aligned16(x) || !sm90::aligned16(ab) || !sm90::aligned16(wsplit) ||
       !sm90::aligned16(y))

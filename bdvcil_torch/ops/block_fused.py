@@ -26,18 +26,20 @@ configuration of the JAX package computes in it):
   conv1x1_affine_relu_stats   csrc/conv1x1_stats.cu       csrc/gemm_stats_tf32.cu
   conv3x3_affine_relu_stats   csrc/conv3x3_stats.cu       csrc/gemm_stats_tf32.cu
   bn_finalize                 csrc/block_epilogue.cu (f32 statistics either way)
-  affine_residual_relu        csrc/block_epilogue.cu, 16-byte packs of 8 bf16 or 4 f32
+  affine_residual_relu        csrc/block_epilogue.cu, 16-byte packs of 8 bf16 or 4 f32,
+                              any C
 
 The bf16 stats kernels run on the persistent wgmma core of
 ``csrc/gemm_stats_sm90.cuh``, which applies the prologue to the A tile in
 shared memory; channel counts that are not multiples of 8 are zero-padded
 for the TMA (a = b = 0 on the padded channels: ``conv1x1_bn.aligned_call``),
-and the 3x3 takes any width up to ``gemm_plan.conv3x3_max_width`` (271 at
-Cin <= 512, 247 at 2048). The float32 stats ops run as three TF32 products
-on the tensor cores (``csrc/gemm_stats_tf32.cu``), conv3 with the prologue
-applied to A's fragments in registers, the 3x3 as an implicit im2col from a
-window of x that the prologue has been applied to once, at any W < 65536
-(channel counts zero-padded to multiples of 4, as for the float32 conv1).
+and the 3x3 takes any W < 65536 (its window of x in boxes, or three bands
+of 136 rows where wide: ``gemm_plan.window_plan``). The float32 stats ops
+run as three TF32 products on the tensor cores (``csrc/gemm_stats_tf32.cu``),
+conv3 with the prologue applied to A's fragments in registers, the 3x3 as an
+implicit im2col from a window of x that the prologue has been applied to
+once, at any W < 65536 too (channel counts zero-padded to multiples of 4, as
+for the float32 conv1).
 Each 3x3 kernel serves both of the JAX package's
 variant names ("taps", "im2col": one function, two ways of tiling the TPU's
 matrix unit). On a CPU tensor each op is its ``_plain`` version; the plain
@@ -195,11 +197,11 @@ def _conv1x1_affine_cuda(x, a, b, w):
 
 
 def _conv3x3_wgmma(x, w, a, b):
-    """The bf16 3x3 on the wgmma core: Cin and Cout % 8 == 0, W within
-    ``gemm_plan.conv3x3_max_width`` (where the C side finds no plan, it
-    refuses before a launch and the Python copy of the plan names the widest W)."""
+    """The bf16 3x3 on the wgmma core: Cin and Cout % 8 == 0, any W < 65536
+    (the window in three bands where it is wide)."""
     nt, h, w_, k = x.shape
     n = w.shape[-1]
+    _check_3x3_extent(CONV2, h, w_)
     part_rows = sm_count(x.device)  # one partial per persistent CTA, one CTA per SM at most
     lib = _conv3x3_lib()
     y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
@@ -209,8 +211,6 @@ def _conv3x3_wgmma(x, w, a, b):
         part_rows, stats.data_ptr(), nt, h, w_, k, n,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    if code != 0:
-        gemm_plan.conv3x3_plan(nt * h * w_, n, w_, k, part_rows)  # raises past the widest W
     _build.check(lib, code, CONV2)
     return y, stats[0], stats[1]
 
@@ -222,8 +222,7 @@ def _conv3x3_f32(x, w, a, b):
     operand."""
     nt, h, w_, k = x.shape
     n = w.shape[-1]
-    if h >= 1 << 15 or w_ >= 1 << 16:
-        raise ValueError(f"{CONV2_F32}: needs H < 32768 and W < 65536, got H={h} W={w_}")
+    _check_3x3_extent(CONV2_F32, h, w_)
     lib = _tf32_lib()
     x = aligned_x(x)
     y = torch.empty((nt, h, w_, n), dtype=x.dtype, device=x.device)
@@ -239,6 +238,12 @@ def _conv3x3_f32(x, w, a, b):
     )
     _build.check(lib, code, CONV2_F32)
     return y, stats[0], stats[1]
+
+
+def _check_3x3_extent(name, h, w_):
+    """Both 3x3 kernels pack a pixel's (h, w) into one int (``pixel_of``)."""
+    if h >= 1 << 15 or w_ >= 1 << 16:
+        raise ValueError(f"{name}: needs H < 32768 and W < 65536, got H={h} W={w_}")
 
 
 def _conv3x3_cuda(x, a, b, w, variant):
@@ -266,11 +271,8 @@ def _epilogue_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         lib.bdv_affine_residual_relu.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.bdv_block_epilogue_max_channels.argtypes = []
-        for fn in (lib.bdv_bn_finalize, lib.bdv_affine_residual_relu,
-                   lib.bdv_block_epilogue_max_channels):
+        for fn in (lib.bdv_bn_finalize, lib.bdv_affine_residual_relu):
             fn.restype = ctypes.c_int
-        lib.max_channels = lib.bdv_block_epilogue_max_channels()  # a, b in shared memory
         lib._bdv_typed = True
     return lib
 
@@ -300,8 +302,6 @@ def _affine_residual_relu_cuda(y, a, b, x):
     c = y.shape[-1]
     check_affine(EPILOGUE, c, a, b, y.device)
     lib = _epilogue_lib()
-    if c > lib.max_channels:
-        raise ValueError(f"{EPILOGUE}: needs C <= {lib.max_channels}, got C={c}")
     out = torch.empty_like(y)
     code = lib.bdv_affine_residual_relu(
         y.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), c,

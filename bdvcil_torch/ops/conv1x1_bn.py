@@ -75,7 +75,7 @@ def _lib() -> ctypes.CDLL:
         ]
         lib.bdv_conv1x1_affine_relu_stats.restype = ctypes.c_int
         lib.bdv_wgmma_stats_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p]
+                                             ctypes.c_int, ctypes.c_void_p]
         lib.bdv_wgmma_stats_plan.restype = ctypes.c_int
         lib._bdv_typed = True
     return lib

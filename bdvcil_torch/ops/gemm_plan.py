@@ -6,18 +6,22 @@ shapes they serve.
 bf16) computes y = A @ w in 128-row tiles of ``block_n`` columns on a
 persistent grid of at most one CTA per SM; ``sm90::make_plan`` picks the
 width and the grid per shape (``wgmma_plan`` is its Python copy), and
-``kernel_plan`` reads that choice back for reports and tests. Nothing here
-sizes its launch: the wrappers give the kernel one partial row per SM.
+``kernel_plan`` reads that choice back for reports and tests. A product of
+more than ``WHOLE_STEPS`` 64-deep k-steps (K > 4608) sums its accumulator in
+chunks of 8 k-steps and adds them in IEEE f32, in a second register array,
+so it takes at most 128 columns. Nothing here sizes its launch: the
+wrappers give the kernel one partial row per SM.
 
 The 3x3 (``sm90::conv3x3_plan``, Python copy ``conv3x3_plan``) also reads,
-for each 128-row tile and 64-channel slice, a window of 128 + 2 W + 2 rows of
-x into shared memory, twice buffered, in TMA boxes of at most 256 rows
-(``window_plan``); where two windows and the widest ring of w do not fit a
-CTA's 227 KB, it takes fewer ring stages (at least 2), then a narrower tile.
-``conv3x3_max_width`` is the widest image that still fits, for a channel
-count; the wrapper refuses a wider one with that number. Channel counts
-that are not multiples of 8 are zero-padded by the wrapper
-(``conv1x1_bn.aligned_call``), and the plan is made for the padded counts.
+for each 128-row tile and 64-channel slice, a window of x into shared memory,
+twice buffered (``window_plan``, the C side's ``sm90::window_plan``, which
+both 3x3 kernels share): 128 + 2 W + 2 rows in TMA boxes of at most 256 rows,
+or, where that is more, three bands of 136 rows that fit at any W; where two
+windows and the widest ring of w do not fit a CTA's 227 KB, it takes fewer
+ring stages (at least 2), then a narrower tile, and 64 columns and 2 stages
+always fit. Channel counts that are not multiples of 8 are zero-padded by
+the wrapper (``conv1x1_bn.aligned_call``), and the plan is made for the
+padded counts.
 
 ``csrc/gemm_stats_tf32.cu`` (every float32 stats kernel: #3, #4, #6, #7 and
 #8, as three TF32 products) runs 128 x ``block_n`` tiles, ``block_n`` 128 or
@@ -29,11 +33,9 @@ the SM count as the partials' rows, the C plan caps its grid there and the
 finish sums the grid's rows; ``tf32_kernel_plan`` reads the C plan back.
 Its 3x3 (``tf32gemm::conv3x3_plan``, Python copy ``tf32_conv3x3_plan``, read
 back by ``tf32_conv3x3_kernel_plan``) reads, for each tile and 32-channel
-slice, a window of x twice buffered (``tf32_window_plan``): 128 + 2 W + 2
-rows in boxes of at most 256 rows, or, where that is more, three bands of
-136 rows that fit at any W; it takes the widest tile (each column tile
-reloads the windows) with the most ring stages that fit beside them, then
-the narrower tile.
+slice, the same ``window_plan``'s window; it takes the widest tile (each
+column tile reloads the windows) with the most ring stages that fit beside
+them, then the narrower tile.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from . import _build
 BLOCK_M = 128
 BLOCK_K = 64  # the wgmma core's K step: a 3x3 channel slice
 TILE_OVERHEAD = 32  # make_plan's cost model
+WHOLE_STEPS = 72  # k-steps one accumulator of the bf16 core sums (K = 4608)
+STAGED_C = 2048  # the bf16 3x3 stages a and b over all of C up to here, else a slice a window
 MAX_SMEM = 232448  # the most shared memory one CTA may have on sm_90 (227 KB)
 MAX_BOX_ROWS = 256  # a TMA box's most rows
 A_BYTES = BLOCK_M * BLOCK_K * 2  # one bf16 A tile
@@ -57,7 +61,7 @@ CONV3X3_MAX_STAGES = {256: 3, 128: 4, 64: 6}
 TF32_BLOCK_K = 32  # the 3xTF32 kernel's K step: one 128-byte row of f32
 # the 3xTF32 kernel's most ring stages per tile width (tf32gemm::Layout<BN>::kMaxStages)
 TF32_STAGES = {128: 3, 64: 5}
-TF32_BAND_ROWS = 136  # a band of the 3xTF32 3x3's wide window: 130 rows, rounded up to 8
+BAND_ROWS = 136  # a band of a 3x3's wide window: 130 rows, rounded up to 8
 
 
 class Plan(NamedTuple):
@@ -71,8 +75,9 @@ class Plan(NamedTuple):
 
 
 class Conv3x3Plan(NamedTuple):
-    """The 3x3's tiles (``Plan``'s fields), its ring stages, its window's TMA
-    boxes of ``box_rows`` rows, and the CTA's shared memory in bytes."""
+    """A 3x3's tiles (``Plan``'s fields), its ring stages, its window
+    (``Window``'s fields) and its CTA's shared memory in bytes: the bf16
+    core's and the 3xTF32 kernel's."""
 
     block_n: int
     m_tiles: int
@@ -82,6 +87,8 @@ class Conv3x3Plan(NamedTuple):
     stages: int
     boxes: int
     box_rows: int
+    box_step: int
+    band: int
     smem: int
 
 
@@ -98,19 +105,20 @@ class TF32Plan(NamedTuple):
     smem: int
 
 
-def kernel_plan(m: int, n: int, device: torch.device) -> Plan:
-    """The plan the wgmma kernels make for an (M, ., N) product on ``device``."""
+def kernel_plan(m: int, k: int, n: int, device: torch.device) -> Plan:
+    """The plan the wgmma kernels make for an (M, K, N) product on ``device``."""
     from .conv1x1_bn import _lib, sm_count
 
     lib = _lib()
     out = (ctypes.c_int * 5)()
-    _build.check(lib, lib.bdv_wgmma_stats_plan(m, n, sm_count(device), out),
+    _build.check(lib, lib.bdv_wgmma_stats_plan(m, k, n, sm_count(device), out),
                  "bdv_wgmma_stats_plan")
     return Plan(*out)
 
 
-def wgmma_plan(m: int, n: int, sms: int, widths=(256, 128, 64)) -> Plan:
+def wgmma_plan(m: int, n: int, sms: int, widths=(256, 128, 64), ksteps: int = 1) -> Plan:
     """``sm90::make_plan``: among the widths that divide N rounded up to 64,
+    at most 128 for a product of more than WHOLE_STEPS k-steps (``ksteps``),
     the fewest column-time units on the busiest SM, ceil(tiles / SMs) * (BN +
     32); a tie goes to the wider tile. grid = min(tiles, sms). ``widths``,
     widest first: the kernel's tile widths (the 3xTF32 kernel has 128, 64)."""
@@ -119,7 +127,7 @@ def wgmma_plan(m: int, n: int, sms: int, widths=(256, 128, 64)) -> Plan:
     best, best_cost = None, None
     m_tiles, n64 = -(-m // BLOCK_M), -(-n // 64) * 64
     for bn in widths:
-        if n64 % bn:
+        if n64 % bn or (bn > 128 and ksteps > WHOLE_STEPS):
             continue
         tiles = m_tiles * (n64 // bn)
         cost = -(-tiles // sms) * (bn + TILE_OVERHEAD)
@@ -128,35 +136,59 @@ def wgmma_plan(m: int, n: int, sms: int, widths=(256, 128, 64)) -> Plan:
     return best
 
 
-def window_plan(w: int):
-    """(boxes, box_rows) of the 3x3's window of 128 + 2 W + 2 rows: one box of
-    exactly the window where it fits, else ceil(rows / 256) equal boxes of
-    rows rounded up to 8 (each starts on a period of the 128-byte swizzle)."""
+class Window(NamedTuple):
+    """A 3x3's window of a tile and channel slice: ``boxes`` TMA boxes of
+    ``box_rows`` rows, box i from row m0 - W - 1 + i * box_step of x as an
+    (M, C) matrix; tap (dy, dx) of the tile's row r reads window row
+    (dy + 1) * band + 1 + r + dx."""
+
+    boxes: int
+    box_rows: int
+    box_step: int
+    band: int
+
+
+def window_plan(w: int) -> Window:
+    """``sm90::window_plan``: rows m0 - W - 1 .. m0 + 128 + W (128 + 2 W +
+    2) in the fewest equal boxes of at most 256 rows (one box of exactly the
+    window where it fits, else rows rounded up to 8, so that each box starts
+    on a period of the 128-byte swizzle), the bands of dy W rows apart; where
+    that is more than three bands of 136 rows, those bands, band dy + 1 from
+    row m0 + dy W - 1, at any W."""
     rows = BLOCK_M + 2 * w + 2
     boxes = -(-rows // MAX_BOX_ROWS)
-    return boxes, rows if boxes == 1 else -(-(-(-rows // boxes)) // 8) * 8
+    box_rows = rows if boxes == 1 else -(-(-(-rows // boxes)) // 8) * 8
+    if boxes * box_rows <= 3 * BAND_ROWS:
+        return Window(boxes, box_rows, box_rows, w)
+    return Window(3, BAND_ROWS, w, BAND_ROWS)
 
 
 def conv3x3_smem(block_n: int, stages: int, w: int, c: int) -> int:
-    """Shared memory of one 3x3 CTA (``sm90::Layout`` + 1024 bytes of
+    """Shared memory of one bf16 3x3 CTA (``sm90::Layout`` + 1024 bytes of
     alignment slack): the ring of w, two A tiles, two windows, the
-    statistics' cross-warp sums, the barriers, and a, b over C rounded up to
-    64 channels."""
-    boxes, box_rows = window_plan(w)
-    win_bytes = -(-boxes * box_rows * 128 // 1024) * 1024
+    statistics' cross-warp sums, the barriers, and a and b: over C rounded
+    up to 64 where C <= STAGED_C, else each window's 64-channel slice."""
+    win = window_plan(w)
+    win_bytes = -(-win.boxes * win.box_rows * 128 // 1024) * 1024
     red = stages * BLOCK_K * block_n * 2 + 2 * A_BYTES + 2 * win_bytes
-    bar = red + 2 * 8 * block_n * 4
-    ab = -(-(bar + (2 * stages + 4) * 8) // 16) * 16
-    return 1024 + ab + 8 * (-(-c // BLOCK_K) * BLOCK_K)
+    ab = -(-(red + 2 * 8 * block_n * 4 + (2 * stages + 4) * 8) // 16) * 16
+    return 1024 + ab + 4 * 2 * (-(-c // BLOCK_K) * BLOCK_K if c <= STAGED_C else 2 * BLOCK_K)
+
+
+def conv3x3_ksteps(c: int) -> int:
+    """The bf16 3x3's k-steps over C input channels: 9 taps of each
+    64-channel slice."""
+    return 9 * -(-c // BLOCK_K)
 
 
 def conv3x3_plan(m: int, n: int, w: int, c: int, sms: int) -> Conv3x3Plan:
-    """``sm90::conv3x3_plan`` for M = NT*H*W pixels of width W, C channels in
-    and N out (both multiples of 8): ``wgmma_plan``'s width with the most ring
-    stages that fit, then narrower widths; ValueError where not even 64
-    columns and 2 stages fit."""
-    first = wgmma_plan(m, n, sms)
-    boxes, box_rows = window_plan(w)
+    """``sm90::conv3x3_plan`` for M = NT*H*W pixels of width W, C channels
+    in and N out (multiples of 8): ``wgmma_plan``'s width for its k-steps
+    with the most ring stages that fit, then narrower widths. A window of at
+    most three bands fits at 64 columns and 2 stages, so every W has a plan;
+    C sets the k-steps and a and b's shared memory (at most 16 KB)."""
+    first = wgmma_plan(m, n, sms, ksteps=conv3x3_ksteps(c))
+    win = window_plan(w)
     n64 = -(-n // 64) * 64
     bn = first.block_n
     while bn >= 64:
@@ -165,20 +197,9 @@ def conv3x3_plan(m: int, n: int, w: int, c: int, sms: int) -> Conv3x3Plan:
             if smem <= MAX_SMEM:
                 tiles = first.m_tiles * (n64 // bn)
                 return Conv3x3Plan(bn, first.m_tiles, n64 // bn, tiles, min(tiles, sms),
-                                   stages, boxes, box_rows, smem)
+                                   stages, *win, smem)
         bn //= 2
-    raise ValueError(f"conv3x3_affine_relu_stats: needs W <= {conv3x3_max_width(c)} at "
-                     f"Cin={c} (two windows of 128 + 2 W + 2 rows in a CTA's shared "
-                     f"memory), got W={w}")
-
-
-def conv3x3_max_width(c: int) -> int:
-    """The widest image the bf16 3x3 takes at C (a multiple of 8) input
-    channels: 64 columns, 2 ring stages and two windows within MAX_SMEM."""
-    w = 1
-    while conv3x3_smem(64, 2, w + 1, c) <= MAX_SMEM:
-        w += 1
-    return w
+    raise ValueError(f"conv3x3_plan: no plan at W={w}")
 
 
 def conv3x3_kernel_plan(m: int, n: int, w: int, c: int, device: torch.device) -> Conv3x3Plan:
@@ -187,7 +208,7 @@ def conv3x3_kernel_plan(m: int, n: int, w: int, c: int, device: torch.device) ->
     from .conv1x1_bn import sm_count
 
     lib = _conv3x3_lib()
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 11)()
     _build.check(lib, lib.bdv_conv3x3_stats_plan(m, n, w, c, sm_count(device), out),
                  "bdv_conv3x3_stats_plan")
     return Conv3x3Plan(*out)
@@ -234,47 +255,7 @@ def tf32_kernel_plan(m: int, n: int, device: torch.device) -> TF32Plan:
     return TF32Plan(*out)
 
 
-class TF32Window(NamedTuple):
-    """The 3xTF32 3x3's window of a tile and channel slice: ``boxes`` TMA
-    boxes of ``box_rows`` rows, box i from row m0 - W - 1 + i * box_step of
-    x as an (M, C) matrix; tap (dy, dx) of the tile's row r reads window row
-    (dy + 1) * band + 1 + r + dx."""
-
-    boxes: int
-    box_rows: int
-    box_step: int
-    band: int
-
-
-def tf32_window_plan(w: int) -> TF32Window:
-    """``tf32gemm::window_plan``: rows m0 - W - 1 .. m0 + 128 + W in the
-    fewest equal boxes of at most 256 rows (``window_plan``'s), the bands of
-    dy W rows apart; where that is more than three bands of 136 rows, those
-    bands, band dy + 1 from row m0 + dy W - 1, at any W."""
-    boxes, box_rows = window_plan(w)
-    if boxes * box_rows <= 3 * TF32_BAND_ROWS:
-        return TF32Window(boxes, box_rows, box_rows, w)
-    return TF32Window(3, TF32_BAND_ROWS, w, TF32_BAND_ROWS)
-
-
-class TF32Conv3x3Plan(NamedTuple):
-    """The 3xTF32 3x3's tiles (``Plan``'s fields), its ring stages, its
-    window (``TF32Window``'s fields) and its CTA's shared memory in bytes."""
-
-    block_n: int
-    m_tiles: int
-    n_tiles: int
-    tiles: int
-    grid: int
-    stages: int
-    boxes: int
-    box_rows: int
-    box_step: int
-    band: int
-    smem: int
-
-
-def tf32_conv3x3_plan(m: int, n: int, w: int, sms: int) -> TF32Conv3x3Plan:
+def tf32_conv3x3_plan(m: int, n: int, w: int, sms: int) -> Conv3x3Plan:
     """``tf32gemm::conv3x3_plan`` for M = NT*H*W pixels of width W and N
     channels out (a multiple of 4): the widest tile (128 where it divides N
     rounded up to 64; each column tile reloads the window and reruns its
@@ -283,7 +264,7 @@ def tf32_conv3x3_plan(m: int, n: int, w: int, sms: int) -> TF32Conv3x3Plan:
     every W has a plan."""
     if m <= 0 or n <= 0 or sms <= 0 or m > 2 ** 31 - BLOCK_M:
         raise ValueError(f"tf32_conv3x3_plan: M={m} N={n} SMs={sms}")
-    win = tf32_window_plan(w)
+    win = window_plan(w)
     m_tiles, n64 = -(-m // BLOCK_M), -(-n // 64) * 64
     bn = 128 if n64 % 128 == 0 else 64
     while bn >= 64:
@@ -291,13 +272,13 @@ def tf32_conv3x3_plan(m: int, n: int, w: int, sms: int) -> TF32Conv3x3Plan:
             smem = tf32_smem(bn, "im2col", stages, win.boxes, win.box_rows)
             if smem <= MAX_SMEM:
                 tiles = m_tiles * (n64 // bn)
-                return TF32Conv3x3Plan(bn, m_tiles, n64 // bn, tiles, min(tiles, sms), stages,
-                                       *win, smem)
+                return Conv3x3Plan(bn, m_tiles, n64 // bn, tiles, min(tiles, sms), stages,
+                                   *win, smem)
         bn //= 2
     raise ValueError(f"tf32_conv3x3_plan: no plan at W={w}")
 
 
-def tf32_conv3x3_kernel_plan(m: int, n: int, w: int, device: torch.device) -> TF32Conv3x3Plan:
+def tf32_conv3x3_kernel_plan(m: int, n: int, w: int, device: torch.device) -> Conv3x3Plan:
     """The plan the 3xTF32 3x3 makes on ``device``, as its C side reports it."""
     from .conv1x1_bn import _tf32_lib, sm_count
 
@@ -305,7 +286,7 @@ def tf32_conv3x3_kernel_plan(m: int, n: int, w: int, device: torch.device) -> TF
     out = (ctypes.c_int * 11)()
     _build.check(lib, lib.bdv_conv3x3_stats_tf32_plan(m, n, w, sm_count(device), out),
                  "bdv_conv3x3_stats_tf32_plan")
-    return TF32Conv3x3Plan(*out)
+    return Conv3x3Plan(*out)
 
 
 def r50_1x1_shapes(nt: int = 128, size: int = 56) -> Counter:

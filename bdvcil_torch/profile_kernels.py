@@ -25,7 +25,11 @@ kernels and the float32 block at layer1), its device ms summed over the same
 run of its path as ``chip_smoke.py``'s kernels line times: #1-#3 one train
 forward (#2 its backward) of batch 16, #4 and #5 one call a shape (#5
 forward and reverse), #6-#9b one layer1 block; and #8 in bf16 at W = 64
-(128 x 64 x 64, 64 -> 64: layer1 at a 256² input, two TMA boxes a window).
+(128 x 64 x 64, 64 -> 64: layer1 at a 256² input, two TMA boxes a window);
+#8 and the block at layer1 of a 1280 x 720 clip of 8 frames (8 x 180 x 320:
+the 3x3's window in three bands), bf16 and f32, and of a 1920 x 1080 one (8
+x 270 x 480) in bf16; #9b at 6144 channels (a and b in shared memory) and
+8192 (through the read-only cache) over layer1's 102.8M elements.
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
@@ -167,6 +171,8 @@ def kernel_table(rows):
         "#9 f32 fused_bottleneck_fwd": device_ms(of("fused_bottleneck_fwd", dtype="float32")[0]),
         "#8 bf16 W=64 conv3x3_affine_relu_stats": device_ms(of("conv3x3_affine_relu_stats",
                                                               hw=64)[0]),
+        **{f"{label} {r['kernel']} {r['shape']}": device_ms(r)
+           for r in rows if (label := r.get("wide"))},
     }
 
 
@@ -219,6 +225,56 @@ def f32_block_rows(gen, dev, reps):
     return rows
 
 
+# layer1 of a 1280 x 720 and of a 1920 x 1080 clip of 8 frames, (NT, H, W),
+# with the dtypes run at each; #9b's channel counts over layer1's elements
+HD_LAYER1 = {"720p": ((8, 180, 320), (torch.bfloat16, torch.float32)),
+             "1080p": ((8, 270, 480), (torch.bfloat16,))}
+WIDE_TAIL = {6144: (torch.bfloat16,), 8192: (torch.bfloat16, torch.float32)}
+
+
+def wide_rows(gen, dev, reps):
+    """#8 (64 -> 64) and the block (256 -> 64 -> 64 -> 256) at layer1 of a
+    720p and a 1080p clip; #9b at 6144 and 8192 channels. Each row's ``wide``
+    labels its ``device`` line."""
+    rows, c, cm = [], 256, 64
+    for res, ((nt, h, w_), dtypes) in HD_LAYER1.items():
+        for dtype in dtypes:
+            tag = "#8 f32" if dtype == torch.float32 else "#8 bf16"
+            y = torch.randn((nt, h, w_, cm), generator=gen, device=dev).to(dtype)
+            a = torch.rand((cm,), generator=gen, device=dev) + 0.5
+            b = torch.rand((cm,), generator=gen, device=dev) * 0.5 + 0.1
+            w2 = (torch.randn((3, 3, cm, cm), generator=gen, device=dev)
+                  / math.sqrt(9 * cm)).to(dtype)
+            rows.append(dict(kernel=conv.launch_name(bf.CONV2, dtype, dtype),
+                             shape=[nt, h, w_, cm, cm], wide=f"{tag} {res}",
+                             us=kernel_split(lambda: bf.conv3x3_affine_relu_stats(y, a, b, w2),
+                                             reps)))
+            del y, w2
+            x = torch.randn((nt, h, w_, c), generator=gen, device=dev).to(dtype)
+            p = bf.make_params(torch.Generator().manual_seed(0), c=c, cm=cm, dtype=dtype,
+                               device=dev)
+            rows.append(dict(kernel="fused_bottleneck_fwd", shape=[nt, h, w_, c, cm],
+                             wide=f"#9{tag[2:]} {res}",
+                             us=kernel_split(lambda: bf.fused_bottleneck_fwd(x, p), reps)))
+            del x, p
+            torch.cuda.empty_cache()
+    elements = 128 * 56 * 56 * 256
+    for ch, dtypes in WIDE_TAIL.items():
+        for dtype in dtypes:
+            shape = (elements // ch, ch)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            y = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            a = torch.rand((ch,), generator=gen, device=dev) + 0.5
+            b = torch.randn((ch,), generator=gen, device=dev) * 0.5
+            tag = "#9b f32" if dtype == torch.float32 else "#9b"
+            rows.append(dict(kernel=conv.launch_name(bf.EPILOGUE, dtype, dtype),
+                             shape=list(shape), wide=f"{tag} C={ch}",
+                             us=kernel_split(lambda: bf.affine_residual_relu(y, a, b, x), reps)))
+            del x, y
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
@@ -245,7 +301,7 @@ def main(argv=None) -> int:
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
         split = kernel_split(lambda: conv.conv1x1_with_stats_fwd(x, w), args.reps)
         rows.append(dict(kernel="conv1x1_with_stats", shape=[m, k, n], per_forward=count,
-                         plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
+                         plan=gemm_plan.kernel_plan(m, k, n, dev)._asdict(), us=split))
         # the float32 kernel: 3xTF32 on operands with all 24 bits of f32
         xf = torch.randn((m, 1, 1, k), generator=gen, device=dev)
         wf = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
@@ -272,7 +328,7 @@ def main(argv=None) -> int:
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
         split = kernel_split(lambda: bf.conv1x1_affine_relu_stats(x, a, b, w), args.reps)
         rows.append(dict(kernel="conv1x1_affine_relu_stats", shape=[m, k, n],
-                         plan=gemm_plan.kernel_plan(m, n, dev)._asdict(), us=split))
+                         plan=gemm_plan.kernel_plan(m, k, n, dev)._asdict(), us=split))
         del x, a, b, w
     for nt, h, w_, cm, _ in gemm_plan.R50_3X3_SHAPES:  # the block's tail and the block
         c = 4 * cm
@@ -313,6 +369,8 @@ def main(argv=None) -> int:
                                       tsm.shift_fwd(x, SEGMENTS, 8, reverse=True)), args.reps)
         rows.append(dict(kernel=tsm.SHIFT, shape=list(shape), dtype=str(dtype), us=split))
         del x
+    with torch.no_grad():
+        rows += wide_rows(gen, dev, args.reps)  # last: kernel_table reads earlier rows first
     for r in rows:
         parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(r["us"].items()))
         print(f"{r['kernel']} {r['shape']}: {parts}", flush=True)

@@ -270,7 +270,18 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      TF32 products; (e) #8 f32 at W = 112 (two boxes a window) and 200
      (three bands) and at Cin 12 and 3, both variant names, #7 f32 at ragged
      K and N, against their plain versions as (a), the 3x3's C plan equal to
-     ``gemm_plan.tf32_conv3x3_plan``.
+     ``gemm_plan.tf32_conv3x3_plan``; (f) #8 bf16 where its window is three
+     bands of 136 rows (W = 272, layer1 of a 1280 x 720 and of a 1920 x 1080
+     clip, W = 320 and 480) and at Cin 2048 (a deep product: its
+     accumulator in chunks), within one bf16 ulp, its C plan equal to
+     ``gemm_plan.conv3x3_plan``, timed at 720p (also f32) and 1080p; (g)
+     #9b at C = 6144 (a and b in shared memory) and past it (6152, 8192:
+     16-byte packs; 8193: per element; a and b through the read-only
+     cache), bf16 and f32, bit for bit; (h) ``fused_bottleneck_fwd`` at the
+     four stride-1 widths on an 8-frame 1280 x 720 clip (180 x 320 ... 23 x
+     40) in bf16 and f32 and at 1920 x 1080's layer1 in bf16 against its
+     plain composition (bf16 as phase 8's gate, f32 as (a)), the kernels
+     only, the layer1 blocks chained.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -551,7 +562,7 @@ def kernel_phase(dev, gen, paths, gemm_paths, tsm, conv):
                          library_ms=cuda_ms(library),
                          product_ms=cuda_ms(lambda: torch.matmul(x2, w)), bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=float(err.max()),
-                         bytes=nbytes, flops=flops, tile=tile_of(m, n),
+                         bytes=nbytes, flops=flops, tile=tile_of(m, k, n),
                          **({} if path is None else {"path": path})))
         # the autograd backward on the card against the JAX rule (_bwd4) in f32
         # on the kernel's own y: dy = bf16(gy + gs1 + 2 gs2 y), then dy @ w.T
@@ -650,13 +661,13 @@ def timed_row(kernel, shape, per_path, fn, plain, library, nbytes, flops, err, p
                 peak_flops=peak, tile=tile)
 
 
-def tile_of(m, n):
-    """The tile plan the wgmma kernels make for an (M, ., N) product on this
+def tile_of(m, k, n):
+    """The tile plan the wgmma kernels make for an (M, K, N) product on this
     card, as the C side reports it."""
     from bdvcil_torch.ops import gemm_plan
 
     dev = torch.device("cuda", 0)
-    p = gemm_plan.kernel_plan(m, n, dev)
+    p = gemm_plan.kernel_plan(m, k, n, dev)
     return dict(block=[gemm_plan.BLOCK_M, p.block_n], tiles=p.tiles, grid=p.grid,
                 waves=p.tiles / torch.cuda.get_device_properties(dev).multi_processor_count)
 
@@ -695,7 +706,7 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
             GEMM, (m, k, n), 1, lambda: conv.gemm_with_stats_fwd(x, w),
             lambda: conv.gemm_stats_plain(x, w), lambda: stats_of(torch.matmul(x, w)),
             2 * (m * k + m * n + k * n) + 2 * 4 * n, 2 * m * k * n, err,
-            product=lambda: torch.matmul(x, w), tile=tile_of(m, n)))
+            product=lambda: torch.matmul(x, w), tile=tile_of(m, k, n)))
         del x, w, gy, xi, wi, y, dy
 
     # #5 the plain shift, forward and reverse: bit-exact
@@ -723,18 +734,19 @@ def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
             (CONV1, (m, c, cm), lambda: bf.conv1x1_stats(x, w1),
              lambda: conv.gemm_stats_plain(x, w1),
              lambda: stats_of(torch.matmul(x, w1)), lambda: torch.matmul(x, w1),
-             2 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm, tile_of(m, cm)),
+             2 * (m * c + m * cm + c * cm) + 8 * cm, 2 * m * c * cm, tile_of(m, c, cm)),
             (CONV3, (m, cm, c), lambda: bf.conv1x1_affine_relu_stats(y, a, b, w3),
              lambda: bf.conv1x1_affine_relu_stats_plain(y, a, b, w3),
              lambda: stats_of(torch.matmul(y, w3)), lambda: torch.matmul(y, w3),
-             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, tile_of(m, c)),
+             2 * (m * cm + m * c + cm * c) + 8 * cm + 8 * c, 2 * m * cm * c, tile_of(m, cm, c)),
         ] + [
             (CONV2, (NT, hw, hw, cm, cm, variant),
              lambda v=variant: bf.conv3x3_affine_relu_stats(y, a, b, w2, variant=v),
              lambda v=variant: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2, variant=v),
              lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
              lambda: F.conv2d(y_nchw, w2_lib, padding=1),
-             2 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm, tile_of(m, cm))
+             2 * (2 * m * cm + 9 * cm * cm) + 16 * cm, 2 * m * 9 * cm * cm,
+             tile_of(m, 9 * cm, cm))
             for variant in ("taps", "im2col")
         ]
         for name, shape, fn, plain, library, product, nbytes, flops, tile in cases:
@@ -3587,7 +3599,7 @@ def stats_gemm_row(name, conv, gen, dev, mkn, dtype, per_path, path=None):
                     lambda: conv.gemm_stats_plain(x, w), lambda: stats_of(torch.matmul(x, w)),
                     (4 if f32 else 2) * (m * k + m * n + k * n) + 8 * n, 2 * m * k * n, err,
                     product=lambda: torch.matmul(x, w),
-                    tile=tf32_tile_of(m, n) if f32 else tile_of(m, n))
+                    tile=tf32_tile_of(m, n) if f32 else tile_of(m, k, n))
     if f32:
         tf32_bounds(row, m, k, n)
     row["dtype"] = str(dtype).removeprefix("torch.")
@@ -3819,6 +3831,47 @@ def block_core_checksums(dev, bf):
         out[f"{CONV2} {nt}x{h}x{w_}x{c}x{n}"] = checksum(
             *bf.conv3x3_affine_relu_stats(x, a, b, w))
     del x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+# The 3xTF32 kernel's (y, s1, s2) of #6, #7 and #8 f32 at the four R50 block
+# shapes on hashed operands (``f32_core_checksums``), as it computed them before
+# its 3x3 window plan became the one it shares with the bf16 3x3 (commit
+# a37a2ba), on an H100 SXM (132 SMs)
+F32_CORE_CHECKSUMS = {
+    "block_conv1x1_stats_f32 128x56x56x256/64": "980c08945639c254",
+    "conv1x1_affine_relu_stats_f32 128x56x56x256/64": "d120ca9f7319ace2",
+    "conv3x3_affine_relu_stats_f32 128x56x56x256/64": "2cd9c3264b302ceb",
+    "block_conv1x1_stats_f32 128x28x28x512/128": "af68ac2fd2633e1c",
+    "conv1x1_affine_relu_stats_f32 128x28x28x512/128": "8c39385ed817b3b9",
+    "conv3x3_affine_relu_stats_f32 128x28x28x512/128": "989450864b8e4fa3",
+    "block_conv1x1_stats_f32 128x14x14x1024/256": "fff7aeb4b4c2f7c9",
+    "conv1x1_affine_relu_stats_f32 128x14x14x1024/256": "66a9bc898f33b718",
+    "conv3x3_affine_relu_stats_f32 128x14x14x1024/256": "8f198b421d4a26f3",
+    "block_conv1x1_stats_f32 128x7x7x2048/512": "d4594a4801874897",
+    "conv1x1_affine_relu_stats_f32 128x7x7x2048/512": "187162b236c66e7c",
+    "conv3x3_affine_relu_stats_f32 128x7x7x2048/512": "97eaf0f0e728db16",
+}
+
+
+def f32_core_checksums(dev, bf):
+    """``checksum`` of the float32 #6 (C -> Cm), #7 (Cm -> C, the prologue)
+    and #8 (Cm -> Cm) at each stride-1 R50 width (128 frames) on ``hashed``
+    operands (a in [0.5, 1.5), b in [0, 0.5))."""
+    out = {}
+    for hw, c, cm in BLOCKS:
+        x = hashed((NT, hw, hw, c), 11, dev)
+        y = hashed((NT, hw, hw, cm), 12, dev)
+        a, b = hashed((cm,), 13, dev) * 0.5 + 1.0, hashed((cm,), 14, dev) * 0.25 + 0.25
+        w1 = hashed((c, cm), 15, dev) * c ** -0.5
+        w2 = hashed((3, 3, cm, cm), 16, dev) * (9 * cm) ** -0.5
+        w3 = hashed((cm, c), 17, dev) * cm ** -0.5
+        key = f"{NT}x{hw}x{hw}x{c}/{cm}"
+        out[f"{CONV1_F32} {key}"] = checksum(*bf.conv1x1_stats(x, w1))
+        out[f"{CONV3_F32} {key}"] = checksum(*bf.conv1x1_affine_relu_stats(y, a, b, w3))
+        out[f"{CONV2_F32} {key}"] = checksum(*bf.conv3x3_affine_relu_stats(y, a, b, w2))
+        del x, y, w1, w2, w3
     torch.cuda.empty_cache()
     return out
 
@@ -4082,6 +4135,183 @@ def bf16_block_shapes(dev, gen, seed, bf, conv):
     return dict(checks=checks, plans=plans, launches=launches, rows=rows)
 
 
+# (f)-(h): the block probe on a 1280 x 720 clip of 8 frames, TSM-R50's four
+# stride-1 widths at 180 x 320, 90 x 160, 45 x 80 and 23 x 40, and layer1 of a
+# 1920 x 1080 one (270 x 480): (NT, H, W, C, Cm)
+HD_BLOCKS = [(8, 180, 320, 256, 64), (8, 90, 160, 512, 128), (8, 45, 80, 1024, 256),
+             (8, 23, 40, 2048, 512)]
+FHD_BLOCK = (8, 270, 480, 256, 64)
+HD_BLOCK_ITERS = 10
+# #8 bf16 where its window is three bands, (NT, H, W, Cin, Cout): one column
+# past the widest image it once took (272), layer1 at 720p and 1080p, Cin 2048
+# one column past its old widest (248), and Cin 2056 (a and b a 64-channel
+# slice a window past the 2048 staged in shared memory)
+BANDED_3X3 = [(2, 12, 272, 64, 64), (8, 180, 320, 64, 64), (8, 270, 480, 64, 64),
+              (1, 5, 248, 2048, 512), (1, 3, 248, 2056, 64)]
+# #9b past the 6144 channels a and b take in shared memory (and 6144 itself,
+# the widest staged), rows of layer1's 102.8M elements: the pack form at
+# 6152 and 8192, the per-element form at 8193
+WIDE_TAIL = [6144, 6152, 8192, 8193]
+TAIL_ELEMENTS = NT * 56 * 56 * 256
+
+
+def conv3x3_row(name, bf, y, a, b, w2, err, tile, path, peak=PEAK_BF16_FLOPS):
+    """A timed #8 row (bf16 or f32) at y's shape, with F.conv2d + sums and the
+    bare convolution beside it (no prologue: less work than the kernel)."""
+    nt, h, w_, cin = y.shape
+    cout = w2.shape[-1]
+    m, esize = nt * h * w_, y.element_size()
+    y_nchw = y.permute(0, 3, 1, 2)
+    w2_lib = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    row = dict(timed_row(
+            name, (nt, h, w_, cin, cout, "taps"), 0,
+        lambda: bf.conv3x3_affine_relu_stats(y, a, b, w2),
+        lambda: bf.conv3x3_affine_relu_stats_plain(y, a, b, w2),
+        lambda: stats_of(F.conv2d(y_nchw, w2_lib, padding=1).permute(0, 2, 3, 1)),
+        esize * (m * cin + m * cout + 9 * cin * cout) + 8 * cin + 8 * cout,
+        2 * m * 9 * cin * cout, err, product=lambda: F.conv2d(y_nchw, w2_lib, padding=1),
+        tile=tile, peak=peak),
+        path=path, dtype=str(y.dtype).split(".")[-1])
+    return tf32_bounds(row, m, 9 * cin, cout) if y.dtype == torch.float32 else row
+
+
+def hd_blocks(dev, seed, bf, dtype, blocks):
+    """fused_bottleneck_fwd at each (NT, H, W, C, Cm) against its plain
+    composition (bf16: assert_block_close; f32: F32_BLOCK_TOL), its statistics
+    too; the first block's chained ms. Returns checks, forwards run, chain."""
+    from bdvcil_torch import bench_block_fused as bench
+
+    checks, forwards, chain = {}, 0, None
+    for nt, h, w_, c, cm in blocks:
+        key = f"{nt}x{h}x{w_}x{c}/{cm} {str(dtype).split('.')[-1]}"
+        x, p = bench.block_inputs(nt, (h, w_), c, cm, seed, dev, dtype)
+        out, stats = bf.fused_bottleneck_fwd(x, p)
+        forwards += 1
+        torch.cuda.synchronize()
+        ref, ref_stats = bf.fused_bottleneck_fwd_plain(x, p)
+        rtol, atol = ((F32_BLOCK_STATS_RTOL, F32_BLOCK_STATS_ATOL) if dtype == torch.float32
+                      else (1e-3, 1e-4))
+        for g, w in zip(stats, ref_stats):
+            for u, v in zip(g, w):
+                torch.testing.assert_close(u, v, rtol=rtol, atol=atol,
+                                           msg=lambda m: f"block {key} stats vs plain: {m}")
+        close = assert_f32_block_close if dtype == torch.float32 else assert_block_close
+        checks[key] = close(f"block {key} vs plain composition", out, ref, (x, p.b3))
+        del out, stats, ref, ref_stats
+        if chain is None:
+            chain = bench.time_blocks(x, p, HD_BLOCK_ITERS, dev)
+            forwards += 2 * (HD_BLOCK_ITERS + 2)  # two fused schedules, warm-up and chain
+        del x, p
+        torch.cuda.empty_cache()
+    return checks, forwards, chain
+
+
+def hd_phase(dev, gen, seed, smi, bf):
+    """Phase 20 (f)-(h): #8 bf16 where its window is three bands and #9b past
+    6144 channels against their plain versions; the block on a 720p clip at
+    the four stride-1 widths in bf16 and f32 and at 1080p's layer1 in bf16,
+    through the kernels only; timed rows at 720p's and 1080p's layer1."""
+    from bdvcil_torch.ops import _build, gemm_plan
+
+    t0 = time.perf_counter()
+    bf16, rows, checks, want = torch.bfloat16, [], {}, collections.Counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        for nt, h, w_, cin, cout in BANDED_3X3:  # (f) #8 bf16 in bands
+            key = f"{CONV2} {nt}x{h}x{w_}x{cin}/{cout}"
+            y = torch.randn((nt, h, w_, cin), generator=gen, device=dev).to(bf16)
+            a = torch.rand((cin,), generator=gen, device=dev) + 0.5
+            b = torch.rand((cin,), generator=gen, device=dev) * 0.5 + 0.1
+            w2 = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+                  / math.sqrt(9 * cin)).to(bf16)
+            plan = gemm_plan.conv3x3_kernel_plan(nt * h * w_, cout, w_, cin, dev)
+            want_plan = gemm_plan.conv3x3_plan(nt * h * w_, cout, w_, cin, sms)
+            if plan != want_plan or plan.band != 136:
+                raise AssertionError(f"{key}: the kernel plans {plan}, gemm_plan {want_plan}")
+            got = same_twice(key, lambda: bf.conv3x3_affine_relu_stats(y, a, b, w2))
+            err = assert_stats(key, got, bf.conv3x3_affine_relu_stats_plain(y, a, b, w2))
+            checks[key] = dict(max_abs_err=err, plan=plan._asdict())
+            want[CONV2] += 2
+            del got
+            if (nt, h, w_, cin, cout) == BANDED_3X3[3]:  # a deep product: chunked sums
+                tile = dict(block=[128, plan.block_n], tiles=plan.tiles, grid=plan.grid,
+                            waves=plan.tiles / sms, stages=plan.stages, boxes=plan.boxes)
+                rows.append(conv3x3_row(CONV2, bf, y, a, b, w2, err, tile, "deep"))
+                want[CONV2] += 12
+            if (nt, h, w_, cin, cout) in BANDED_3X3[1:3]:  # layer1 at 720p and 1080p: timed
+                tile = dict(block=[128, plan.block_n], tiles=plan.tiles, grid=plan.grid,
+                            waves=plan.tiles / sms, stages=plan.stages, boxes=plan.boxes,
+                            box_rows=plan.box_rows, band=plan.band)
+                path = "720p" if (nt, h, w_, cin, cout) == BANDED_3X3[1] else "1080p"
+                rows.append(conv3x3_row(CONV2, bf, y, a, b, w2, err, tile, path))
+                want[CONV2] += 12  # timed_row's warm-up and reps
+            if (nt, h, w_, cin, cout) == BANDED_3X3[1]:  # the same in f32, TF32 off
+                with no_tf32():
+                    yf, w2f = y.float(), w2.float()
+                    keyf = f"{CONV2_F32} {nt}x{h}x{w_}x{cin}/{cout}"
+                    got = same_twice(keyf, lambda: bf.conv3x3_affine_relu_stats(yf, a, b, w2f))
+                    errf = assert_f32_stats(keyf, got,
+                                            bf.conv3x3_affine_relu_stats_plain(yf, a, b, w2f))
+                    checks[keyf] = dict(max_abs_err=errf)
+                    rows.append(conv3x3_row(CONV2_F32, bf, yf, a, b, w2f, errf,
+                                            tf32_conv3x3_tile_of(nt * h * w_, cout, w_), "720p",
+                                            peak=PEAK_TF32_FLOPS))
+                    want[CONV2_F32] += 14
+                    del got, yf, w2f
+            del y, w2
+            torch.cuda.empty_cache()
+        for c in WIDE_TAIL:  # (g) #9b past the shared staging, bit for bit
+            for dtype, name in ((bf16, EPILOGUE), (torch.float32, EPILOGUE_F32)):
+                shape = (round(TAIL_ELEMENTS / c), c)
+                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                y3 = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+                y3[1, :8] = float("nan")
+                a3 = torch.rand((c,), generator=gen, device=dev) + 0.5
+                b3 = torch.randn((c,), generator=gen, device=dev) * 0.5
+                n_bad, err = bits_differ(bf.affine_residual_relu(y3, a3, b3, x),
+                                         bf.affine_residual_relu_plain(y3, a3, b3, x))
+                want[name] += 1
+                if n_bad:
+                    raise AssertionError(f"{name} {shape}: {n_bad} elements differ from the "
+                                         f"plain version (max abs err {err})")
+                checks[f"{name} {shape}"] = dict(max_abs_err=err)
+                if dtype == bf16 or c == 8192:
+                    m = shape[0]
+                    rows.append(dict(timed_row(
+                        name, list(shape), 0, lambda: bf.affine_residual_relu(y3, a3, b3, x),
+                        lambda: bf.affine_residual_relu_plain(y3, a3, b3, x), None,
+                        3 * m * c * x.element_size() + 2 * c * 4, 4 * m * c, err,
+                        peak=PEAK_F32_FLOPS), path="wide tail", dtype=str(dtype).split(".")[-1]))
+                    want[name] += 12
+                del x, y3
+        torch.cuda.empty_cache()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if launches != dict(want):
+            raise AssertionError(f"banded #8 and wide #9b: kernel launches {launches}, "
+                                 f"expected {dict(want)}")
+        # (h) the block at 720p in both dtypes and at 1080p's layer1 in bf16
+        _build.LAUNCHES.clear()
+        blocks, forwards = {}, collections.Counter()
+        for label, dtype, geoms in (("720p bf16", bf16, HD_BLOCKS),
+                                    ("1080p bf16", bf16, [FHD_BLOCK]),
+                                    ("720p f32", torch.float32, HD_BLOCKS)):
+            with no_tf32():
+                found, n, chain = hd_blocks(dev, seed, bf, dtype, geoms)
+            checks.update(found)
+            forwards[dtype] += n
+            blocks[label] = {f"{k}_ms_per_block": v for k, v in chain.items()}
+    hd_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    fb, ff = forwards[bf16], forwards[torch.float32]
+    want_blocks = {CONV1: fb, CONV2: fb, CONV3: fb, EPILOGUE: fb, FINALIZE: 3 * (fb + ff),
+                   CONV1_F32: ff, CONV2_F32: ff, CONV3_F32: ff, EPILOGUE_F32: ff}
+    if hd_launches != want_blocks:
+        raise AssertionError(f"720p / 1080p blocks: kernel launches {hd_launches}, expected "
+                             f"{want_blocks} (the kernels only, no plain fallback)")
+    return dict(checks=checks, launches=launches, block_launches=hd_launches, blocks=blocks,
+                iters=HD_BLOCK_ITERS, rows=rows, phase_s=time.perf_counter() - t0)
+
+
 def block_dtype_phase(dev, gen, seed, smi, bf, conv):
     """Phase 20: the block probe in float32 at the four stride-1 widths, in
     bf16 at the JAX tests' geometries, wide images and padded channels, the
@@ -4122,15 +4352,37 @@ def block_dtype_phase(dev, gen, seed, smi, bf, conv):
                       f"{v['box_rows']} rows" for k, v in out["bf16"]["plans"].items())
           + f"; launches {out['bf16']['launches']} [{smi}]", flush=True)
     checksums = block_core_checksums(dev, bf)
+    f32_checksums = f32_core_checksums(dev, bf)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if sms == BF16_CORE_SMS and checksums != BLOCK_CORE_CHECKSUMS:
-        bad = {k: (v, BLOCK_CORE_CHECKSUMS.get(k)) for k, v in checksums.items()
-               if v != BLOCK_CORE_CHECKSUMS.get(k)}
-        raise AssertionError(f"the bf16 core's #7 / #8 outputs changed at the R50 shapes: {bad}")
-    out.update(checksums=checksums, checksums_held=sms == BF16_CORE_SMS)
-    print(f"block dtypes (c): the bf16 core's #7 and #8 outputs at the R50 shapes "
+    for sums, recorded, what in ((checksums, BLOCK_CORE_CHECKSUMS, "the bf16 core's #7 / #8"),
+                                 (f32_checksums, F32_CORE_CHECKSUMS,
+                                  "the 3xTF32 kernel's #6 / #7 / #8")):
+        if sms == BF16_CORE_SMS and sums != recorded:
+            bad = {k: (v, recorded.get(k)) for k, v in sums.items() if v != recorded.get(k)}
+            raise AssertionError(f"{what} outputs changed at the R50 shapes: {bad}")
+    out.update(checksums=checksums, f32_checksums=f32_checksums,
+               checksums_held=sms == BF16_CORE_SMS)
+    print(f"block dtypes (c): the bf16 core's #7 and #8 outputs and the 3xTF32 kernel's #6, "
+          f"#7 and #8 at the R50 shapes "
           + ("equal the recorded ones bit for bit" if out["checksums_held"] else
              f"not held ({sms} SMs, recorded at {BF16_CORE_SMS})") + f" [{smi}]", flush=True)
+    out["hd"] = hd_phase(dev, gen, seed, smi, bf)
+    rows += out["hd"].pop("rows")
+    hd = out["hd"]
+    print(f"block dtypes (f): #8 bf16 in three bands of 136 rows at "
+          + ", ".join(k.split(" ", 1)[1] for k in hd["checks"] if k.startswith(CONV2 + " "))
+          + f" within one bf16 ulp of the plain version, the C plan its Python copy's (max abs "
+          f"err {max(v['max_abs_err'] for k, v in hd['checks'].items() if k.startswith(CONV2)):.3g}"
+          f"); (g) #9b bit for bit at C = {', '.join(map(str, WIDE_TAIL))} in bf16 and f32; "
+          f"launches {hd['launches']} [{smi}]", flush=True)
+    print(f"block dtypes (h): fused_bottleneck_fwd on a 1280x720 clip of 8 frames at the four "
+          f"stride-1 widths in bf16 and f32 (TF32 off) and at 1920x1080's layer1 in bf16, "
+          f"against the plain composition (bf16: 2e-2 of the terms but 1e-5 of the outputs, "
+          f"f32: {F32_BLOCK_TOL}), the kernels only (launches {hd['block_launches']}); layer1 "
+          f"chained ms a block: "
+          + "; ".join(f"{k} fused {v['fused_taps_ms_per_block']:.4f}, library "
+                      f"{v['plain_ms_per_block']:.4f}" for k, v in hd["blocks"].items())
+          + f"; (f)-(h) {hd['phase_s']:.1f} s [{smi}]", flush=True)
     out["launches"] = {k: blk["launches"][k] for k in (CONV1_F32, CONV2_F32, CONV3_F32,
                                                        EPILOGUE_F32)}
     out["rows"] = rows

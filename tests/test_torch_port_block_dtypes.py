@@ -4,8 +4,9 @@ The JAX package's block ops (``bdvcil_tpu/ops/block_fused.py``) take any
 dtype and any (NT, H, W, C): their kernels cast to ``x_ref.dtype`` and their
 BlockSpecs take any h, w, k and n. The port's run float32 on the 3xTF32
 kernel (conv1, conv3 and the 3x3, any width below 65536), and bfloat16 on the
-wgmma core, at any channel count (zero-padded for the TMA) and any width up to
-``gemm_plan.conv3x3_max_width``. Here the ops run their plain versions, and
+wgmma core, at any channel count (zero-padded for the TMA) and any width below
+65536; the block's tail at any channel count. Here the ops run their plain
+versions, and
 these tests hold them and what surrounds the kernels against the JAX
 package, with the same numpy inputs (JAX's Pallas kernels in interpret
 mode):
@@ -27,12 +28,18 @@ mode):
     sums of its own rounded y rtol 1e-5, atol 1e-4, as
     tests/test_torch_port_stats_gemm_dtypes.py holds the bf16 GEMMs (a y an
     ulp apart moves the sums over 8192 rows by up to 1e-2);
+  * past the bf16 3x3's old widest image (W = 271), where both 3x3 kernels
+    read their window in three bands: the 3x3 at (1, 3, 300, 8) and the
+    block at (2, 3, 320, 32 -> 8), bf16 and f32, at the tolerances above
+    (the bf16 block: tests/test_torch_port_block_fused.py's); the block at
+    C = 6400 > 6144 (once the tail kernels' most channels) in both dtypes,
+    its tail bit for bit against JAX's expression (block_fused.py:289-292);
   * the wrappers' channel padding (x with zero channels, a = b = 0 there, w
     with zero rows in every tap and zero columns) on the plain versions:
     y bit for bit the unpadded result's, the statistics rtol 1e-6 (the CPU
     sums a padded row in another order);
-  * the 3x3's shape rule (``gemm_plan.conv3x3_plan``): window boxes, stages,
-    tile width, the widest image;
+  * the 3x3's shape rule (``gemm_plan.conv3x3_plan``): window boxes and
+    bands, stages, tile width, its shared memory worked by hand;
   * ``launch_name`` routing of the four float32 launch names.
 """
 
@@ -48,6 +55,8 @@ from bdvcil_torch.ops import _build, gemm_plan
 from bdvcil_torch.ops import block_fused as pbf
 from bdvcil_torch.ops import conv1x1_bn as port_conv
 from bdvcil_torch.ops import tf32
+from tests.test_torch_port_block_epilogue import _jax_last_pass
+from tests.test_torch_port_block_fused import _check_block
 
 VARIANTS = ["taps", "im2col"]
 # (seed, NT, H = W, C, Cm): tests/test_block_fused.py's two geometries and W > 63
@@ -102,14 +111,15 @@ def _check_bf16(jout, pout):
 
 def _stats_op_case(op, seed, nt, hw, k, n, dtype):
     """The op's inputs as numpy (f32 values exact in ``dtype``), and JAX's and
-    the port's outputs."""
+    the port's outputs; ``hw`` is H = W, or (H, W)."""
     rng = np.random.default_rng(seed)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    h, w_ = hw if isinstance(hw, tuple) else (hw, hw)
 
     def exact(a):
         return _np(jnp.asarray(a, jdt))
 
-    x = exact(rng.standard_normal((nt, hw, hw, k)))
+    x = exact(rng.standard_normal((nt, h, w_, k)))
     a, b = _affine(rng, k)
     three = op.startswith("conv3x3")
     wshape, fan_in = ((3, 3, k, n), 9 * k) if three else ((k, n), k)
@@ -260,36 +270,131 @@ def test_conv3x3_plan_takes_wide_images_in_boxes():
         assert 2 * rows >= 128 + 2 * w + 2 and rows % 8 == 0 and rows <= gemm_plan.MAX_BOX_ROWS
         assert (plan.block_n, plan.stages) == (64, 6) and plan.smem <= gemm_plan.MAX_SMEM
     for w in range(1, 64):  # one box of exactly the window up to W = 63
-        assert gemm_plan.window_plan(w) == (1, 128 + 2 * w + 2)
+        assert gemm_plan.window_plan(w)[:2] == (1, 128 + 2 * w + 2)
+
+
+# the widest image the bf16 3x3 took at each Cin before its window came in
+# bands (64 columns, 2 stages, two windows of boxes and a, b over C in a CTA)
+OLD_WIDEST = {8: 271, 64: 271, 512: 271, 2048: 247}
 
 
 @pytest.mark.parametrize("c", [8, 64, 512, 2048])
 def test_conv3x3_plan_gives_way_before_it_refuses(c):
     """Past the widest ring the plan takes fewer stages, then a narrower
-    tile, and refuses only where 64 columns and 2 stages do not fit: at
-    ``conv3x3_max_width(c)`` it plans, one column wider it raises naming it."""
-    widest = gemm_plan.conv3x3_max_width(c)
-    assert 247 <= widest <= 271
-    m = 2 * widest * widest
-    plan = gemm_plan.conv3x3_plan(m, 512, widest, c, 132)
-    assert plan.block_n == 64 and plan.stages >= 2 and plan.smem <= gemm_plan.MAX_SMEM
-    assert gemm_plan.conv3x3_smem(64, 2, widest + 1, c) > gemm_plan.MAX_SMEM
-    with pytest.raises(ValueError, match=f"W <= {widest}"):
-        gemm_plan.conv3x3_plan(m, 512, widest + 1, c, 132)
+    tile; it no longer refuses: one column past the image it once refused
+    at this Cin, and at W = 4096, the window is three bands of 136 rows and
+    the 1x1's 256-wide tile keeps 2 of its 3 stages at Cout 512, or, at Cin
+    2048 (9 x 32 k-steps: a deep product, two accumulator arrays), the
+    128-wide tile its 4; Cout = Cin keeps the 1x1's width (a and b take at
+    most 16 KB of shared memory)."""
+    ksteps = gemm_plan.conv3x3_ksteps(c)
+    bn, stages = (128, 4) if ksteps > gemm_plan.WHOLE_STEPS else (256, 2)
+    assert (bn == 128) == (c == 2048)
+    for w in (OLD_WIDEST[c] + 1, 4096):
+        m = 2 * w * w
+        plan = gemm_plan.conv3x3_plan(m, 512, w, c, 132)
+        assert (plan.boxes, plan.box_rows, plan.box_step, plan.band) == (3, 136, w, 136)
+        assert gemm_plan.wgmma_plan(m, 512, 132, ksteps=ksteps).block_n == plan.block_n == bn
+        assert plan.stages == stages and plan.smem <= gemm_plan.MAX_SMEM
+        assert (stages == gemm_plan.CONV3X3_MAX_STAGES[bn]
+                or gemm_plan.conv3x3_smem(bn, stages + 1, w, c) > gemm_plan.MAX_SMEM)
+        plan = gemm_plan.conv3x3_plan(m, c, w, c, 132)  # Cout = Cin: the 1x1's width too
+        assert plan.block_n == gemm_plan.wgmma_plan(m, c, 132, ksteps=ksteps).block_n
     # W = 96 at Cout 512: the 1x1's 256-wide tile keeps 2 of its 3 stages
-    assert gemm_plan.wgmma_plan(128 * 96 * 96, 512, 132).block_n == 256
+    assert gemm_plan.wgmma_plan(128 * 96 * 96, 512, 132, ksteps=ksteps).block_n == bn
     plan = gemm_plan.conv3x3_plan(128 * 96 * 96, 512, 96, c, 132)
-    assert (plan.block_n, plan.stages, plan.boxes) == (256, 2, 2)
-    # W = 200: two stages of 256 columns do not fit beside three-box windows
-    assert gemm_plan.conv3x3_plan(2 * 200 * 200, 512, 200, c, 132).block_n < 256
+    assert (plan.block_n, plan.stages, plan.boxes) == (bn, stages, 2)
 
 
 def test_conv3x3_smem_is_the_kernel_layout_at_layer1():
-    """sm90::Layout<64, kIm2col> at W = 56, C = 64, 6 stages, one box of 242
-    rows, worked by hand: 6 x 8192 (w) + 2 x 16384 (A) + 2 x 31744 (windows)
-    + 4096 (sums) + 128 (barriers) + 512 (a, b) + 1024 (slack)."""
+    """sm90::Layout<64, kIm2col> at W = 56, 6 stages, one box of 242 rows,
+    worked by hand: 6 x 8192 (w) + 2 x 16384 (A) + 2 x 31744 (windows) +
+    4096 (sums) + 128 (barriers) + 512 (a, b) + 1024 (slack); at a banded
+    W two windows of 3 x 136 rows (52,224 bytes each) in place of the boxes;
+    past 2048 channels a and b a 64-channel slice for each window (1024)."""
     assert gemm_plan.conv3x3_smem(64, 6, 56, 64) == (6 * 8192 + 2 * 16384 + 2 * 31744 + 4096
                                                      + 128 + 512 + 1024)
+    assert gemm_plan.conv3x3_smem(64, 6, 320, 64) == (6 * 8192 + 2 * 16384 + 2 * 52224 + 4096
+                                                      + 128 + 512 + 1024)
+    assert gemm_plan.conv3x3_smem(64, 6, 56, 2048) - gemm_plan.conv3x3_smem(64, 6, 56, 64) == \
+        2 * 4 * (2048 - 64)
+    assert gemm_plan.conv3x3_smem(64, 6, 56, 2056) == gemm_plan.conv3x3_smem(64, 6, 56, 128)
+
+
+# past the bf16 3x3's old widest image: (seed, NT, H, W, K, N) of the op, and
+# (seed, NT, H, W, C, Cm) of the block
+BANDED_3X3 = (11, 1, 3, 300, 8, 8)
+BANDED_BLOCK = (12, 2, 3, 320, 32, 8)
+WIDE_TAIL_BLOCK = (13, 2, 2, 2, 6400, 16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("op", ["conv3x3", "conv3x3_im2col"])
+def test_3x3_past_the_old_widest_image_matches_jax_interpret(op, dtype):
+    seed, nt, h, w_, k, n = BANDED_3X3
+    check = _check_bf16 if dtype == "bfloat16" else _check_f32
+    check(*_stats_op_case(op, seed, nt, (h, w_), k, n, dtype))
+
+
+def _block_at(geometry, dtype):
+    """JAX's fused block (interpret mode) and the port's on the CPU, from one
+    seed's parameters and numpy input."""
+    seed, nt, h, w_, c, cm = geometry
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jp = jbf.make_params(jax.random.PRNGKey(seed), c=c, cm=cm, dtype=jdt)
+    pp = block_params_from_jax({k: np.asarray(v) for k, v in jp._asdict().items()}, dtype=tdt)
+    x = _np(jnp.asarray(np.random.default_rng(seed).standard_normal((nt, h, w_, c)), jdt))
+    _build.LAUNCHES.clear()
+    pout = pbf.fused_bottleneck_fwd(torch.from_numpy(x).to(tdt), pp)
+    assert sum(_build.LAUNCHES.values()) == 0
+    jout = jbf.fused_bottleneck_fwd(jnp.asarray(x, jdt), jp, interpret=True)
+    return x, jp, pout, jout
+
+
+def _check_block_f32(x, jp, pout, jout):
+    (p_out, p_stats), (j_out, j_stats) = pout, jout
+    ref = _np(j_out)
+    assert p_out.dtype == torch.float32 and p_out.shape == ref.shape
+    scale = 1 + np.abs(ref) + np.abs(x) + np.abs(np.asarray(jp.b3)).reshape(-1)
+    assert np.all(np.abs(p_out.numpy() - ref) <= F32_BLOCK_TOL * scale)
+    for (pm, pv), (jm, jv) in zip(p_stats, j_stats):
+        for p, j in ((pm, jm), (pv, jv)):
+            np.testing.assert_allclose(p.numpy(), _np(j), rtol=F32_BLOCK_STATS_RTOL,
+                                       atol=F32_BLOCK_STATS_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("geometry", [BANDED_BLOCK, WIDE_TAIL_BLOCK],
+                         ids=["2x3x320x32/8", "2x2x2x6400/16"])
+def test_block_past_the_old_limits_matches_jax_fused_block(geometry, dtype):
+    """The block where the bf16 3x3 once refused (W = 320) and where the tail
+    once refused (C = 6400): bf16 at tests/test_torch_port_block_fused.py's
+    tolerances, f32 at F32_BLOCK_TOL."""
+    x, jp, pout, jout = _block_at(geometry, dtype)
+    if dtype == "bfloat16":
+        _check_block(pout, jout)
+    else:
+        _check_block_f32(x, jp, pout, jout)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tail_past_6144_channels_is_jax_expression(dtype):
+    """affine_residual_relu at C = 6400 (and 8193: off the 16-byte packs)
+    against JAX's last pass (block_fused.py:289-292) run op by op, bit for
+    bit, NaN kept."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    for c in (6400, 8193):
+        rng = np.random.default_rng(c)
+        y = np.array(_np(jnp.asarray(rng.standard_normal((3, c)) * 3, jdt)))
+        x = _np(jnp.asarray(rng.standard_normal((3, c)), jdt))
+        y[1, :8] = np.nan
+        a = (rng.random(c) + 0.5).astype(np.float32)
+        b = (rng.standard_normal(c) * 0.5).astype(np.float32)
+        got = pbf.affine_residual_relu(torch.from_numpy(y).to(tdt), torch.from_numpy(a),
+                                       torch.from_numpy(b), torch.from_numpy(x).to(tdt))
+        want = _np(_jax_last_pass(jnp.asarray(y, jdt), jnp.asarray(a), jnp.asarray(b),
+                                  jnp.asarray(x, jdt)))
+        np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 @pytest.mark.parametrize("name,f32", [(pbf.CONV1, pbf.CONV1_F32), (pbf.CONV2, pbf.CONV2_F32),

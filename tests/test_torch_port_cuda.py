@@ -713,10 +713,10 @@ def test_block_tail_kernels_bit_exact_at_r50_widths(cuda, geometry):
 
 
 def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    """float16, two dtypes, other shapes, non-contiguous operands, vectors that
-    are not contiguous f32 (C,) on the operand's device, and C past the 6144
-    channels a and b take in shared memory; any other C and alignment are
-    taken (the per-element forms), and a refused call counts no launch."""
+    """float16, two dtypes, other shapes, non-contiguous operands and vectors
+    that are not contiguous f32 (C,) on the operand's device; any C (past the
+    6144 channels a and b take in shared memory too) and alignment are taken
+    (the per-element forms), and a refused call counts no launch."""
     bf16 = torch.bfloat16
     y = torch.zeros((2, 3, 3, 16), device=cuda, dtype=bf16)
     v = torch.ones((16,), device=cuda)
@@ -733,10 +733,6 @@ def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_bf.affine_residual_relu(y.transpose(1, 2), v, v, y)
     with pytest.raises(ValueError):
         port_bf.affine_residual_relu(y, v.cpu(), v, y)
-    with pytest.raises(ValueError, match="C <="):
-        wide = torch.zeros((1, 6152), device=cuda, dtype=bf16)
-        av = torch.ones((6152,), device=cuda)
-        port_bf.affine_residual_relu(wide, av, av, wide)
     with pytest.raises(ValueError, match="float32"):
         port_bf.bn_finalize(v.double(), v, v, v, 4.0, 1e-5)
     with pytest.raises(ValueError):
@@ -746,6 +742,11 @@ def test_block_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         port_bf.bn_finalize(v, torch.ones((32,), device=cuda)[::2], v, v, 4.0, 1e-5)
     assert sum(_build.LAUNCHES.values()) == 0
+    wide = torch.ones((1, 6152), device=cuda, dtype=bf16)  # once refused: C > 6144
+    av = torch.ones((6152,), device=cuda)
+    out = port_bf.affine_residual_relu(wide, av, av, wide)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.EPILOGUE: 1} and bool((out == 3).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -773,11 +774,110 @@ def test_block_tail_kernels_take_any_channel_count(cuda, c, dtype):
                                                          1e-5))
 
 
+# past the 6144 channels a and b take in shared memory: a whole number of
+# 16-byte packs in both dtypes (6152), and none (8193)
+WIDE_TAIL_C = [6152, 8193]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", WIDE_TAIL_C)
+def test_block_tail_kernels_past_6144_channels_bit_exact(cuda, c, dtype):
+    """#9b with a and b read through the read-only cache (C past the shared
+    staging), in its pack form (6152) and its per-element form (8193), bit
+    for bit against the plain version, NaN kept."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn((37, c), generator=g, device=cuda).to(dtype)
+    y = (torch.randn((37, c), generator=g, device=cuda) * 3).to(dtype)
+    y[1, :8] = float("nan")
+    a = torch.rand((c,), generator=g, device=cuda) + 0.5
+    b = torch.randn((c,), generator=g, device=cuda) * 0.5
+    _build.LAUNCHES.clear()
+    out = port_bf.affine_residual_relu(y, a, b, x)
+    torch.cuda.synchronize()
+    name = port_bf.EPILOGUE_F32 if dtype == torch.float32 else port_bf.EPILOGUE
+    assert _build.LAUNCHES == {name: 1}
+    assert _same_bits(out, port_bf.affine_residual_relu_plain(y, a, b, x))
+    assert bool(out[1, :8].isnan().all())
+
+
+# #8 bf16 where its window is three bands, (NT, H, W, Cin, Cout): layer1 of a
+# 720p clip (W = 320) and of a 1080p one (W = 480), one column past the old
+# widest image (272), Cin 2048 one past its old widest (248), and Cin 2056
+# (a and b a 64-channel slice a window, the last slice 8 channels)
+BANDED_3X3 = [(2, 12, 272, 64, 64), (8, 180, 320, 64, 64), (2, 270, 480, 64, 64),
+              (1, 5, 248, 2048, 512), (1, 3, 248, 2056, 64)]
+
+
+@pytest.mark.parametrize("geometry", BANDED_3X3)
+def test_wgmma_conv3x3_in_bands_matches_plain(cuda, geometry):
+    """#8 bf16 at wide images against its plain version (one bf16 ulp, the
+    statistics rtol 1e-3), b > 0 on every channel (a halo of relu(b) would
+    show), the same bits on a second run; its C plan three bands of 136 rows,
+    equal to ``gemm_plan.conv3x3_plan``."""
+    nt, h, w_, cin, cout = geometry
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn((nt, h, w_, cin), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.rand((cin,), generator=g, device=cuda) + 0.5
+    b = torch.rand((cin,), generator=g, device=cuda) * 0.5 + 0.1
+    w2 = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+          * (9 * cin) ** -0.5).to(torch.bfloat16)
+    plan = gemm_plan.conv3x3_kernel_plan(nt * h * w_, cout, w_, cin, cuda)
+    assert plan == gemm_plan.conv3x3_plan(nt * h * w_, cout, w_, cin, port_conv.sm_count(cuda))
+    assert (plan.boxes, plan.box_rows, plan.box_step, plan.band) == (3, 136, w_, 136)
+    _build.LAUNCHES.clear()
+    got = port_bf.conv3x3_affine_relu_stats(x, a, b, w2)
+    again = port_bf.conv3x3_affine_relu_stats(x, a, b, w2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV2: 2}
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _check_stats(got, port_bf.conv3x3_affine_relu_stats_plain(x, a, b, w2))
+
+
+@pytest.mark.parametrize("k", [4672, 18432, 36864])
+def test_wgmma_deep_products_within_one_ulp(cuda, k):
+    """#3 and #7 (the 1x1 forms) past K = 4608, where the core adds chunks of
+    8 k-steps in IEEE f32: y within one bf16 ulp of the plain version and
+    within 0.6 of one of the float64 product (the tensor cores' own sum read
+    0.78 ulps at K = 4608, 1.8 at 18432 and 3.8 at 36864 on an H100,
+    ``python -m bdvcil_torch.bf16_witness``; 0.5 is the rounding), the same
+    bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.rand((4096, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, 512), generator=g, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    a = torch.ones((k,), device=cuda)
+    _build.LAUNCHES.clear()
+    got = port_conv.gemm_with_stats_fwd(x, w)
+    again = port_conv.gemm_with_stats_fwd(x, w)
+    got3 = port_bf.conv1x1_affine_relu_stats(x, a, 0 * a, w)  # relu(x) = x: x >= 0
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_conv.GEMM_KERNEL: 2, port_bf.CONV3: 1}
+    assert all(torch.equal(u, v) for u, v in zip(got, again)) and torch.equal(got[0], got3[0])
+    _check_stats(got, port_conv.gemm_stats_plain(x, w))
+    ref = x.double() @ w.double()
+    ulp = _bf16_ulp(ref.float()).double()
+    assert float(((got[0].double() - ref).abs() / ulp).max()) <= 0.6
+
+
+def test_conv3x3_plans_are_the_kernels_at_any_width(cuda):
+    """Both 3x3s' C plans equal their Python copies from one box to the
+    widest W, at Cout 64 and 512."""
+    sms = port_conv.sm_count(cuda)
+    for w_ in (7, 63, 64, 135, 136, 272, 320, 480, 4096, 65535):
+        for n in (64, 512):
+            m = 2 * 3 * w_
+            for c in (64, 2048):
+                assert gemm_plan.conv3x3_kernel_plan(m, n, w_, c, cuda) == \
+                    gemm_plan.conv3x3_plan(m, n, w_, c, sms)
+            assert gemm_plan.tf32_conv3x3_kernel_plan(m, n, w_, cuda) == \
+                gemm_plan.tf32_conv3x3_plan(m, n, w_, sms)
+
+
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """The block's stats ops take float32 and bfloat16 at any channel count,
-    the bf16 3x3 any width up to ``gemm_plan.conv3x3_max_width``; they refuse
-    float16, two dtypes, a wider image (naming the widest), vectors on
-    another device and non-contiguous operands, before a launch."""
+    both 3x3s any W < 65536 and H < 32768 (``pixel_of``'s packing); they
+    refuse float16, two dtypes, W = 65536 or H = 32768, vectors on another
+    device and non-contiguous operands, before a launch; the bf16 3x3
+    launches one column past the image it once refused (W = 272)."""
     bf16 = torch.bfloat16
     y = torch.zeros((2, 4, 4, 32), device=cuda, dtype=bf16)
     a = torch.ones((32,), device=cuda)
@@ -791,11 +891,12 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):  # two dtypes
         port_bf.conv1x1_affine_relu_stats(y.float(), a, a, torch.zeros((32, 64), device=cuda,
                                                                         dtype=bf16))
-    widest = gemm_plan.conv3x3_max_width(8)
-    with pytest.raises(ValueError, match=f"W <= {widest}"):
-        port_bf.conv3x3_affine_relu_stats(
-            torch.zeros((1, 1, widest + 1, 8), device=cuda, dtype=bf16), a[:8], a[:8],
-            torch.zeros((3, 3, 8, 8), device=cuda, dtype=bf16))
+    for dtype in (bf16, torch.float32):
+        for shape in ((1, 1, 1 << 16, 8), (1, 1 << 15, 1, 8)):
+            with pytest.raises(ValueError, match="W < 65536"):
+                port_bf.conv3x3_affine_relu_stats(
+                    torch.zeros(shape, device=cuda, dtype=dtype), a[:8], a[:8],
+                    torch.zeros((3, 3, 8, 8), device=cuda, dtype=dtype))
     with pytest.raises(ValueError):  # a on the wrong device
         port_bf.conv1x1_affine_relu_stats(y, a.cpu(), a, torch.zeros((32, 64), device=cuda,
                                                                    dtype=bf16))
@@ -807,6 +908,13 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         port_tsm.shift_fwd(torch.zeros((2, 2, 2, 16), device=cuda, dtype=torch.float16), 2)
     with pytest.raises(ValueError):  # N*T not a multiple of T
         port_tsm.shift_fwd(torch.zeros((3, 2, 2, 16), device=cuda), 2)
+    _build.LAUNCHES.clear()
+    x = torch.ones((1, 2, 272, 8), device=cuda, dtype=bf16)
+    y, s1, _ = port_bf.conv3x3_affine_relu_stats(x, a[:8], 0 * a[:8],
+                                                 torch.ones((3, 3, 8, 8), device=cuda, dtype=bf16))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {port_bf.CONV2: 1}
+    assert float(y[0, 0, 0, 0]) == 4 * 8 and float(y[0, 1, 100, 0]) == 6 * 8
 
 
 # (NT, H = W, C, Cm): the JAX tests' geometries, one R50-like, a ragged one
@@ -976,8 +1084,8 @@ def test_wgmma_statistics_repeat_bit_for_bit_per_tile_width(cuda, bn):
     statistics, bit for bit (no float atomics)."""
     g = torch.Generator(device=cuda).manual_seed(9)
     m, k, nt, hw = 50_000, 256, 16, 56
-    assert gemm_plan.kernel_plan(m, bn, cuda).block_n == bn
-    assert gemm_plan.kernel_plan(nt * hw * hw, bn, cuda).block_n == bn
+    assert gemm_plan.kernel_plan(m, k, bn, cuda).block_n == bn
+    assert gemm_plan.kernel_plan(nt * hw * hw, 9 * 64, bn, cuda).block_n == bn
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
     w = (torch.randn((k, bn), generator=g, device=cuda) * 0.05).to(torch.bfloat16)
     xi = torch.randn((nt, hw, hw, 64), generator=g, device=cuda).to(torch.bfloat16)
@@ -1000,21 +1108,23 @@ def test_wgmma_plan_covers_every_shape(cuda):
     once, at most one CTA per SM; and the picker's trade of waves against
     width."""
     sms = port_conv.sm_count(cuda)
-    mn = [(m, n) for m, _, n in WGMMA_1X1_SHAPES + list(gemm_plan.R50_1X1_AFFINE_SHAPES)
-          + RAGGED_1X1] + [(nt * h * w_, n) for nt, h, w_, _, n in gemm_plan.R50_3X3_SHAPES] + [
-        (1, 64), (129, 320), (7, 8)]
-    for m, n in mn:
-        p = gemm_plan.kernel_plan(m, n, cuda)
+    mkn = (WGMMA_1X1_SHAPES + list(gemm_plan.R50_1X1_AFFINE_SHAPES) + RAGGED_1X1
+           + [(nt * h * w_, 9 * c, n) for nt, h, w_, c, n in gemm_plan.R50_3X3_SHAPES]
+           + [(1, 64, 64), (129, 8, 320), (7, 8, 8), (6272, 18432, 512), (300, 4616, 256)])
+    for m, k, n in mkn:
+        p = gemm_plan.kernel_plan(m, k, n, cuda)
+        assert p == gemm_plan.wgmma_plan(m, n, sms, ksteps=-(-k // 64))
         assert p.block_n in (64, 128, 256) and p.n_tiles * p.block_n == -(-n // 64) * 64
+        assert p.block_n <= 128 or k <= 64 * gemm_plan.WHOLE_STEPS  # a deep product
         assert p.m_tiles == -(-m // gemm_plan.BLOCK_M) and p.tiles == p.m_tiles * p.n_tiles
         assert p.grid == min(p.tiles, sms)
     if sms == 132:  # an H100 SXM
         # layer3 3x3 (M = 25088, N = 256): 196 tiles of 128x256 take 2 rounds,
         # 392 of 128x128 take 3, and 2 * (256 + 32) > 3 * (128 + 32)
-        assert gemm_plan.kernel_plan(25088, 256, cuda).block_n == 128
-        assert gemm_plan.kernel_plan(401408, 256, cuda).block_n == 256
+        assert gemm_plan.kernel_plan(25088, 9 * 256, 256, cuda).block_n == 128
+        assert gemm_plan.kernel_plan(401408, 64, 256, cuda).block_n == 256
         # layer4 (M = 6272, N = 512): 98 tiles of 256 tie 392 of 64; the tie goes wide
-        p = gemm_plan.kernel_plan(6272, 512, cuda)
+        p = gemm_plan.kernel_plan(6272, 9 * 512, 512, cuda)
         assert (p.block_n, p.tiles, p.grid) == (256, 98, 98)
 
 

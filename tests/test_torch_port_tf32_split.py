@@ -405,7 +405,7 @@ def test_prologue_values_past_tf32_max_give_nan(op):
 
 def _window_tile(xa, m0, tap, h, w_, win):
     """The 128 rows of A the kernel's consumers read for the tile at pixel m0
-    and one tap, from its window (``gemm_plan.TF32Window``): box i holds rows
+    and one tap, from its window (``gemm_plan.Window``): box i holds rows
     m0 - W - 1 + i * box_step .. + box_rows - 1 of the prologue's output xa
     (M, C), zero outside it (the TMA's zero fill, which the prologue leaves);
     row r reads window row (dy + 1) * band + 1 + r + dx where the tap lies
@@ -429,11 +429,13 @@ def _window_tile(xa, m0, tap, h, w_, win):
     return tile, top
 
 
-@pytest.mark.parametrize("w_", [5, 9, 63, 64, 112, 139, 150, 300])
+@pytest.mark.parametrize("w_", [5, 9, 63, 64, 112, 135, 136, 139, 150, 300, 320, 480])
 def test_conv3x3_window_reads_the_im2col_rows(w_):
-    """Every tile and tap of the kernel's window model equals the rows of the
+    """Every tile and tap of the window model both 3x3 kernels read (the
+    bf16 one 64 channels a row, the 3xTF32 one 32) equals the rows of the
     im2col of pad(relu(x * a + b), 1), bit for bit: one box (W <= 63), several
-    (64, 112), three bands (139 and up); the halo and the rows past M (M not
+    (64 .. 135), three bands (136 and up: 320 and 480 are layer1 of a 720p and
+    a 1080p clip); the halo and the rows past M (M not
     a multiple of 128) read exactly 0 where relu(b) > 0, and no read passes
     the window's rows."""
     nt, h, c = 3, 3, 4
@@ -444,7 +446,7 @@ def test_conv3x3_window_reads_the_im2col_rows(w_):
     m = nt * h * w_
     assert m % gemm_plan.BLOCK_M and float(torch.relu(b).min()) > 0
     xp = torch.nn.functional.pad(xa, (0, 0, 1, 1, 1, 1))
-    win = gemm_plan.tf32_window_plan(w_)
+    win = gemm_plan.window_plan(w_)
     rows = torch.zeros((-(-m // gemm_plan.BLOCK_M) * gemm_plan.BLOCK_M, c))
     for tap in range(9):
         dy, dx = divmod(tap, 3)
