@@ -62,7 +62,8 @@ MSC_SCALES = (1.0, 0.875, 0.75, 0.66)
 PLANES_MAX_PX = 512 * 512
 
 # FastBGMixLoader's phase seconds and batch count, summed over its workers
-# while BDVC_PROFILE_PRODUCER is set (read by profile_e2e)
+# while BDVC_PROFILE_PRODUCER is set (read by profile_e2e and by the
+# benchmark's producer_ms_per_batch.train, benchmark/metrics/)
 PRODUCER_STATS: Dict[str, float] = {}
 _PRODUCER_STATS_LOCK = threading.Lock()
 

@@ -28,6 +28,8 @@ reference's DDP-without-SyncBN), and a single group spans the ranks. The
 running statistics take the mean over all groups, so every rank's buffers
 stay equal.
 
+A train-mode application is the span ``model.bn`` (``utils/profiling.py``).
+
 Parameters are named like torchvision's (``weight``, ``bias``,
 ``running_mean``, ``running_var``) so state dicts convert one to one.
 """
@@ -40,6 +42,7 @@ import torch
 from torch import nn
 
 from ..parallel import distributed
+from ..utils.profiling import annotate
 
 
 class BatchNorm(nn.Module):
@@ -70,19 +73,20 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         """x: (N, C, H, W) in any memory format; statistics over N, H, W (and
         over every rank's rows under a process group)."""
-        if train:
-            xf = x.float()
-            s1, s2, count = distributed.global_sums(
-                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                xf.new_full((1,), float(xf.numel() // xf.shape[1])))
-            mean = s1 / count
-            var = torch.clamp(s2 / count - mean * mean, min=0.0)
-            self._update_running(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.epsilon) * self.weight
-        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(self.dtype or x.dtype)
+        with annotate("model.bn", train):
+            if train:
+                xf = x.float()
+                s1, s2, count = distributed.global_sums(
+                    xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                    xf.new_full((1,), float(xf.numel() // xf.shape[1])))
+                mean = s1 / count
+                var = torch.clamp(s2 / count - mean * mean, min=0.0)
+                self._update_running(mean, var)
+            else:
+                mean, var = self.running_mean, self.running_var
+            mul = torch.rsqrt(var + self.epsilon) * self.weight
+            y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+            return y.to(self.dtype or x.dtype)
 
 
 class GroupedBatchNorm(BatchNorm):
@@ -118,7 +122,10 @@ class GroupedBatchNorm(BatchNorm):
             inv = self.weight / torch.sqrt(self.running_var + self.epsilon)
             return ((x.to(out_dtype) - self.running_mean.to(out_dtype)[:, None, None])
                     * inv.to(out_dtype)[:, None, None] + self.bias.to(out_dtype)[:, None, None])
+        with annotate("model.bn"):
+            return self._train_forward(x, out_dtype)
 
+    def _train_forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
         n, c = x.shape[0], x.shape[1]
         groups, rows, prefix = self._layout(n)
         xg = x.reshape(groups, rows, *x.shape[1:])

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from .heads import IncrementalTSMHead
 from .resnet_tsm import ResNetTSM
 
@@ -60,7 +61,8 @@ class CILRecognizer2D(nn.Module):
             imgs = imgs.permute(0, 1, 3, 4, 2)
         x = imgs.reshape((b * m,) + tuple(imgs.shape[2:]))
         feats = self.backbone(x, train=train)
-        head_out = self.cls_head(feats["out"], train=train, generator=generator)
+        with annotate("model.head", train):
+            head_out = self.cls_head(feats["out"], train=train, generator=generator)
 
         num_groups = m // self.cls_head.num_segments
         kd_feats = {f"backbone.layer{i}": feats[f"layer{i}"] for i in range(1, 5)}

@@ -10,6 +10,9 @@ Inside, activations are NCHW tensors in ``torch.channels_last`` memory, the
 same bytes, so a 1x1 conv is a GEMM on a contiguous ``(M, K)`` view and the
 NHWC kernels take the tensors as they are.
 
+In train mode each stage of blocks is the span ``model.stage`` and each
+residual block ``model.block`` (``utils/profiling.py``).
+
 Mixed precision: ``dtype`` is the compute/activation dtype (convs cast their
 input and weight to it), ``norm_dtype`` the BatchNorm output dtype;
 parameters and BatchNorm statistics stay float32.
@@ -44,6 +47,7 @@ from torch import nn
 
 from ..ops.conv1x1_bn import conv1x1_bn
 from ..ops.tsm_shift import fused_residual_relu_shift, shifted_conv, temporal_shift
+from ..utils.profiling import annotate
 from .norm import BatchNorm, GroupedBatchNorm
 
 # depth -> (block type, stage sizes, expansion)
@@ -178,18 +182,19 @@ class BasicBlock(nn.Module):
             self.downsample = _downsample(inplanes, planes, stride, dtype, bn(planes), device)
 
     def forward(self, x, train: bool, x_shifted=None):
-        identity = x
-        if self.fused_block:
-            h = x_shifted  # the producer block emitted shift(x) already
-        else:
-            h = _shift(x, self.num_segments, self.shift_div) if self.is_shift else x
-        h = F.relu(self.bn1(self.conv1(h), train))
-        h = self.bn2(self.conv2(h), train)
-        if self.downsample is not None:
-            identity = self.downsample[1](self.downsample[0](identity), train)
-        if self.fused_block:
-            return _fused_epilogue(h, identity.to(h.dtype), self.num_segments, self.shift_div)
-        return F.relu(h + identity.to(h.dtype))
+        with annotate("model.block", train):
+            identity = x
+            if self.fused_block:
+                h = x_shifted  # the producer block emitted shift(x) already
+            else:
+                h = _shift(x, self.num_segments, self.shift_div) if self.is_shift else x
+            h = F.relu(self.bn1(self.conv1(h), train))
+            h = self.bn2(self.conv2(h), train)
+            if self.downsample is not None:
+                identity = self.downsample[1](self.downsample[0](identity), train)
+            if self.fused_block:
+                return _fused_epilogue(h, identity.to(h.dtype), self.num_segments, self.shift_div)
+            return F.relu(h + identity.to(h.dtype))
 
 
 class Bottleneck(nn.Module):
@@ -233,19 +238,20 @@ class Bottleneck(nn.Module):
         return bn(conv(h), train)
 
     def forward(self, x, train: bool, x_shifted=None):
-        identity = x
-        if self.fused_block:
-            h = x_shifted
-        else:
-            h = _shift(x, self.num_segments, self.shift_div) if self.is_shift else x
-        h = F.relu(self._conv_bn(h, self.conv1, self.bn1, train))
-        h = F.relu(self.bn2(self.conv2(h), train))
-        h = self._conv_bn(h, self.conv3, self.bn3, train)
-        if self.downsample is not None:
-            identity = self.downsample[1](self.downsample[0](identity), train)
-        if self.fused_block:
-            return _fused_epilogue(h, identity.to(h.dtype), self.num_segments, self.shift_div)
-        return F.relu(h + identity.to(h.dtype))
+        with annotate("model.block", train):
+            identity = x
+            if self.fused_block:
+                h = x_shifted
+            else:
+                h = _shift(x, self.num_segments, self.shift_div) if self.is_shift else x
+            h = F.relu(self._conv_bn(h, self.conv1, self.bn1, train))
+            h = F.relu(self.bn2(self.conv2(h), train))
+            h = self._conv_bn(h, self.conv3, self.bn3, train)
+            if self.downsample is not None:
+                identity = self.downsample[1](self.downsample[0](identity), train)
+            if self.fused_block:
+                return _fused_epilogue(h, identity.to(h.dtype), self.num_segments, self.shift_div)
+            return F.relu(h + identity.to(h.dtype))
 
 
 class ResNetTSM(nn.Module):
@@ -318,11 +324,12 @@ class ResNetTSM(nn.Module):
         # block's epilogue kernel emits its successor's shifted input
         h_shifted = _shift(h, self.num_segments, self.shift_div) if self.fused_block else None
         for stage in range(1, 5):
-            for block in getattr(self, f"layer{stage}"):
-                if self.fused_block:
-                    h, h_shifted = block(h, bn_train, h_shifted)
-                else:
-                    h = block(h, bn_train)
+            with annotate("model.stage", train):
+                for block in getattr(self, f"layer{stage}"):
+                    if self.fused_block:
+                        h, h_shifted = block(h, bn_train, h_shifted)
+                    else:
+                        h = block(h, bn_train)
             feats[f"layer{stage}"] = nhwc(h)
         feats["out"] = nhwc(h)
         return feats

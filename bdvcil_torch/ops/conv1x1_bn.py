@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import distributed
+from ..utils.profiling import annotate
 from . import _build
 
 KERNEL = "conv1x1_with_stats"
@@ -349,10 +350,10 @@ def conv1x1_bn(
     wmat = conv_weight.reshape(features, k).t().to(dtype).contiguous()
     if train:
         y, s1, s2 = conv1x1_with_stats(x4, wmat, interpret)
-        scale, bias, mean, var = bn_affine_from_sums(bn, s1, s2, float(nt * h * w_), True)
     else:
-        y = x4 @ wmat
-        scale, bias, mean, var = bn_affine_from_sums(bn, None, None, 1.0, False)
-    inv = scale / torch.sqrt(var + EPS)
-    shift = bias - mean * inv
-    return y.to(norm_dtype) * inv.to(norm_dtype) + shift.to(norm_dtype)
+        y, s1, s2 = x4 @ wmat, None, None
+    with annotate("model.bn", train):  # BatchNorm's half: the statistics to the normalize
+        scale, bias, mean, var = bn_affine_from_sums(bn, s1, s2, float(nt * h * w_), train)
+        inv = scale / torch.sqrt(var + EPS)
+        shift = bias - mean * inv
+        return y.to(norm_dtype) * inv.to(norm_dtype) + shift.to(norm_dtype)

@@ -29,6 +29,7 @@ schedule counts updates, not micro-steps.
 from __future__ import annotations
 
 import bisect
+import itertools
 import math
 from typing import Callable, Dict, Mapping, Optional
 
@@ -37,6 +38,7 @@ import torch
 from torch import nn
 
 from .models.norm import BatchNorm
+from .utils.profiling import annotate
 
 CLASSIFIER_LEAVES = {"fc_weights", "fc_weight", "eta"}
 CLASSIFIER_BIAS_LEAVES = {"fc_bias"}
@@ -168,19 +170,23 @@ class LabeledSGD:
         epoch = min(state["count"] // self.steps_per_epoch, len(self.factor_table) - 1)
         factor = self.factor_table[epoch]
         new_m = {}
-        for n, p in params.items():
-            label = self.labels[n]
-            if label == "frozen":
-                new_m[n] = state["momentum"][n]
-                continue
-            mult_fn, use_wd = GROUP_POLICY[label]
-            g32 = grads[n].float()
-            if use_wd and self.weight_decay:
-                g32 = g32 + self.weight_decay * p.float()
-            m = self.momentum * state["momentum"][n] + g32 if self.momentum else g32
-            coef = float(np.float32(-self.base_lr * mult_fn(self.fc_scale)) * factor)
-            p.add_((coef * m).to(p.dtype))
-            new_m[n] = m
+        # a span a top-level stage of the module (backbone.layer3, ...): the
+        # gaps of a traced update stay within reach of a span's start
+        for _, stage in itertools.groupby(params.items(), key=lambda kv: kv[0].split(".")[:2]):
+            with annotate("optim.update"):
+                for n, p in stage:
+                    label = self.labels[n]
+                    if label == "frozen":
+                        new_m[n] = state["momentum"][n]
+                        continue
+                    mult_fn, use_wd = GROUP_POLICY[label]
+                    g32 = grads[n].float()
+                    if use_wd and self.weight_decay:
+                        g32 = g32 + self.weight_decay * p.float()
+                    m = self.momentum * state["momentum"][n] + g32 if self.momentum else g32
+                    coef = float(np.float32(-self.base_lr * mult_fn(self.fc_scale)) * factor)
+                    p.add_((coef * m).to(p.dtype))
+                    new_m[n] = m
         return {"momentum": new_m, "count": state["count"] + 1}
 
 

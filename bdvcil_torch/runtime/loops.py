@@ -39,7 +39,7 @@ from .._device import resolve_device
 from ..data.device_pipeline import HOST_KEYS
 from ..parallel import distributed
 from ..parallel.mesh import gather_to_host
-from ..utils import Throughput
+from ..utils import Throughput, profiling
 
 logger = logging.getLogger("bdvcil.runtime")
 
@@ -230,8 +230,15 @@ def train_epochs(
     stalls the card; ``meter`` (else a new ``Throughput(warmup=2)``) counts
     clips (valid rows only) and the seconds spent waiting for input.
     Runs on the card unless ``device`` says otherwise.
+
+    Each call is a new run of ``utils/profiling``'s spans; under a
+    ``torch.profiler`` session the loop records ``loop.fetch`` (the next
+    item from the prefetch queue), ``loop.feed`` (the consumer's side of the
+    copies and the step's generators) and ``loop.log`` (the late readback),
+    and each call into the step carries the number of its (first) step.
     """
     device = resolve_device(device)
+    profiling.new_run()
     stream = side_stream(device)
     pin = device.type == "cuda"
     meter = meter if meter is not None else Throughput(warmup=2)
@@ -279,36 +286,50 @@ def train_epochs(
             itertools.islice(span_stream, items_per_epoch()) if span_stream is not None
             else prefetch_to_device(grouped(iter(loader)) if use_multi else loader, size=2,
                                     put_fn=prepare, meter=meter))
-        for kind, tree, event, n_valid in epoch_iter:
-            imgs, labels, extra = split_batch(wait_copied(tree, event, device))
+        epoch_iter = iter(epoch_iter)
+        while True:
+            with profiling.annotate("loop.fetch"):
+                item = next(epoch_iter, None)
+            if item is None:
+                break
+            kind, tree, event, n_valid = item
+            with profiling.annotate("loop.feed"):
+                imgs, labels, extra = split_batch(wait_copied(tree, event, device))
+                if kind == "multi":
+                    gens = [step_generator(seed, step + k, device)
+                            for k in range(steps_per_dispatch)]
+                else:
+                    gen = step_generator(seed, step, device)
+            profiling.set_step(step)
             if kind == "multi":
-                gens = [step_generator(seed, step + k, device) for k in range(steps_per_dispatch)]
                 state, metrics = multi_step_fn(state, prev_model, imgs, labels, extra, gens)
                 consumed = steps_per_dispatch
             else:
-                state, metrics = step_fn(state, prev_model, imgs, labels, extra,
-                                         step_generator(seed, step, device))
+                state, metrics = step_fn(state, prev_model, imgs, labels, extra, gen)
                 consumed = 1
             meter.tick(n_valid)
             prev_step, step = step, step + consumed
             if step // log_every_n_steps > prev_step // log_every_n_steps:
                 if pending_metrics is not None:
-                    last_metrics = {k: float(v) for k, v in pending_metrics.items()}
-                    payload = {f"[{phase}_Task_{task_idx}]{k}": v for k, v in last_metrics.items()}
-                    payload["clips_per_sec"] = meter.rate
-                    if metric_logger is not None:
-                        metric_logger.log(payload, step=step)
-                    logger.info("task %d %s epoch %d step %d loss=%.4f kd=%.4f clips/s=%.1f",
-                                task_idx, phase, epoch, step,
-                                last_metrics.get("loss", float("nan")),
-                                last_metrics.get("kd_loss", 0.0), meter.rate)
+                    with profiling.annotate("loop.log"):  # float() waits for the queued work
+                        last_metrics = {k: float(v) for k, v in pending_metrics.items()}
+                        payload = {f"[{phase}_Task_{task_idx}]{k}": v
+                                   for k, v in last_metrics.items()}
+                        payload["clips_per_sec"] = meter.rate
+                        if metric_logger is not None:
+                            metric_logger.log(payload, step=step)
+                        logger.info("task %d %s epoch %d step %d loss=%.4f kd=%.4f "
+                                    "clips/s=%.1f", task_idx, phase, epoch, step,
+                                    last_metrics.get("loss", float("nan")),
+                                    last_metrics.get("kd_loss", 0.0), meter.rate)
                 pending_metrics = metrics
         if epoch_hook is not None:
             epoch_hook(epoch, state)
         if snapshot_hook is not None:
             snapshot_hook(epoch, state, seed)
     if pending_metrics is not None:
-        last_metrics = {k: float(v) for k, v in pending_metrics.items()}
+        with profiling.annotate("loop.log"):
+            last_metrics = {k: float(v) for k, v in pending_metrics.items()}
     return state, last_metrics
 
 

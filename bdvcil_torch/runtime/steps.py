@@ -11,7 +11,10 @@
 
 The step runs eagerly: the input function (when given), forward, backward,
 then the labeled SGD update in place (with gradient accumulation, every k-th
-call; ``optim.py``). ``make_multi_train_step`` runs K steps per call.
+call; ``optim.py``), each a span of ``utils/profiling.py`` (``step.input_fn``,
+``step.forward`` with the loss's ``step.loss`` in it, ``step.backward``,
+``step.optimizer``) under a ``torch.profiler`` session.
+``make_multi_train_step`` runs K steps per call.
 
 Under a process group (``parallel/distributed.py``) each rank runs the step on
 its rows of the global batch: its loss is its share of the global loss (the
@@ -52,6 +55,7 @@ from ..ops.augment import (
     tencrop_expand,
     tubemix,
 )
+from ..utils.profiling import annotate
 from .train_state import TrainState
 
 METHODS = ("base", "icarl", "icarl_video_mix")
@@ -117,30 +121,31 @@ def make_train_step(
 
     def base_loss(module, prev_model, imgs, labels, sample_weights, generator):
         out = module(imgs, train=True, generator=generator)
-        cls_score = out["cls_score"][:, 0, :]
-        loss_cls = _loss_cls(spec, cls_score, labels, module, sample_weights)
-        metrics: Dict[str, torch.Tensor] = {"loss_cls": loss_cls}
-        total = loss_cls
-        if use_kd:
-            with torch.no_grad():
-                prev_out = prev_model(imgs, train=False)
-            kd = feature_kd_loss(
-                out["feats"],
-                prev_out["feats"],
-                kd_config["module_names"],
-                kd_config["module_weights"],
-                kd_config["scale_factor"],
-                labels=labels,
-                prev_num_classes=prev_num_classes,
-                exemplar_only=kd_config.get("exemplar_only", False),
-                num_segments=spec.num_segments,
-                sample_weights=sample_weights,
-            )
-            metrics.update(kd)
-            total = total + kd["kd_loss"]
-        else:
-            metrics["kd_loss"] = torch.zeros((), device=total.device)
-        return total, metrics
+        with annotate("step.loss"):
+            cls_score = out["cls_score"][:, 0, :]
+            loss_cls = _loss_cls(spec, cls_score, labels, module, sample_weights)
+            metrics: Dict[str, torch.Tensor] = {"loss_cls": loss_cls}
+            total = loss_cls
+            if use_kd:
+                with torch.no_grad():
+                    prev_out = prev_model(imgs, train=False)
+                kd = feature_kd_loss(
+                    out["feats"],
+                    prev_out["feats"],
+                    kd_config["module_names"],
+                    kd_config["module_weights"],
+                    kd_config["scale_factor"],
+                    labels=labels,
+                    prev_num_classes=prev_num_classes,
+                    exemplar_only=kd_config.get("exemplar_only", False),
+                    num_segments=spec.num_segments,
+                    sample_weights=sample_weights,
+                )
+                metrics.update(kd)
+                total = total + kd["kd_loss"]
+            else:
+                metrics["kd_loss"] = torch.zeros((), device=total.device)
+            return total, metrics
 
     def icarl_loss(module, prev_model, imgs, labels, extra, sample_weights, generator):
         targets = torch.nn.functional.one_hot(labels.long(), num_classes).float()
@@ -159,16 +164,17 @@ def make_train_step(
             lo, hi = mesh.local_rows(b)
             imgs, targets = g_imgs[lo:hi], g_targets[lo:hi]
         out = module(imgs, train=True, generator=generator)
-        # average_clips='score' in iCaRL: the raw score mean over clips
-        cls_score = out["cls_score"].mean(dim=1)
-        if use_prev_targets:
-            with torch.no_grad():
-                prev_scores = prev_model(imgs, train=False)["cls_score"].mean(dim=1)
-                prev_probs = torch.softmax(prev_scores, dim=-1)
-            is_old = (labels < prev_num_classes)[:, None]
-            targets = torch.where(is_old, prev_probs, targets)
-        loss = soft_target_ce(cls_score, targets, sample_weights)
-        return loss, {"loss_cls": loss, "kd_loss": torch.zeros((), device=loss.device)}
+        with annotate("step.loss"):
+            # average_clips='score' in iCaRL: the raw score mean over clips
+            cls_score = out["cls_score"].mean(dim=1)
+            if use_prev_targets:
+                with torch.no_grad():
+                    prev_scores = prev_model(imgs, train=False)["cls_score"].mean(dim=1)
+                    prev_probs = torch.softmax(prev_scores, dim=-1)
+                is_old = (labels < prev_num_classes)[:, None]
+                targets = torch.where(is_old, prev_probs, targets)
+            loss = soft_target_ce(cls_score, targets, sample_weights)
+            return loss, {"loss_cls": loss, "kd_loss": torch.zeros((), device=loss.device)}
 
     def step(state: TrainState, prev_model, imgs, labels, extra, generator=None):
         module = state.module
@@ -176,25 +182,28 @@ def make_train_step(
             raise ValueError(f"the module's head has {head_param_path(module).num_classes} "
                              f"classes, the step was built for {num_classes}")
         if input_fn is not None:
-            with torch.no_grad():
+            with annotate("step.input_fn"), torch.no_grad():
                 imgs = input_fn(imgs)
         labels = _squeeze_labels(labels)
         sample_weights = extra.get("sample_weight")
-        if method == "base":
-            total, metrics = base_loss(module, prev_model, imgs, labels, sample_weights,
-                                       generator)
-        else:
-            total, metrics = icarl_loss(module, prev_model, imgs, labels, extra,
-                                        sample_weights, generator)
-        if distributed.is_initialized():
-            _backward_all_reduced(module, total)
-        else:
-            total.backward()  # adds to p.grad, which holds the accumulation window's sum
+        with annotate("step.forward"):
+            if method == "base":
+                total, metrics = base_loss(module, prev_model, imgs, labels, sample_weights,
+                                           generator)
+            else:
+                total, metrics = icarl_loss(module, prev_model, imgs, labels, extra,
+                                            sample_weights, generator)
+        with annotate("step.backward"):
+            if distributed.is_initialized():
+                _backward_all_reduced(module, total)
+            else:
+                total.backward()  # adds to p.grad, which holds the accumulation window's sum
         if (state.step + 1) % tx.accumulate_steps:
             new_opt_state = state.opt_state  # a micro-step: no update yet
         else:
-            new_opt_state = tx.step(module, state.opt_state)
-            module.zero_grad(set_to_none=True)
+            with annotate("step.optimizer"):
+                new_opt_state = tx.step(module, state.opt_state)
+                module.zero_grad(set_to_none=True)
         metrics["loss"] = total
         metrics = _global_metrics({k: v.detach() for k, v in metrics.items()})
         return TrainState(module=module, opt_state=new_opt_state, step=state.step + 1), metrics

@@ -3,7 +3,7 @@
   meters   AverageMeter (the accuracy tables) and Throughput (the train loop)
   tables   print_mean_accuracy, the CIL result table
   logging  get_logger and the JSONL MetricLogger
-  profiling  trace (a torch.profiler chrome trace), step_timer, annotate
+  profiling  trace (a torch.profiler chrome trace), annotate (the program's spans), spans
 """
 
 from .logging import MetricLogger, get_logger

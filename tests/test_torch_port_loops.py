@@ -14,9 +14,16 @@ entry point, on the CPU.
     (tests/test_torch_port_train.py);
   * the staging of a K-chunk (pinning is the card's; here plain tensors);
   * ``python -m bdvcil_torch.bench_train --device cpu`` at a small size
-    prints one parseable JSON line.
+    prints one parseable JSON line;
+  * the program's spans (``utils/profiling.py``) of a tiny R18 run under
+    ``torch.profiler``: one ``step.input_fn`` (with an input function),
+    ``step.forward`` and ``step.backward`` a step, ``step.optimizer`` on
+    update steps only, a ``model.bn`` a BatchNorm a forward, the loop's and
+    the step's spans on the calling thread, nested as the layers are; no
+    record without the profiler.
 """
 
+import contextlib
 import json
 import threading
 import time
@@ -26,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from bdvcil_tpu.models import build_model as jax_build_model
 from bdvcil_tpu.models import init_model_params as jax_init
@@ -35,12 +43,15 @@ from bdvcil_tpu.runtime import make_multi_train_step as jax_make_multi
 from bdvcil_tpu.runtime import make_train_step as jax_make_train_step
 from bdvcil_tpu.runtime.loops import train_epochs as jax_train_epochs
 from bdvcil_torch import bench_train
+from bdvcil_torch.data import device_pipeline as pdp
 from bdvcil_torch.data.device_pipeline import HOST_KEYS
 from bdvcil_torch.data.synthetic import SyntheticWireLoader, wire_batch
-from bdvcil_torch.models import build_model, from_jax_variables
+from bdvcil_torch.models import build_model, from_jax_variables, init_model_params
+from bdvcil_torch.models.norm import BatchNorm
 from bdvcil_torch.optim import build_optimizer
 from bdvcil_torch.runtime import TrainState, make_multi_train_step, make_train_step
 from bdvcil_torch.runtime import loops
+from bdvcil_torch.utils import profiling
 from tests.torch_port_helpers import T, model_cfg, numpy_tree
 
 OPT = dict(type="SGD", constructor="CILTSMOptimizerConstructorImprovised",
@@ -266,6 +277,72 @@ def test_coupled_train_epochs_matches_jax():
                          (3, 2, 0, 1))
     np.testing.assert_allclose(model.backbone.layer4[0].conv1.weight.detach().numpy(), ref_k,
                                **TOL)
+
+
+@pytest.mark.parametrize("wire,accumulate,traced", [(True, 2, True), (False, 1, True),
+                                                     (True, 2, False)])
+def test_train_epochs_spans(wire, accumulate, traced):
+    """Four steps of R18 at 32², two clips a batch: from wire batches through
+    the input function with two-step accumulation, or from float clips."""
+    nc, steps = 10, 4
+    spec = build_model(model_cfg(18, "pad", "xla", nc, in_channels=512), device="cpu")
+    model = init_model_params(spec, 0)
+    tx = build_optimizer(model, OPT, accumulate_steps=accumulate)
+    if wire:
+        loader = SyntheticWireLoader(2 * steps, 2, T, 32, seed=5)
+        input_fn = pdp.make_fast_input_fn(wire_format=loader.wire_format)
+    else:
+        rng = np.random.default_rng(5)
+        loader = TensorLoader(rng.standard_normal((steps, 2, T, 32, 32, 3)).astype(np.float32),
+                              rng.integers(0, nc, size=(steps, 2, 1)))
+        input_fn = None
+    step_fn = make_train_step(spec=spec, tx=tx, num_classes=nc, input_fn=input_fn)
+    book = profiling.BOOK
+    n0 = len(book.records)
+    with profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext():
+        _, last = loops.train_epochs(step_fn, TrainState.create(model, tx), None, loader, 1, 3,
+                                     device="cpu", log_every_n_steps=2)
+    assert np.isfinite(last["loss"])
+    records = profiling.spans()
+    if not traced:
+        assert records == [] and len(book.records) == n0
+        return
+
+    by_id = {r.id: r for r in records}
+    assert len(by_id) == len(records)
+    assert {r.thread for r in records} == {threading.get_ident()}
+    assert {r.run for r in records} == {book.run}
+    bns = sum(isinstance(m, BatchNorm) for m in model.modules())
+    blocks = sum(len(getattr(model.backbone, f"layer{i}")) for i in range(1, 5))
+    stages = len({tuple(n.split(".")[:2]) for n, _ in model.named_parameters()})
+
+    def names(step, prefix):
+        return sorted(r.name for r in records if r.step == step and r.name.startswith(prefix))
+
+    for s in range(steps):
+        update = (s + 1) % accumulate == 0
+        want = ["step.backward", "step.forward", "step.loss"] + ["step.input_fn"] * wire
+        assert names(s, "step.") == sorted(want + ["step.optimizer"] * update), s
+        assert names(s, "optim.") == ["optim.update"] * stages * update, s
+        assert names(s, "model.") == sorted(["model.block"] * blocks + ["model.bn"] * bns
+                                            + ["model.stage"] * 4 + ["model.head"]), s
+        # after step s: the next item's fetch and feed; after the last, the
+        # readback of step 1's metrics (one interval late) and the final one
+        loop = ["loop.fetch"] + ["loop.feed"] * (s < steps - 1) + ["loop.log"] * 2 * (s == 3)
+        assert names(s, "loop.") == sorted(loop), s
+    assert names(None, "") == ["loop.feed", "loop.fetch"]
+
+    parents = {"step.loss": {"step.forward"}, "model.head": {"step.forward"},
+               "model.stage": {"step.forward"}, "model.block": {"model.stage"},
+               "model.bn": {"model.block", "step.forward"}, "optim.update": {"step.optimizer"}}
+    for r in records:
+        parent = by_id.get(r.parent)
+        if r.name in parents:
+            assert parent.name in parents[r.name], r
+            assert parent.start <= r.start <= r.end <= parent.end, r
+        else:
+            assert r.name.startswith(("loop.", "step.")) and parent is None, r
+        assert (r.cpu_s is None) == (parent is not None), r
 
 
 @pytest.mark.parametrize("source", ["jpeg", "synthetic"])
