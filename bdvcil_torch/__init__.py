@@ -7,7 +7,8 @@ JAX, and nothing of ``bdvcil_tpu``.
 
 Layout:
   ops      temporal shift and the fused block epilogue, the 1x1-conv GEMM
-           with a BatchNorm-statistics epilogue, the whole-block fused
+           with a BatchNorm-statistics epilogue, train-mode BatchNorm
+           forward and backward, the whole-block fused
            bottleneck forward; each hand-written CUDA kernel (``csrc/``)
            beside its plain PyTorch version; the input path's eager ops
            (augment, rand_augment_dev)

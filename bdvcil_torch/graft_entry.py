@@ -278,8 +278,8 @@ def _run_parts(inputs: Mapping, dev: torch.device) -> Dict:
         out[part] = dict(loss=float(m["loss"]), input=clips.float().cpu().numpy())
         what = "fast-input" if part in "de" else "fast-acm"
         say(f"dryrun_multichip {what} ({part_wire}) ok: loss={out[part]['loss']:.4f}")
-    # the hand-written kernels launched (none at the default modes): rank 0's
-    # by kernel, and every rank's count
+    # the hand-written kernels launched (at the default modes train-mode
+    # BatchNorm's alone, on a card): rank 0's by kernel, and every rank's count
     out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
     out["rank_launches"] = np.atleast_1d(
         distributed.all_gather_host(sum(_build.LAUNCHES.values()))).tolist()

@@ -13,11 +13,17 @@ per-GPU statistics.
   * the normalize ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` runs in
     f32 and is cast once to ``dtype`` (the backbone's ``norm_dtype``).
 
-Under a process group its train-mode statistics are those of the global
-batch, as the JAX package computes them under SPMD: the f32 (sum x, sum x^2,
-count) are all-reduced, and the backward all-reduces their gradients
-(``parallel/distributed.global_sums``). ``torch.nn.SyncBatchNorm`` is not
-used: it keeps the unbiased running variance and torch's momentum.
+Train mode runs through ``ops/batchnorm.py``: on a card one autograd
+Function, the hand-written kernels of ``csrc/batchnorm.cu`` forward and
+backward (the analytic backward); on the CPU their plain versions, this
+formula in eager torch, differentiated by autograd. ``relu=True`` applies
+the relu that follows at the call site in the same pass. Under a process
+group its train-mode statistics are those of the global batch, as the JAX
+package computes them under SPMD: the f32 (sum x, sum x^2, count) are
+all-reduced, and the backward all-reduces their gradients, or on a card
+the sums that dx takes (``parallel/distributed.global_sums``).
+``torch.nn.SyncBatchNorm`` is not used: it keeps the unbiased running
+variance and torch's momentum.
 
 ``GroupedBatchNorm`` ports ``bdvcil_tpu/models/norm.py``: train-mode
 statistics over ``groups`` contiguous row blocks of the (N*T) axis, and with
@@ -39,8 +45,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import batchnorm
 from ..parallel import distributed
 from ..utils.profiling import annotate
 
@@ -70,23 +78,18 @@ class BatchNorm(nn.Module):
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """x: (N, C, H, W) in any memory format; statistics over N, H, W (and
-        over every rank's rows under a process group)."""
+    def forward(self, x: torch.Tensor, train: bool, relu: bool = False) -> torch.Tensor:
+        """x: (N, C, H, W); statistics over N, H, W (and over every rank's rows
+        under a process group). ``relu`` applies the relu that follows. Train
+        mode is ``ops/batchnorm.batchnorm_train`` (the kernels on a card, which
+        take channels_last memory; any layout on the CPU)."""
         with annotate("model.bn", train):
             if train:
-                xf = x.float()
-                s1, s2, count = distributed.global_sums(
-                    xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                    xf.new_full((1,), float(xf.numel() // xf.shape[1])))
-                mean = s1 / count
-                var = torch.clamp(s2 / count - mean * mean, min=0.0)
-                self._update_running(mean, var)
-            else:
-                mean, var = self.running_mean, self.running_var
-            mul = torch.rsqrt(var + self.epsilon) * self.weight
-            y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-            return y.to(self.dtype or x.dtype)
+                return batchnorm.batchnorm_train(x, self, self.dtype or x.dtype, relu)
+            mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
+            y = ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+                 + self.bias[:, None, None]).to(self.dtype or x.dtype)
+            return F.relu(y) if relu else y
 
 
 class GroupedBatchNorm(BatchNorm):
@@ -115,15 +118,18 @@ class GroupedBatchNorm(BatchNorm):
             raise ValueError(f"leading dim {n_local} not divisible by {local} bn groups a rank")
         return local, n_local // local, None
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """x: (N, C, H, W); returns ``dtype`` (else x's dtype)."""
+    def forward(self, x: torch.Tensor, train: bool, relu: bool = False) -> torch.Tensor:
+        """x: (N, C, H, W); returns ``dtype`` (else x's dtype), relu'd with
+        ``relu``."""
         out_dtype = self.dtype or x.dtype
         if not train:
             inv = self.weight / torch.sqrt(self.running_var + self.epsilon)
-            return ((x.to(out_dtype) - self.running_mean.to(out_dtype)[:, None, None])
-                    * inv.to(out_dtype)[:, None, None] + self.bias.to(out_dtype)[:, None, None])
-        with annotate("model.bn"):
-            return self._train_forward(x, out_dtype)
+            y = ((x.to(out_dtype) - self.running_mean.to(out_dtype)[:, None, None])
+                 * inv.to(out_dtype)[:, None, None] + self.bias.to(out_dtype)[:, None, None])
+        else:
+            with annotate("model.bn"):
+                y = self._train_forward(x, out_dtype)
+        return F.relu(y) if relu else y
 
     def _train_forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
         n, c = x.shape[0], x.shape[1]

@@ -122,7 +122,8 @@ class S2DStem(Conv2d):
     """The space-to-depth stem (``_S2DStem``): a 2x2 space-to-depth of the
     input (224² x 3 -> 112² x 12) and the exactly equivalent 4x4/s1 conv with
     rearranged weights and padding (2, 1). The parameter keeps the plain
-    stem's (64, 3, 7, 7) layout."""
+    stem's (64, 3, 7, 7) layout. Its output is channels_last, as every
+    activation of the backbone."""
 
     def __init__(self, out_ch, dtype=torch.float32, device=None):
         super().__init__(3, out_ch, 7, 2, 3, dtype, device)
@@ -137,7 +138,7 @@ class S2DStem(Conv2d):
         o = w_pad.shape[0]
         wt = w_pad.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
         xt = F.pad(xt.to(self.dtype), (2, 1, 2, 1))
-        return F.conv2d(xt, wt.to(self.dtype))
+        return F.conv2d(xt, wt.to(self.dtype)).contiguous(memory_format=torch.channels_last)
 
 
 def _make_bn(planes, norm_dtype, bn_groups, bn_stats_rows, device):
@@ -188,7 +189,7 @@ class BasicBlock(nn.Module):
                 h = x_shifted  # the producer block emitted shift(x) already
             else:
                 h = _shift(x, self.num_segments, self.shift_div) if self.is_shift else x
-            h = F.relu(self.bn1(self.conv1(h), train))
+            h = self.bn1(self.conv1(h), train, relu=True)
             h = self.bn2(self.conv2(h), train)
             if self.downsample is not None:
                 identity = self.downsample[1](self.downsample[0](identity), train)
@@ -230,12 +231,12 @@ class Bottleneck(nn.Module):
             self.downsample = _downsample(inplanes, out_planes, stride, dtype, bn(out_planes),
                                           device)
 
-    def _conv_bn(self, h, conv, bn, train):
+    def _conv_bn(self, h, conv, bn, train, relu=False):
         if self.use_stats_gemm:
             out = conv1x1_bn(nhwc(h), conv.weight, bn, train, self.dtype, self.norm_dtype,
-                             self.interpret_stats_gemm)
+                             self.interpret_stats_gemm, relu)
             return nchw(out)
-        return bn(conv(h), train)
+        return bn(conv(h), train, relu)
 
     def forward(self, x, train: bool, x_shifted=None):
         with annotate("model.block", train):
@@ -244,8 +245,8 @@ class Bottleneck(nn.Module):
                 h = x_shifted
             else:
                 h = _shift(x, self.num_segments, self.shift_div) if self.is_shift else x
-            h = F.relu(self._conv_bn(h, self.conv1, self.bn1, train))
-            h = F.relu(self.bn2(self.conv2(h), train))
+            h = self._conv_bn(h, self.conv1, self.bn1, train, relu=True)
+            h = self.bn2(self.conv2(h), train, relu=True)
             h = self._conv_bn(h, self.conv3, self.bn3, train)
             if self.downsample is not None:
                 identity = self.downsample[1](self.downsample[0](identity), train)
@@ -316,7 +317,7 @@ class ResNetTSM(nn.Module):
         """x: (N*T, H, W, C) normalized frames; returns tagged (N*T, H, W, C) stage outputs."""
         bn_train = train and not self.norm_eval
         h = nchw(x.to(self.dtype).contiguous())
-        h = F.relu(self.bn1(self.conv1(h), bn_train))
+        h = self.bn1(self.conv1(h), bn_train, relu=True)
         h = F.max_pool2d(h, 3, 2, 1)
 
         feats: Dict[str, torch.Tensor] = {}

@@ -11,9 +11,10 @@ Nothing is built when this module is imported, only at the first launch (or
 when ``build_all`` is called), so the CPU tests import every module without a
 compiler.
 
-``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+``sm_count`` is a card's SM count, which sizes the persistent kernels'
+grids and their partials. ``LAUNCHES`` counts kernel launches by kernel
+name. Each wrapper adds one where it launches its kernel and nowhere else,
+so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ import shutil
 import subprocess
 import threading
 from collections import Counter
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -116,6 +120,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.bdv_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: the persistent kernels' grid
+    has at most one CTA per SM, and their partials one row per CTA."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dispatch(name: str, x, kernel, plain, *args):

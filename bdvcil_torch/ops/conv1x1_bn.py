@@ -20,25 +20,28 @@ multiples of 4); float32 launches count under the wrapper's name +
 ``gemm_stats_plain``; ``interpret=True`` names the plain version
 on every device, the counterpart of JAX's Pallas interpreter
 (``conv1x1_mode='pallas_stats_interpret'``). The backward is plain PyTorch on
-both, as the JAX package leaves it to XLA: the cotangents of s1/s2 are folded
-into dy (``dy += gs1 + 2 * gs2 * y``), then the GEMM's own backward. Under a process
-group ``conv1x1_bn`` all-reduces the kernel's s1, s2 and row count before
-``bn_affine_from_sums``; the kernel itself sees only the rank's rows.
+both, as the JAX package leaves it to XLA: the cotangents of s1/s2, where
+given, are folded into dy (``dy += gs1 + 2 * gs2 * y``), then the GEMM's own
+backward. ``conv1x1_bn`` normalizes y through ``ops/batchnorm``: on a card
+its Function's backward hands over the whole dy and no cotangent of s1/s2,
+on the CPU (and with ``interpret``) autograd gives the cotangents to fold
+(under a process group the kernel's s1, s2 and row count are all-reduced
+first; the kernel itself sees only the rank's rows).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from functools import lru_cache, partial
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel import distributed
 from ..utils.profiling import annotate
-from . import _build
+from . import _build, batchnorm
+from ._build import sm_count
 
 KERNEL = "conv1x1_with_stats"
 GEMM_KERNEL = "gemm_with_stats"
@@ -102,13 +105,6 @@ def _tf32_lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib._bdv_typed = True
     return lib
-
-
-@lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device: the wgmma kernels' persistent
-    grid has at most one CTA per SM, and their partials one row per CTA."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stats_scratch(part_shape, n: int, device):
@@ -265,18 +261,22 @@ class _GemmWithStats(torch.autograd.Function):
     def forward(ctx, x, w, fwd):
         y, s1, s2 = fwd(x, w)
         ctx.save_for_backward(x, w, y)
+        ctx.set_materialize_grads(False)  # no zero cotangents of unused outputs
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
         x, w, y = ctx.saved_tensors
         k, n = w.shape
-        # d/dy of (y, sum(y), sum(y^2)) contracted with the cotangents
-        dy = gy.float()
-        if gs1 is not None:
-            dy = dy + gs1
-        if gs2 is not None:
-            dy = dy + 2.0 * gs2 * y.float()
+        # d/dy of (y, sum(y), sum(y^2)) contracted with the cotangents; with
+        # none for the sums (conv1x1_bn's normalize hands over the whole dy) gy
+        dy = gy
+        if gs1 is not None or gs2 is not None:
+            dy = gy.float() if gy is not None else torch.zeros_like(y, dtype=torch.float32)
+            if gs1 is not None:
+                dy = dy + gs1
+            if gs2 is not None:
+                dy = dy + 2.0 * gs2 * y.float()
         dy = dy.to(x.dtype).reshape(-1, n)
         dx = (dy @ w.t()).reshape(x.shape)
         dw = x.reshape(-1, k).t() @ dy
@@ -300,31 +300,6 @@ def gemm_with_stats(x: torch.Tensor, w: torch.Tensor):
     return _GemmWithStats.apply(x, w, gemm_with_stats_fwd)
 
 
-def bn_affine_from_sums(
-    bn, s1: Optional[torch.Tensor], s2: Optional[torch.Tensor], count: float, train: bool
-):
-    """``_BNStats``: turn kernel-emitted sums into (scale, bias, mean, var).
-
-    ``bn`` owns ``weight``/``bias`` and the running statistics (the flax
-    BatchNorm layout); in train mode the running statistics are updated with
-    the flax momentum convention. ``count`` is this rank's rows: under a
-    process group the sums are all-reduced first, so the statistics are the
-    global batch's, as in ``models/norm.BatchNorm``.
-    """
-    if not train:
-        return bn.weight, bn.bias, bn.running_mean, bn.running_var
-    # under a process group the sums and the count are the global batch's:
-    # one all-reduce, whose backward all-reduces their gradients
-    s1, s2, n = distributed.global_sums(s1, s2, s1.new_full((1,), float(count)))
-    mean = s1 / n
-    var = s2 / n - mean * mean
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
-        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
-    return bn.weight, bn.bias, mean, var
-
-
 def conv1x1_bn(
     x: torch.Tensor,
     conv_weight: torch.Tensor,
@@ -333,15 +308,19 @@ def conv1x1_bn(
     dtype: torch.dtype,
     norm_dtype: torch.dtype,
     interpret: bool = False,
+    relu: bool = False,
 ) -> torch.Tensor:
-    """``conv(1x1) -> BatchNorm`` on an NHWC tensor, with the statistics from
-    the GEMM's epilogue in train mode.
+    """``conv(1x1) -> BatchNorm`` (``-> relu`` with ``relu``) on an NHWC
+    tensor, with the statistics from the GEMM's epilogue in train mode.
 
     x: (N*T, H, W, K); conv_weight: the conv's (N, K, 1, 1) OIHW parameter;
     ``bn``: the BatchNorm module that owns the affine and running statistics.
-    Eval mode uses the plain 1x1 conv and the running statistics. With
-    ``interpret`` the train-mode GEMM is ``gemm_stats_plain`` on every device
-    (``conv1x1_mode='pallas_stats_interpret'``). Returns (N*T, H, W, N) in
+    Train mode normalizes through ``ops/batchnorm.normalize_from_sums`` (the
+    running statistics updated with the flax momentum; under a process group
+    the sums and the row count all-reduced first); with ``interpret`` the GEMM
+    is ``gemm_stats_plain`` and the normalize its plain version on every
+    device (``conv1x1_mode='pallas_stats_interpret'``). Eval mode uses the
+    plain 1x1 conv and the running statistics. Returns (N*T, H, W, N) in
     ``norm_dtype``.
     """
     nt, h, w_, k = x.shape
@@ -350,10 +329,11 @@ def conv1x1_bn(
     wmat = conv_weight.reshape(features, k).t().to(dtype).contiguous()
     if train:
         y, s1, s2 = conv1x1_with_stats(x4, wmat, interpret)
-    else:
-        y, s1, s2 = x4 @ wmat, None, None
-    with annotate("model.bn", train):  # BatchNorm's half: the statistics to the normalize
-        scale, bias, mean, var = bn_affine_from_sums(bn, s1, s2, float(nt * h * w_), train)
-        inv = scale / torch.sqrt(var + EPS)
-        shift = bias - mean * inv
-        return y.to(norm_dtype) * inv.to(norm_dtype) + shift.to(norm_dtype)
+        with annotate("model.bn"):  # BatchNorm's half: the statistics to the normalize
+            return batchnorm.normalize_from_sums(y, s1, s2, bn, float(nt * h * w_), EPS,
+                                                 norm_dtype, relu, plain=interpret)
+    y = x4 @ wmat
+    inv = bn.weight / torch.sqrt(bn.running_var + EPS)
+    shift = bn.bias - bn.running_mean * inv
+    out = y.to(norm_dtype) * inv.to(norm_dtype) + shift.to(norm_dtype)
+    return F.relu(out) if relu else out

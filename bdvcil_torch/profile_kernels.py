@@ -29,7 +29,9 @@ forward and reverse), #6-#9b one layer1 block; and #8 in bf16 at W = 64
 #8 and the block at layer1 of a 1280 x 720 clip of 8 frames (8 x 180 x 320:
 the 3x3's window in three bands), bf16 and f32, and of a 1920 x 1080 one (8
 x 270 x 480) in bf16; #9b at 6144 channels (a and b in shared memory) and
-8192 (through the read-only cache) over layer1's 102.8M elements.
+8192 (through the read-only cache) over layer1's 102.8M elements; and
+train-mode BatchNorm's five kernels (``ops/batchnorm``, bf16, relu'd) at the
+stem's and layer1's BatchNorm of batch 16 (``BN ...`` lines).
 
     python -m bdvcil_torch.profile_kernels [--reps 20]
 
@@ -172,7 +174,7 @@ def kernel_table(rows):
         "#8 bf16 W=64 conv3x3_affine_relu_stats": device_ms(of("conv3x3_affine_relu_stats",
                                                               hw=64)[0]),
         **{f"{label} {r['kernel']} {r['shape']}": device_ms(r)
-           for r in rows if (label := r.get("wide"))},
+           for r in rows if (label := r.get("wide") or r.get("bn"))},
     }
 
 
@@ -275,6 +277,41 @@ def wide_rows(gen, dev, reps):
     return rows
 
 
+# (N*T, C, H, W) of train-mode BatchNorm's kernel-table rows: the stem's and
+# layer1's bn2 at batch 16 (chip_smoke.BN_SHAPES)
+BN_SHAPES = {"stem": (128, 64, 112, 112), "layer1": (128, 64, 56, 56)}
+
+
+def batchnorm_rows(gen, dev, reps):
+    """Train-mode BatchNorm's five kernels (bf16, relu'd) at BN_SHAPES, one
+    row a kernel and shape; ``bn`` labels its ``device`` line."""
+    from .models.norm import BatchNorm
+    from .ops import batchnorm as bn_ops
+
+    rows = []
+    for path, shape in BN_SHAPES.items():
+        n, c = shape[0] * shape[2] * shape[3], shape[1]
+        x, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) for _ in range(2))
+        bn = BatchNorm(c, dtype=torch.bfloat16).to(dev)
+        spec = bn_ops._Spec(False, True, torch.bfloat16, float(n), bn.epsilon, 1, False)
+        k = bn_ops._Kernels(x, 1)
+        s1, s2 = k.stats(x, 1)
+        coef = k.finalize(s1, s2, spec.count, bn, spec)
+        sg, sgx = k.bwd_reduce(g, x, coef, spec)
+        calls = {bn_ops.STATS: lambda: k.stats(x, 1),
+                 bn_ops.FINALIZE: lambda: k.finalize(s1, s2, spec.count, bn, spec),
+                 bn_ops.APPLY: lambda: k.apply(x, coef, spec),
+                 bn_ops.BWD_REDUCE: lambda: k.bwd_reduce(g, x, coef, spec),
+                 bn_ops.BWD_DX: lambda: k.bwd_dx(g, x, coef, sg, sgx, spec.count, spec)}
+        for name, fn in calls.items():
+            rows.append(dict(kernel=name, shape=list(shape), bn=f"BN {path}",
+                             us=kernel_split(fn, reps)))
+        del x, g
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
@@ -370,6 +407,7 @@ def main(argv=None) -> int:
         rows.append(dict(kernel=tsm.SHIFT, shape=list(shape), dtype=str(dtype), us=split))
         del x
     with torch.no_grad():
+        rows += batchnorm_rows(gen, dev, args.reps)
         rows += wide_rows(gen, dev, args.reps)  # last: kernel_table reads earlier rows first
     for r in rows:
         parts = ", ".join(f"{k} {v:.1f} us" for k, v in sorted(r["us"].items()))

@@ -11,6 +11,14 @@ hand-written kernels (the defaults reach none):
   B  shift_mode='fused_block'                        -> fused_residual_relu_shift
                                                         forward and backward
 
+Every train step of every configuration also runs train-mode BatchNorm's
+kernels (ops/batchnorm.py, csrc/batchnorm.cu): batchnorm_stats, _finalize
+and _apply forward, _bwd_reduce and _bwd_dx backward, one of each a
+BatchNorm (no statistics kernel where conv1x1_bn's GEMM gave the sums);
+eval forwards run none. Every phase that runs train steps counts them with
+its own kernels (``bn_launches``). Their rows (``batchnorm_rows``, after
+phase 2's) time them at the stem and layer1 of batch 16.
+
 Configuration A at the trainer's default float32 (phase 19) reaches the float32
 kernel of the same function, conv1x1_with_stats_f32 (and gemm_with_stats_f32):
 three TF32 products on the tensor cores (csrc/gemm_stats_tf32.cu).
@@ -336,6 +344,13 @@ CONV1_F32, CONV2_F32, CONV3_F32, EPILOGUE_F32 = (CONV1 + "_f32", CONV2 + "_f32",
 # yardstick computes (None: no one PyTorch call computes the same function)
 MATMUL_SUMS = "torch.matmul + two f32 sums"
 F32_MATMUL_SUMS = "torch.matmul (f32, TF32 off) + two f32 sums"
+# train-mode BatchNorm's kernels (ops/batchnorm.py, csrc/batchnorm.cu)
+BN_STATS, BN_FINALIZE, BN_APPLY, BN_BWD_REDUCE, BN_BWD_DX = (
+    "batchnorm_stats", "batchnorm_finalize", "batchnorm_apply", "batchnorm_bwd_reduce",
+    "batchnorm_bwd_dx")
+# (N*T, C, H, W) of their rows: the stem's BatchNorm and layer1's bn2 at batch 16
+BN_SHAPES = {"stem": (NT, 64, 112, 112), "layer1": (NT, 64, 56, 56)}
+BN_LIBRARY = "F.batch_norm (training, cuDNN or ATen) forward / backward, whole: a yardstick"
 KERNEL_META = {
     FWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:131", None),
     BWD: ("bdvcil_torch/csrc/tsm_shift.cu", "bdvcil_tpu/ops/tsm_shift.py:140", None),
@@ -366,6 +381,15 @@ KERNEL_META = {
                 "less work than the kernel"),
     EPILOGUE_F32: ("bdvcil_torch/csrc/block_epilogue.cu", "bdvcil_tpu/ops/block_fused.py:290",
                    None),
+    BN_STATS: ("bdvcil_torch/csrc/batchnorm.cu", "flax BatchNorm's batch statistics (XLA)",
+               BN_LIBRARY),
+    BN_FINALIZE: ("bdvcil_torch/csrc/batchnorm.cu", "flax BatchNorm's mean, var, running "
+                  "statistics (XLA)", None),
+    BN_APPLY: ("bdvcil_torch/csrc/batchnorm.cu", "flax BatchNorm's normalize + relu (XLA)",
+               None),
+    BN_BWD_REDUCE: ("bdvcil_torch/csrc/batchnorm.cu", "BatchNorm's VJP, its two sums (XLA)",
+                    BN_LIBRARY),
+    BN_BWD_DX: ("bdvcil_torch/csrc/batchnorm.cu", "BatchNorm's VJP, dx (XLA)", None),
 }
 # the 1x1 shapes of tools/bench_gemm_stats.py (M = 16 clips x 8 frames x H x W)
 GEMM_SHAPES = [(NT * 56 * 56, 256, 64), (NT * 56 * 56, 64, 256), (NT * 28 * 28, 512, 128),
@@ -386,6 +410,31 @@ SERVE_VIDEOS = 4  # phase 11's predict and extract_features batch (float32, as t
 CIL_BLOCKS = 16  # TSM-R50's blocks: one #1 launch each a forward, one #2 each a backward
 # phase 10 gives #1's and #2's launches: the kernels line sums their rows of its train shapes
 CIL_PATH = "cil"
+
+
+# train-mode BatchNorm modules of a TSM-ResNet: 3 a bottleneck (R50) or 2 a
+# basic block, one a downsample shortcut, and the stem's
+R50_BNS, R18_BNS = 3 * 16 + 4 + 1, 2 * 8 + 3 + 1
+
+
+def kernel_launches(since=None):
+    """The launch counts since ``since`` (a copy of them), those not 0."""
+    from bdvcil_torch.ops import _build
+
+    since = since or {}
+    return {k: v - since.get(k, 0) for k, v in _build.LAUNCHES.items() if v - since.get(k, 0)}
+
+
+def bn_launches(steps, bns=R50_BNS, sums=0, dtype=torch.bfloat16):
+    """Train-mode BatchNorm's launches (ops/batchnorm) over ``steps`` train
+    steps of a model whose ``bns`` BatchNorms take the kernels: one forward
+    and one backward of each, no statistics kernel for the ``sums`` of them
+    that normalize conv1x1_bn's sums (32 in configuration A's R50)."""
+    from bdvcil_torch.ops import batchnorm
+
+    want = {batchnorm.launch_name(k, dtype): bns * steps for k in batchnorm.KERNELS}
+    want[batchnorm.launch_name(batchnorm.STATS, dtype)] = (bns - sums) * steps
+    return {k: v for k, v in want.items() if v}
 
 
 def r50_shapes(nt: int = NT, size: int = SIZE):
@@ -678,6 +727,86 @@ def stats_of(y):
     return yf.sum(0), (yf * yf).sum(0)
 
 
+def batchnorm_rows(dev, gen):
+    """Train-mode BatchNorm's five kernels (bf16, relu'd, as every module
+    BatchNorm with a relu after it) at the stem and layer1 of batch 16,
+    against their plain versions: given the same sums, the finalize, the
+    normalize and dx bit for bit; the sums within 1e-5 of their terms'
+    absolute sum (float64's for the forward's, the plain f32 ones for the
+    backward's).
+    ``library_ms``: F.batch_norm's whole forward (on the statistics row) and
+    whole backward (on the reduction's)."""
+    from bdvcil_torch.models.norm import BatchNorm
+    from bdvcil_torch.ops import batchnorm as bn_ops
+
+    rows = []
+    for path, shape in BN_SHAPES.items():
+        n, c = shape[0] * shape[2] * shape[3], shape[1]
+        elems = n * c
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bn = BatchNorm(c, dtype=torch.bfloat16).to(dev)
+        spec = bn_ops._Spec(False, True, torch.bfloat16, float(n), bn.epsilon, 1, False)
+        k = bn_ops._Kernels(x, 1)
+        s1, s2 = k.stats(x, 1)
+        coef = k.finalize(s1, s2, spec.count, bn, spec)
+        sg, sgx = k.bwd_reduce(g, x, coef, spec)
+        xd = x.double()
+        errs = {
+            BN_STATS: max(float(((u.double() - v) / t).abs().max()) for u, v, t in (
+                (s1, xd.sum((0, 2, 3)), xd.abs().sum((0, 2, 3))),
+                (s2, (xd * xd).sum((0, 2, 3)), (xd * xd).sum((0, 2, 3))))),
+            BN_FINALIZE: float((coef - bn_ops.finalize_plain(
+                s1, s2, spec.count, BatchNorm(c).to(dev), spec)).abs().max()),
+            BN_APPLY: float((k.apply(x, coef, spec).float()
+                             - bn_ops.apply_plain(x, coef, spec).float()).abs().max()),
+            BN_BWD_DX: float((k.bwd_dx(g, x, coef, sg, sgx, spec.count, spec).float()
+                              - bn_ops.bwd_dx_plain(g, x, coef, sg, sgx, spec.count,
+                                                    spec).float()).abs().max()),
+        }
+        sg_p, sgx_p = bn_ops.bwd_reduce_plain(g, x, coef, spec)
+        gm = bn_ops._masked_g(g, x, coef, spec).abs()
+        errs[BN_BWD_REDUCE] = max(float(((u - v).abs() / t).max()) for u, v, t in (
+            (sg, sg_p, gm.sum((0, 2, 3))),
+            (sgx, sgx_p, (gm * bn_ops._xhat(x, coef, spec).abs()).sum((0, 2, 3)))))
+        del gm
+        for name in (BN_FINALIZE, BN_APPLY, BN_BWD_DX):
+            if errs[name] != 0:
+                raise AssertionError(f"{name} {path}: off the plain version by {errs[name]}")
+        if not max(errs[BN_STATS], errs[BN_BWD_REDUCE]) <= 1e-5:
+            raise AssertionError(f"batchnorm sums {path}: off by {errs}")
+        xl = x.detach().requires_grad_(True)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        w, b = bn.weight.detach(), bn.bias.detach()
+        lib_out = F.batch_norm(xl, rm, rv, w, b, training=True, momentum=0.1, eps=bn.epsilon)
+        calls = {
+            BN_STATS: (lambda: k.stats(x, 1), lambda: bn_ops.stats_plain(x, 1),
+                       lambda: F.batch_norm(x, rm, rv, w, b, training=True, momentum=0.1,
+                                            eps=bn.epsilon), 2 * elems, 3 * elems),
+            BN_FINALIZE: (lambda: k.finalize(s1, s2, spec.count, bn, spec),
+                          lambda: bn_ops.finalize_plain(s1, s2, spec.count, bn, spec), None,
+                          11 * 4 * c, 12 * c),
+            BN_APPLY: (lambda: k.apply(x, coef, spec), lambda: bn_ops.apply_plain(x, coef, spec),
+                       None, 4 * elems, 4 * elems),
+            BN_BWD_REDUCE: (lambda: k.bwd_reduce(g, x, coef, spec),
+                            lambda: bn_ops.bwd_reduce_plain(g, x, coef, spec),
+                            lambda: torch.autograd.grad(lib_out, (xl, ), g, retain_graph=True),
+                            4 * elems, 8 * elems),
+            BN_BWD_DX: (lambda: k.bwd_dx(g, x, coef, sg, sgx, spec.count, spec),
+                        lambda: bn_ops.bwd_dx_plain(g, x, coef, sg, sgx, spec.count, spec),
+                        None, 6 * elems, 12 * elems),
+        }
+        for name, (fn, plain, library, nbytes, flops) in calls.items():
+            row = timed_row(name, shape, 1, fn, plain, library, nbytes, flops, errs[name],
+                            peak=PEAK_F32_FLOPS)
+            rows.append(dict(row, bn_path=path))
+        del x, g, xl, lib_out, xd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf):
     """Kernels #4-#8 and the block's tail against their plain versions at the
     shapes of their paths."""
@@ -885,7 +1014,7 @@ def block_path(dev, seed, smi):
                                              (xo, po.b3))
             print(f"block {key} checks: {checks[key]}", flush=True)
             del xo, po, out, stats, ref, ref_stats
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     want = {CONV1: forwards, CONV2: forwards, CONV3: forwards, FINALIZE: 3 * forwards,
             EPILOGUE: forwards}
     if launches != want:
@@ -918,7 +1047,7 @@ def gemm_path(dev, gen):
         if y.shape != (m, n):
             raise AssertionError(f"gemm path: y {tuple(y.shape)} for M={m}, N={n}")
         del x, w, y
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     if launches != {GEMM: len(GEMM_SHAPES)}:
         raise AssertionError(f"gemm path: kernel launches {launches}")
     return launches
@@ -941,7 +1070,7 @@ def shift_path(dev, gen, shift_shapes):
                     and torch.equal(x.grad, tsm.temporal_unshift(g, SEGMENTS, 8))):
                 raise AssertionError(f"shift path {shape} {dtype}: differs from the plain shift")
         del x, g, out
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     if launches != {SHIFT: 2 * len(shift_shapes)}:
         raise AssertionError(f"shift path: kernel launches {launches}")
     return launches
@@ -1311,12 +1440,13 @@ def loop_phase(dev, seed, smi, conv_per_step):
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
         trained, last = run(state, LOOP_EPOCHS, epoch_hook=epoch_end, meter=meter)
-        launches = dict(_build.LAUNCHES)
+        launches = kernel_launches()
         wall = ends[-1] - t0
         steps = LOOP_EPOCHS * len(loader)
-        if launches != {CONV: conv_per_step * steps}:
-            raise AssertionError(f"loop: kernel launches {launches}, expected "
-                                 f"{conv_per_step} x {steps} steps of {CONV}")
+        want = {CONV: conv_per_step * steps, **bn_launches(steps, sums=conv_per_step)}
+        if launches != want:
+            raise AssertionError(f"loop: kernel launches {launches}, expected {want} over "
+                                 f"{steps} steps")
         if trained.step != steps or not all(math.isfinite(v) for v in last.values()):
             raise AssertionError(f"loop: step {trained.step}, last metrics {last}")
         after = trained.module.state_dict()
@@ -1449,7 +1579,8 @@ globals().update(_cfg)
 
 def expected_cil_launches(use_cbf: bool = True, splits=CIL_SPLITS, train=CIL_TRAIN,
                           val=CIL_VAL, budget=CIL_BUDGET, train_batch=CIL_BATCH,
-                          test_batch=CIL_BATCH, epochs=1, cbf_epochs=1, blocks=CIL_BLOCKS):
+                          test_batch=CIL_BATCH, epochs=1, cbf_epochs=1, blocks=CIL_BLOCKS,
+                          bns=R50_BNS, dtype=torch.bfloat16):
     """#1 and #2 launches per task of a CIL run in ``shift_mode='fused_block'``
     (``train``/``val`` videos a class, ``budget`` exemplars a seen class):
     every forward (train and CBF steps, the previous model's forward from
@@ -1460,7 +1591,8 @@ def expected_cil_launches(use_cbf: bool = True, splits=CIL_SPLITS, train=CIL_TRA
     and 11). The loaders wrap-pad the last train or CBF batch to a whole one
     and the eval pads a short batch (``check_fast_loaders``; the host
     pipeline's loaders alike), so each split takes ceil(videos / batch)
-    batches."""
+    batches. Each train or CBF step also runs train-mode BatchNorm's kernels
+    in the current model (``bn_launches``, ``bns`` BatchNorms in ``dtype``)."""
     def batches(n, b):
         return -(-n // b)
 
@@ -1474,7 +1606,8 @@ def expected_cil_launches(use_cbf: bool = True, splits=CIL_SPLITS, train=CIL_TRA
         kd = 2 if t > 0 else 1  # the current and the previous model
         fwd = steps * kd + batches(new, train_batch) + batches(budget * seen, test_batch) \
             + batches(val * seen, test_batch)
-        per_task.append({FWD: blocks * fwd, BWD: blocks * steps})
+        per_task.append({FWD: blocks * fwd, BWD: blocks * steps,
+                         **bn_launches(steps, bns, dtype=dtype)})
     testing = sum(batches(val * sum(len(s) for s in splits[:t + 1]), test_batch)
                   for t in range(len(splits)))
     return per_task, {FWD: blocks * testing}
@@ -1510,7 +1643,7 @@ def cil_phase(dev, seed, smi):
     def finish_and_mark(self):
         finish(self)
         torch.cuda.synchronize()
-        marks.append(dict(_build.LAUNCHES))
+        marks.append(kernel_launches())
 
     try:
         t0 = time.perf_counter()
@@ -1530,8 +1663,7 @@ def cil_phase(dev, seed, smi):
         trainer.cil_testing(test_nme=True)
         torch.cuda.synchronize()
         out["cil_testing_s"] = time.perf_counter() - t0
-        testing = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
-                   if v - before.get(k, 0)}
+        testing = kernel_launches(before)
 
         tasks, prev = [], collections.Counter()
         for t, (stats, mark) in enumerate(zip(trainer.task_stats, marks)):
@@ -1695,7 +1827,7 @@ def _launched(before):
     from bdvcil_torch.ops import _build
 
     torch.cuda.synchronize()
-    return {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items() if v - before.get(k, 0)}
+    return kernel_launches(before)
 
 
 def acm_phase(dev, seed, smi):
@@ -1729,10 +1861,10 @@ def acm_phase(dev, seed, smi):
     def finish_and_mark(self):
         finish(self)
         torch.cuda.synchronize()
-        marks.append(dict(_build.LAUNCHES))
+        marks.append(kernel_launches())
 
     def timed(name, fn):
-        before = dict(_build.LAUNCHES)
+        before = kernel_launches()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -1834,7 +1966,7 @@ def acm_phase(dev, seed, smi):
                   f"{stats['test_s']:.2f} s | CNN {cnn} NME {nme} | exemplars "
                   f"{stats['exemplars']} | #1 {got.get(FWD)} #2 {got.get(BWD)} launches "
                   f"(= expected) [{smi}]", flush=True)
-        before = dict(_build.LAUNCHES)
+        before = kernel_launches()
         t0 = time.perf_counter()
         trainer.cil_testing(test_nme=True)
         out["cil_testing_s"] = time.perf_counter() - t0
@@ -2008,6 +2140,7 @@ MODE_SWITCHES = {"s2d": dict(stem_mode="s2d"), "fused": dict(shift_mode="fused")
                  "bn_groups=2": dict(bn_groups=2), "bn_stats_rows=4": dict(bn_stats_rows=4)}
 MODE_F32_TOL = 1e-3  # card f32 (no TF32) vs CPU f32, of the largest entry
 MODE_BF16_FACTOR = 2.0  # card bf16 vs CPU f32, against the plain backbone's own error
+# (with eager BatchNorm, as every mode's yardstick: modes_forward)
 
 
 def dist_inputs(seed):
@@ -2063,7 +2196,7 @@ def dist_steps(name, dev, seed, dtype=torch.bfloat16, switches=None):
             state, m = step(state, prev, imgs, labels, extra, step_generator(seed, s, dev))
         torch.cuda.synchronize()
         records.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(m["loss"]),
-                            kd_loss=float(m["kd_loss"]), launches=dict(_build.LAUNCHES)))
+                            kd_loss=float(m["kd_loss"]), launches=kernel_launches()))
 
     run(make_train_step(spec, tx, nc0), None, labels0, {}, 0)
     after0 = {k: v.detach().float().cpu().clone() for k, v in state.module.state_dict().items()
@@ -2145,7 +2278,7 @@ def dist_cil(root: pathlib.Path):
     t0 = time.perf_counter()
     trainer = train_cil.main([str(config)])
     train_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     trainer.cil_testing(test_nme=True)
     distributed.sync_processes("tables")
     tables = {n: (wd / n).read_text() for n in ("cnn_result.txt", "nme_result.txt")}
@@ -2229,11 +2362,66 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def eager_batchnorm():
+    """Train-mode BatchNorm's plain versions under autograd on every device
+    (the eager formula; ops/batchnorm), in place of its kernels."""
+    from bdvcil_torch.ops import batchnorm
+
+    eager = batchnorm._eager
+    batchnorm._eager = lambda x, spec: True
+    try:
+        yield
+    finally:
+        batchnorm._eager = eager
+
+
+@contextlib.contextmanager
+def recorded_batchnorm_sums(record=None):
+    """BatchNorm's kernels with the statistics of torch's f32 reductions (the
+    plain versions' sums; the kernels take them from there, so only the
+    order of the sums differs from the kernels' own); with ``record`` the
+    kernels' own sums instead, and for each call the largest error of the
+    batch variance from the kernels' sums and from torch's, against
+    float64's, of float64's variance plus eps, appended to ``record``."""
+    from bdvcil_torch.ops import batchnorm
+
+    stats = batchnorm._Kernels.stats
+
+    def swapped(self, x, cdim):
+        if record is None:
+            return batchnorm.stats_plain(x, cdim)
+        own = stats(self, x, cdim)
+        dims, n = batchnorm._dims(x, cdim), x.numel() / x.shape[cdim]
+        xd = x.double()
+        mean = xd.sum(dims) / n
+        var = (xd * xd).sum(dims) / n - mean * mean
+        errs = []
+        for s1, s2 in (own, batchnorm.stats_plain(x, cdim)):
+            m = s1.double() / n
+            errs.append(float(((s2.double() / n - m * m - var).abs() / (var + 1e-5)).max()))
+        record.append(errs)
+        return own
+
+    batchnorm._Kernels.stats = swapped
+    try:
+        yield
+    finally:
+        batchnorm._Kernels.stats = stats
+
+
 def modes_forward(dev, seed, smi):
     """(c): one train-mode forward of TSM-R50 under each switch no config on
     the main path reaches, on the card against the CPU (f32): in f32 without
     TF32, within ``MODE_F32_TOL``; in bf16, within twice the plain backbone's
-    own bf16 error on the same input (``MODE_BF16_FACTOR``)."""
+    own bf16 error on the same input (``MODE_BF16_FACTOR``) with eager
+    BatchNorm (``eager_batchnorm``): the yardstick of every mode, the plain
+    backbone on BatchNorm's kernels included. The plain backbone's bf16 error
+    is also read on the kernels fed torch's sums (``recorded_batchnorm_sums``:
+    only the sums' order changed), and each BatchNorm's batch variance from
+    the kernels' sums and from torch's against float64's: where the
+    kernels' error differs from the eager one, these show whether the sums
+    are the cause."""
     from bdvcil_torch import config_templates as presets
     from bdvcil_torch.models import build_model, init_model_params
 
@@ -2249,13 +2437,31 @@ def modes_forward(dev, seed, smi):
     def err(got, ref):
         return {k: float((got[k] - ref[k]).abs().max()) / float(ref[k].abs().max()) for k in ref}
 
-    out = {}
+    ref32 = forward({}, "cpu", torch.float32)
+    with eager_batchnorm():
+        plain16 = err(forward({}, dev, torch.bfloat16), ref32)
+    tol16 = {k: MODE_BF16_FACTOR * v for k, v in plain16.items()}
+    with recorded_batchnorm_sums():
+        torch_sums16 = err(forward({}, dev, torch.bfloat16), ref32)
+    var_errs = []
+    with recorded_batchnorm_sums(var_errs):
+        forward({}, dev, torch.bfloat16)
+    kernel_var, torch_var = (sorted(e[i] for e in var_errs) for i in (0, 1))
+    out = {"plain eager BatchNorm": dict(bf16=plain16),
+           "plain kernels on torch's sums": dict(bf16=torch_sums16),
+           "bf16 batch variance error": dict(kernels=kernel_var, torch=torch_var)}
+    print(f"distributed (c) the plain backbone's bf16 error (cls_score / repr) with eager "
+          f"BatchNorm {plain16['cls_score']:.3g} / {plain16['repr']:.3g}, with the kernels on "
+          f"torch's f32 sums {torch_sums16['cls_score']:.3g} / {torch_sums16['repr']:.3g}; the "
+          f"{len(var_errs)} BatchNorms' batch variance off float64's by, of var + eps: the "
+          f"kernels' sums median {kernel_var[len(var_errs) // 2]:.3g} max {kernel_var[-1]:.3g}, "
+          f"torch's median {torch_var[len(var_errs) // 2]:.3g} max {torch_var[-1]:.3g} "
+          f"[{smi}]", flush=True)
     for mode, switches in {"plain": {}, **MODE_SWITCHES}.items():
         ref = forward(switches, "cpu", torch.float32)
         e32 = err(forward(switches, dev, torch.float32), ref)
         e16 = err(forward(switches, dev, torch.bfloat16), ref)
         out[mode] = dict(f32=e32, bf16=e16)
-        tol16 = {k: MODE_BF16_FACTOR * v for k, v in out["plain"]["bf16"].items()}
         bad = [k for k in ref if not e32[k] <= MODE_F32_TOL or not e16[k] <= tol16[k]]
         if bad:
             raise AssertionError(f"distributed (c) {mode}: card vs CPU f32 {e32}, bf16 {e16} "
@@ -2264,7 +2470,8 @@ def modes_forward(dev, seed, smi):
               f"against the CPU (f32), off by, of the largest entry: f32 cls_score "
               f"{e32['cls_score']:.3g} repr {e32['repr']:.3g} (tol {MODE_F32_TOL}); bf16 "
               f"cls_score {e16['cls_score']:.3g} repr {e16['repr']:.3g} (tol "
-              f"{MODE_BF16_FACTOR} x the plain backbone's bf16 error) [{smi}]", flush=True)
+              f"{MODE_BF16_FACTOR} x the plain backbone's with eager BatchNorm, "
+              f"{plain16['cls_score']:.3g} / {plain16['repr']:.3g}) [{smi}]", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -2327,9 +2534,13 @@ def distributed_phase(dev, seed, smi):
     if [r["loss"] for r in first["records"]] != losses[0]:
         differ.append("the first run's losses")
     conv_launches = [r["launches"].get(CONV, 0) for r in grouped["records"]]
-    if differ or losses[0] != losses[1] or conv_launches != [32, 32]:
+    step_launches = {CONV: 32, **bn_launches(1, sums=32)}
+    if differ or losses[0] != losses[1] or [r["launches"] for r in grouped["records"]] != [
+            step_launches] * 2:
         raise AssertionError(f"distributed (a): {len(differ)} leaves differ (e.g. {differ[:3]}), "
-                             f"losses {losses}, #3 launches a step {conv_launches}")
+                             f"losses {losses}, launches a step "
+                             f"{[r['launches'] for r in grouped['records']]}, expected "
+                             f"{step_launches}")
     ms = ([r["ms"] for r in alone["records"]], [r["ms"] for r in grouped_timed["records"]])
     extra_ms = sum(ms[1]) - sum(ms[0])
     out["a"] = dict(losses=losses[1], ms_alone=ms[0], ms_nccl1=ms[1],
@@ -2394,11 +2605,13 @@ def distributed_phase(dev, seed, smi):
         gap2 = _backbone_update_gap(r0["state"], one[name]["state"], start)
         running = _backbone_update_gap(r0["state0"], one[name]["state0"], start, running=True)
         per_rank = [[x["launches"] for x in r[name]["records"]] for r in ranks]
+        bn = bn_launches(1, sums=32 if name == "A" else 0,
+                         dtype=torch.float32 if name.endswith("f32") else torch.bfloat16)
         if name == "A":
-            bad = [c for rank in per_rank for c in rank if c.get(CONV) != 32]
+            bad = [c for rank in per_rank for c in rank if c != {CONV: 32, **bn}]
         else:  # #1 once a block a forward (the previous model's too at task 1), #2 a backward
             bad = [c for rank in per_rank for c, f in zip(rank, (1, 2))
-                   if c.get(FWD) != CIL_BLOCKS * f or c.get(BWD) != CIL_BLOCKS]
+                   if c != {FWD: CIL_BLOCKS * f, BWD: CIL_BLOCKS, **bn}]
         if (differ or max(rel) > loss_rtol or (update_tol is not None and gap > update_tol)
                 or not running <= running_tol or bad
                 or not all(math.isfinite(v) for v in got)):
@@ -2831,10 +3044,11 @@ def jpeg_phase(dev, seed, smi):
             torch.cuda.synchronize()
             _build.LAUNCHES.clear()
             res = bench_train.run(args)
-            launches = dict(_build.LAUNCHES)
-            if launches != {CONV: 32 * res["steps"]}:
+            launches = kernel_launches()
+            if launches != {CONV: 32 * res["steps"], **bn_launches(res["steps"], sums=32)}:
                 raise AssertionError(f"bench_train --source {source}: kernel launches "
-                                     f"{launches}, expected 32 x {res['steps']} of {CONV}")
+                                     f"{launches}, expected 32 x {res['steps']} of {CONV} and "
+                                     f"BatchNorm's")
             out["bench"][source] = dict(res, launches=launches)
             print(f"bench_train --config A --source {source} ({res['wire_format']} wire, K={res['k']}, "
                   f"1 window of {args.steps} steps): e2e {res['value']:.2f} clips/s, "
@@ -2890,11 +3104,12 @@ def profile_phase(dev, seed, smi):
             _build.LAUNCHES.clear()
             lines = profile_e2e.run(profile_args(source), emit=lambda text: None)
             torch.cuda.synchronize()
-            launches = dict(_build.LAUNCHES)
+            launches = kernel_launches()
             steps = profile_e2e.WARM_STEPS + len(lines) * PROFILE_STEPS
-            if launches != {CONV: 32 * steps}:
+            if launches != {CONV: 32 * steps, **bn_launches(steps, sums=32)}:
                 raise AssertionError(f"profile_e2e --source {source}: kernel launches "
-                                     f"{launches}, expected 32 x {steps} of {CONV}")
+                                     f"{launches}, expected 32 x {steps} of {CONV} and "
+                                     f"BatchNorm's")
             for line in lines:
                 what = f"profile_e2e {line['mode']} --source {source}"
                 if line["steps"] != PROFILE_STEPS:
@@ -3005,7 +3220,7 @@ def bench_phase(dev, seed, smi):
         _build.LAUNCHES.clear()
         res = fn(args)
         torch.cuda.synchronize()
-        return res, {k: v for k, v in _build.LAUNCHES.items() if v}
+        return res, kernel_launches()
 
     try:
         # (a) the step headline, A and default; the forward-only bench, B
@@ -3015,7 +3230,8 @@ def bench_phase(dev, seed, smi):
                          "--warmup", str(BENCH_WARMUP)])
             res, launches = counted(bench_step.run, args)
             steps = BENCH_STEPS + BENCH_WARMUP
-            want = {CONV: 32 * steps} if config == "A" else {}
+            want = ({CONV: 32 * steps, **bn_launches(steps, sums=32)} if config == "A"
+                    else bn_launches(steps))
             if launches != want:
                 raise AssertionError(f"bench_step --config {config}: kernel launches {launches}, "
                                      f"expected {want} over {steps} steps")
@@ -3083,9 +3299,9 @@ def bench_phase(dev, seed, smi):
         if type(loader).__name__ != "FastACMLoader" or loader.wire_format != res["wire_format"]:
             raise AssertionError(f"bench_train --family acm ran {type(loader).__name__} on "
                                  f"{loader.wire_format}, its line names {res['wire_format']}")
-        if launches != {CONV: 32 * res["steps"]}:
+        if launches != {CONV: 32 * res["steps"], **bn_launches(res["steps"], sums=32)}:
             raise AssertionError(f"bench_train --family acm: kernel launches {launches}, "
-                                 f"expected 32 x {res['steps']} of {CONV}")
+                                 f"expected 32 x {res['steps']} of {CONV} and BatchNorm's")
         out["acm A"] = dict(res, launches=launches)
         print(f"bench_train --family acm --config A ({type(loader).__name__}, "
               f"{res['wire_format']} wire, K={res['k']}, 1 window of {BENCH_ACM_STEPS} steps): "
@@ -3112,10 +3328,12 @@ STUDY_BLOCKS = 8  # TSM-R18's blocks: one #1 launch each a forward, one #2 each 
 STUDY_STAGES = 3
 
 
-def expected_study_launches(cfg):
-    """#1 / #2 launches of the port's side of one parity_study pair in
-    ``shift_mode='fused_block'``, from its config: the CIL run's count
-    (``expected_cil_launches``) over its tasks, without cil_testing."""
+def expected_study_launches(cfg, fused=True):
+    """The launches of the port's side of one parity_study pair, from its
+    config: the CIL run's count (``expected_cil_launches``: TSM-R18 in
+    float32) over its tasks, without cil_testing; #1 / #2 in
+    ``shift_mode='fused_block'`` (``fused``), train-mode BatchNorm's always
+    (the reference loop runs torch's own BatchNorm)."""
     from bdvcil_torch.reference_loop import tree
 
     params = tree.TREE_PARAMS
@@ -3125,8 +3343,10 @@ def expected_study_launches(cfg):
         val=params["val_videos_per_class"] + params["extra_val_videos_per_class"],
         budget=cfg["budget_size"], train_batch=cfg["videos_per_gpu"],
         test_batch=cfg["testing_videos_per_gpu"], epochs=cfg["num_epochs_per_task"],
-        cbf_epochs=cfg["cbf_num_epochs_per_task"], blocks=STUDY_BLOCKS)
-    return {k: sum(task[k] for task in per_task) for k in (FWD, BWD)}
+        cbf_epochs=cfg["cbf_num_epochs_per_task"], blocks=STUDY_BLOCKS, bns=R18_BNS,
+        dtype=torch.float32)
+    return {k: sum(task[k] for task in per_task) for k in per_task[0]
+            if fused or k not in (FWD, BWD)}
 
 
 def check_study_run(what, payload, stages):
@@ -3199,9 +3419,13 @@ def study_phase(dev, seed, smi):
         bn_s = time.perf_counter() - t0
     finally:
         bn_ablation.build_mode = build_mode
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    if launches:  # R18 at pad + xla, the modes' default: no hand-written kernel
-        raise AssertionError(f"bn_ablation: kernel launches {launches}, expected none")
+    launches = kernel_launches()
+    # R18 at pad + xla, the modes' default: train-mode BatchNorm's kernels in
+    # float32, in the global mode only (batches of 32, the tail dropped)
+    steps = bn_ablation.EPOCHS * sum(len(bn_ablation.seed_data(s)[1]) // 32 for s in seeds)
+    if launches != bn_launches(steps, R18_BNS, dtype=torch.float32):
+        raise AssertionError(f"bn_ablation: kernel launches {launches}, expected train-mode "
+                             f"BatchNorm's over {steps} global-mode steps")
     records = res["records"]
     if len(records) != len(seeds) * len(bn_ablation.MODES):
         raise AssertionError(f"bn_ablation: {len(records)} records")
@@ -3268,11 +3492,11 @@ def study_phase(dev, seed, smi):
                 tsm.fused_fwd, tsm.fused_bwd = fused_fwd, fused_bwd
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            launches = kernel_launches()
             payload = json.loads((root / f"{name}.json").read_text())
             run = check_study_run(f"parity_study {name}", payload, STUDY_STAGES)
             cfg = made[0][1].config
-            want = {} if name == "pad" else expected_study_launches(cfg)
+            want = expected_study_launches(cfg, fused=name != "pad")
             if cfg.model["backbone"].get("shift_mode", "pad") != name:
                 raise AssertionError(f"parity_study {name}: the port's model ran "
                                      f"{cfg.model['backbone'].get('shift_mode', 'pad')}")
@@ -3323,7 +3547,12 @@ def _close(what, got, want, rtol):
 
 def check_graft_run(what, run, n, backend, device):
     """A dry run's schema: its ranks' backend and device, every part's losses
-    finite, the eval scores (n, 10, 5), no hand-written kernel launched."""
+    finite, the eval scores (n, 10, 5); on the card each rank launched
+    train-mode BatchNorm's float32 kernels for every train step ((a), (b)'s
+    K, each of (d)-(g) that ran) and no other hand-written kernel, on the
+    CPU none."""
+    from bdvcil_torch import graft_entry
+
     if (run["n"], run["backend"], run["device"]) != (n, backend, device):
         raise AssertionError(f"{what}: ran {run['n']} ranks over {run['backend']} on "
                              f"{run['device']}, expected {n} over {backend} on {device}")
@@ -3338,9 +3567,12 @@ def check_graft_run(what, run, n, backend, device):
     scores = run["c"]["cls_score"]
     if scores.shape != (n, 10, 5) or not bool(torch.isfinite(torch.from_numpy(scores)).all()):
         raise AssertionError(f"{what}: eval cls_score {scores.shape}")
-    if run["launches"] or any(run["rank_launches"]):  # TSM-R18 at pad + xla: no kernel
+    steps = 1 + graft_entry.K + sum(run[part] is not None for part in "defg")
+    want = {} if device == "cpu" else bn_launches(steps, R18_BNS, dtype=torch.float32)
+    if run["launches"] != want or run["rank_launches"] != [sum(want.values())] * n:
         raise AssertionError(f"{what}: kernel launches {run['launches']} (rank 0), "
-                             f"{run['rank_launches']} (each rank), expected none")
+                             f"{run['rank_launches']} (each rank), expected {want} (TSM-R18 at "
+                             f"pad + xla: BatchNorm's over {steps} train steps)")
 
 
 def graft_metrics(run):
@@ -3356,7 +3588,8 @@ def graft_phase(dev, seed, smi):
     ms, one clip against the CPU's forward at the same weights; (b)
     ``dryrun_multichip(1)`` in a one-rank NCCL group and ``(2)`` as two gloo
     processes on the card, against ``(2)`` on the CPU (run beside them); (c)
-    no hand-written kernel launched, in this process or in a rank."""
+    no hand-written kernel launched in this process, and in each rank
+    train-mode BatchNorm's only (``check_graft_run``)."""
     from bdvcil_torch import graft_entry
     from bdvcil_torch.ops import _build
 
@@ -3384,7 +3617,7 @@ def graft_phase(dev, seed, smi):
         err, scale = float((got - ref).abs().max()), float(ref.abs().max())
         if not err <= DIST_EVAL_TOL * scale:
             raise AssertionError(f"entry(): card vs CPU off by {err} of max |logit| {scale}")
-        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launched = kernel_launches()
         out["entry"] = dict(shape=list(scores.shape), forward_ms=fwd_ms, max_abs_err=err,
                             max_abs_logit=scale, launches=launched)
         print(f"graft (a) entry(): TSM-R50 bf16 eval forward at 8 x 8 x 224², cls_score "
@@ -3431,7 +3664,7 @@ def graft_phase(dev, seed, smi):
             gaps[f"{part} input"] = gap
             if not gap <= GRAFT_INPUT_ATOL:
                 raise AssertionError(f"dryrun_multichip(2) part {part}: input off by {gap}")
-    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    launched = kernel_launches()
     if launched:  # (c) the default modes reach no hand-written kernel
         raise AssertionError(f"graft: kernel launches {launched}, expected none")
     for line in cpu["lines"]:
@@ -3446,8 +3679,9 @@ def graft_phase(dev, seed, smi):
             f"{DIST_EVAL_TOL} of the largest score; inputs atol {GRAFT_INPUT_ATOL}) [{smi}]",
           flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"graft (c) kernel launches {launched} in this process, none in any rank (the "
-          f"default pad + xla modes); graft phase {out['phase_s']:.1f} s [{smi}]", flush=True)
+    print(f"graft (c) kernel launches {launched} in this process; a rank on the card "
+          f"{two['launches']} (train-mode BatchNorm's alone at the default pad + xla modes); "
+          f"graft phase {out['phase_s']:.1f} s [{smi}]", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -3630,7 +3864,7 @@ def f32_gemm_path(dev, gen, conv):
                                        atol=F32_Y_RTOL * float(ref.abs().max()),
                                        msg=lambda s: f"{GEMM_F32} {what} {(m, k, n)}: {s}")
         del x, w, gy, xi, wi, y, dy
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    launches = kernel_launches()
     if launches != {GEMM_F32: len(GEMM_SHAPES)}:
         raise AssertionError(f"f32 gemm path: kernel launches {launches}")
     return launches
@@ -3639,7 +3873,8 @@ def f32_gemm_path(dev, gen, conv):
 def print_row(r):
     """One ``kernel`` line of a timed kernel row."""
     tile = r["tile"]
-    print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/{r.get('path', 'path')}: "
+    path = r.get("path", r.get("bn_path", "path"))
+    print(f"kernel {r['kernel']} {r['shape']} x{r['per_path']}/{path}: "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
           f"({KERNEL_META[r['kernel']][2]}), product {r['product_ms']}, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['ms'] / r['bound_ms']:.2f}x"
@@ -3714,11 +3949,16 @@ def f32_phase(dev, gen, seed, smi, conv, bf16_step_ms):
         torch.use_deterministic_algorithms(deterministic[0])
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[1:]
     kern, plain = runs["pallas_stats"], runs["pallas_stats_interpret"]
+    # the 21 module BatchNorms on their kernels in both modes; the 32 that
+    # normalize the GEMM's sums too under 'pallas_stats', on the plain
+    # versions under 'pallas_stats_interpret'
+    want_k = {CONV_F32: 32, **bn_launches(1, sums=32, dtype=f32)}
+    want_p = bn_launches(1, R50_BNS - 32, dtype=f32)
     for rk, rp in zip(kern["records"], plain["records"]):
-        got = {k: v for k, v in rk["launches"].items() if v}
-        if got != {CONV_F32: 32} or any(rp["launches"].values()):
-            raise AssertionError(f"f32 (b): launches {got} (pallas_stats), {rp['launches']} "
-                                 f"(interpret); expected {CONV_F32} 32 a step, none")
+        if rk["launches"] != want_k or rp["launches"] != want_p:
+            raise AssertionError(f"f32 (b): launches {rk['launches']} (pallas_stats), "
+                                 f"{rp['launches']} (interpret); expected {want_k}, {want_p} a "
+                                 f"step")
         _close("f32 (b) loss, pallas_stats vs interpret", rk["loss"], rp["loss"], F32_LOSS_RTOL)
     running = [k for k in plain["state"] if "running" in k]
     gaps = {}
@@ -3758,11 +3998,12 @@ def f32_phase(dev, gen, seed, smi, conv, bf16_step_ms):
         trainer = train_cil.main([str(config)])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches = kernel_launches()
         steps = -(-CIL_TRAIN * len(CIL_SPLITS[0]) // CIL_BATCH)  # 1 epoch, task 0
-        if trainer.spec.dtype != f32 or launches != {CONV_F32: 32 * steps}:
+        want = {CONV_F32: 32 * steps, **bn_launches(steps, sums=32, dtype=f32)}
+        if trainer.spec.dtype != f32 or launches != want:
             raise AssertionError(f"f32 (c): dtype {trainer.spec.dtype}, launches {launches}, "
-                                 f"expected {CONV_F32} {32 * steps}")
+                                 f"expected {want}")
         cnn, nme = trainer.cnn_matrix[0], trainer.nme_matrix[0]
         if not all(math.isfinite(a) and 0 <= a <= 100 for a in cnn + nme):
             raise AssertionError(f"f32 (c): accuracies {cnn} {nme}")
@@ -3976,7 +4217,7 @@ def f32_wide_and_ragged(dev, gen, bf):
             checks[what] = dict(max_abs_err=assert_f32_stats(
                 what, got, bf.conv1x1_affine_relu_stats_plain(x, a, b, w3)))
             want[CONV3_F32] += 2
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    launches = kernel_launches()
     if launches != dict(want):
         raise AssertionError(f"f32 wide and ragged: kernel launches {launches}, expected "
                              f"{dict(want)}")
@@ -4032,7 +4273,7 @@ def f32_block_path(dev, seed, smi, bf):
                 forwards += 2 * (F32_BLOCK_ITERS + 2)  # two fused schedules, warm-up and chain
             del x, p
             torch.cuda.empty_cache()
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    launches = kernel_launches()
     want = {CONV1_F32: forwards, CONV2_F32: forwards, CONV3_F32: forwards,
             FINALIZE: 3 * forwards, EPILOGUE_F32: forwards}
     if launches != want:
@@ -4110,7 +4351,7 @@ def bf16_block_shapes(dev, gen, seed, bf, conv):
         w1 = (torch.randn((13, 6), generator=gen, device=dev) / math.sqrt(13)).to(bf16)
         check_op(CONV1, f"{CONV1} 16x14x14x13/6", lambda: bf.conv1x1_stats(x, w1),
                  lambda: conv.gemm_stats_plain(x, w1))
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    launches = kernel_launches()
     if launches != dict(want):
         raise AssertionError(f"bf16 block shapes: kernel launches {launches}, expected "
                              f"{dict(want)}")
@@ -4286,7 +4527,7 @@ def hd_phase(dev, gen, seed, smi, bf):
                     want[name] += 12
                 del x, y3
         torch.cuda.empty_cache()
-        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches = kernel_launches()
         if launches != dict(want):
             raise AssertionError(f"banded #8 and wide #9b: kernel launches {launches}, "
                                  f"expected {dict(want)}")
@@ -4301,7 +4542,7 @@ def hd_phase(dev, gen, seed, smi, bf):
             checks.update(found)
             forwards[dtype] += n
             blocks[label] = {f"{k}_ms_per_block": v for k, v in chain.items()}
-    hd_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    hd_launches = kernel_launches()
     fb, ff = forwards[bf16], forwards[torch.float32]
     want_blocks = {CONV1: fb, CONV2: fb, CONV3: fb, EPILOGUE: fb, FINALIZE: 3 * (fb + ff),
                    CONV1_F32: ff, CONV2_F32: ff, CONV3_F32: ff, EPILOGUE_F32: ff}
@@ -4393,11 +4634,17 @@ def block_dtype_phase(dev, gen, seed, smi, bf, conv):
 
 
 def expected_launches(config: str, blocks: int = 16, gemms: int = 32):
-    """Per config, over 3 task-0 and 3 task-1 steps."""
+    """Per config, over 3 task-0 and 3 task-1 steps: the kernels of the
+    config, and train-mode BatchNorm's in the current model (the previous one
+    runs in eval mode): one forward and one backward of each of the 3 *
+    blocks + 4 + 1 BatchNorms a step, ``gemms`` of them normalizing the
+    GEMM's sums in config A (no statistics kernel)."""
+    bns = 3 * blocks + 5
     if config == "A":  # conv1/conv3 of every bottleneck, train mode only
-        return {CONV: gemms * 6}
+        return {CONV: gemms * 6, **bn_launches(6, bns, sums=gemms)}
+    bn = bn_launches(6, bns)
     # every block's epilogue: the current model, plus the previous one at task 1
-    return {FWD: blocks * 3 + 2 * blocks * 3, BWD: blocks * 6}
+    return {FWD: blocks * 3 + 2 * blocks * 3, BWD: blocks * 6, **bn}
 
 
 def main(argv=None) -> int:
@@ -4453,6 +4700,7 @@ def main(argv=None) -> int:
     rows = kernel_phase(dev, gen, fused_paths(), gemm_paths(), tsm, conv)
     torch.cuda.empty_cache()
     rows += kernel_phase_2(dev, gen, shift_shapes, conv, tsm, bf)
+    rows += batchnorm_rows(dev, gen)
     for r in rows:
         print_row(r)
     # #1 and #2 over one forward (backward) of each path that runs them

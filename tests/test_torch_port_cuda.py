@@ -24,7 +24,12 @@ the same 3xTF32 kernel), whose tail (#9b) is bit for bit; against x @ w in
 float64 each 3xTF32 form's error stays within WITNESS_FACTOR of its plain
 emulation's (ops/tf32);
 the float32 block against its plain composition within 1e-4 of the terms'
-size (f32 sums of another order through three BatchNorms).
+size (f32 sums of another order through three BatchNorms); train-mode
+BatchNorm (csrc/batchnorm.cu): given the same sums, the finalize, the
+normalize, the running statistics and dx bit for bit against the plain
+versions, the forward's sums within 1e-5 of sum |x| of float64's, the
+backward's two sums within 1e-5 of the terms' absolute sum of the plain
+f32 reductions, and the same bits on a second run.
 """
 
 import numpy as np
@@ -32,6 +37,7 @@ import pytest
 import torch
 
 from bdvcil_torch.ops import _build
+from bdvcil_torch.ops import batchnorm as port_bn
 from bdvcil_torch.ops import block_fused as port_bf
 from bdvcil_torch.ops import conv1x1_bn as port_conv
 from bdvcil_torch.ops import gemm_plan, tf32
@@ -530,9 +536,9 @@ def test_wgmma_1x1_kernels_match_plain_at_ragged_k_and_n(cuda, mkn):
 
 def test_f32_bottleneck_launches_the_f32_kernel_only(cuda):
     """A float32 bottleneck under conv1x1_mode='pallas_stats' launches the
-    float32 kernel for conv1 and conv3 in a train forward and the bf16 core
-    never; its output and running statistics match 'pallas_stats_interpret'
-    (the plain GEMM) within 1e-4 of the largest entry."""
+    float32 kernel for conv1 and conv3 in a train forward, BatchNorm's float32
+    kernels, and the bf16 core never; its output and running statistics match
+    'pallas_stats_interpret' (the plain GEMM) within 1e-4 of the largest entry."""
     from bdvcil_torch.models.resnet_tsm import Bottleneck, nchw
 
     g = torch.Generator().manual_seed(14)
@@ -552,7 +558,14 @@ def test_f32_bottleneck_launches_the_f32_kernel_only(cuda):
         torch.cuda.synchronize()
         launches[mode] = dict(_build.LAUNCHES)
         stats[mode] = {k: v for k, v in block.state_dict().items() if "running" in k}
-    assert launches == {"pallas_stats": {port_conv.KERNEL_F32: 2}, "pallas_stats_interpret": {}}
+    # bn2 through the module's BatchNorm kernels; bn1 and bn3 normalize the
+    # GEMM's sums, in 'pallas_stats_interpret' with the plain versions
+    bn2 = {port_bn.STATS + port_bn.F32: 1, port_bn.FINALIZE + port_bn.F32: 1,
+           port_bn.APPLY + port_bn.F32: 1}
+    assert launches == {"pallas_stats": {port_conv.KERNEL_F32: 2, **bn2,
+                                         port_bn.FINALIZE + port_bn.F32: 3,
+                                         port_bn.APPLY + port_bn.F32: 3},
+                        "pallas_stats_interpret": bn2}
     ref = outs["pallas_stats_interpret"]
     assert float((outs["pallas_stats"] - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     for k, v in stats["pallas_stats_interpret"].items():
@@ -1128,15 +1141,16 @@ def test_wgmma_plan_covers_every_shape(cuda):
         assert (p.block_n, p.tiles, p.grid) == (256, 98, 98)
 
 
-@pytest.mark.parametrize("config,flags,kernel,per_call", [
-    ("A", [], port_conv.KERNEL, 32),
-    ("B", ["--forward-only"], port_tsm.FWD, 16),
+@pytest.mark.parametrize("config,flags,kernel,per_call,module_bns", [
+    ("A", [], port_conv.KERNEL, 32, 21),
+    ("B", ["--forward-only"], port_tsm.FWD, 16, 0),
 ], ids=["A step", "B forward"])
-def test_bench_step_launches_the_kernels(cuda, config, flags, kernel, per_call):
+def test_bench_step_launches_the_kernels(cuda, config, flags, kernel, per_call, module_bns):
     """``bench_step`` at TSM-R50, batch 2 x 8 x 224²: config A's train step
-    launches conv1x1_with_stats 32 times a step, config B's forward-only
-    bench the fused epilogue 16 times a forward; the step's shares of the
-    card's peaks are in (0, 1]."""
+    launches conv1x1_with_stats 32 times a step and train-mode BatchNorm's
+    kernels (21 statistics, 53 of each other a step), config B's
+    forward-only bench (eval mode) the fused epilogue 16 times a forward; the
+    step's shares of the card's peaks are in (0, 1]."""
     from bdvcil_torch import bench_step
 
     args = bench_step.build_parser().parse_args(
@@ -1145,7 +1159,11 @@ def test_bench_step_launches_the_kernels(cuda, config, flags, kernel, per_call):
     _build.LAUNCHES.clear()
     line = bench_step.run(args)
     torch.cuda.synchronize()
-    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {kernel: per_call * 3}
+    want = {kernel: per_call * 3}
+    if module_bns:
+        want.update({name: (module_bns + per_call) * 3 for name in port_bn.KERNELS})
+        want[port_bn.STATS] = module_bns * 3
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
     if not flags:
         assert 0 < line["mfu"] <= 1 and 0 < line["bw_roofline_fraction"] <= 1
 
@@ -1154,8 +1172,10 @@ def test_parity_study_pair_launches_the_shift_kernels(cuda, tmp_path):
     """One cut ``parity_study.run_pair`` on the card (a 4-class tree, 2
     stages, 1 epoch, 1 CBF epoch) with the port's backbone at
     ``shift_mode='fused_block'``: the port's side launches the fused
-    epilogue forward and backward in f32, the reference loop (plain torch)
-    none; both matrices are finite and in [0, 100]."""
+    epilogue forward and backward in f32, and each train step train-mode
+    BatchNorm's f32 kernels once for each of TSM-R18's 20 BatchNorms (8
+    blocks: #2 once a block a step); the reference loop (plain torch) none;
+    both matrices are finite and in [0, 100]."""
     import copy
 
     from bdvcil_torch import parity_study
@@ -1173,10 +1193,279 @@ def test_parity_study_pair_launches_the_shift_kernels(cuda, tmp_path):
     run = parity_study.run_pair(study_tree, tmp_path / "work", "base", 0, extra, cuda)
     torch.cuda.synchronize()
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    assert set(launches) == {port_tsm.FWD, port_tsm.BWD}, launches
+    bn = {k: v for k, v in launches.items() if port_bn.is_launch(k)}
+    assert set(launches) - set(bn) == {port_tsm.FWD, port_tsm.BWD}, launches
     assert launches[port_tsm.FWD] > launches[port_tsm.BWD] > 0
+    steps = launches[port_tsm.BWD] // 8
+    assert launches[port_tsm.BWD] == 8 * steps
+    assert bn == {k + port_bn.F32: 20 * steps for k in port_bn.KERNELS}, bn
     assert run["device"].startswith("cuda")
     for key in ("cnn_matrix_reference", "cnn_matrix_port", "nme_matrix_reference",
                 "nme_matrix_port"):
         assert [len(row) for row in run[key]] == [1, 2]
         assert all(np.isfinite(v) and 0 <= v <= 100 for row in run[key] for v in row)
+
+
+# --- train-mode BatchNorm (csrc/batchnorm.cu, ops/batchnorm.py) ---------------
+
+# (N, C, H, W) of the benchmark cells' train-mode BatchNorm modules: TSM-R34 at
+# 48 clips x 8 frames (the stem, layer1-4; the shortcuts share these shapes),
+# TSM-R50 at 24 x 8 in configuration A (the stem, the 3x3s' bn2, the shortcuts)
+BN_MODULE_SHAPES = [(384, 64, 112, 112), (384, 64, 56, 56), (384, 128, 28, 28),
+                    (384, 256, 14, 14), (384, 512, 7, 7), (192, 64, 112, 112),
+                    (192, 64, 56, 56), (192, 256, 56, 56), (192, 128, 28, 28),
+                    (192, 512, 28, 28), (192, 256, 14, 14), (192, 1024, 14, 14),
+                    (192, 512, 7, 7), (192, 2048, 7, 7)]
+# (N*T, H, W, C) of R50's conv1x1_bn normalizes (conv1 and conv3 of each stage)
+BN_SUMS_SHAPES = [(192, 56, 56, 64), (192, 56, 56, 256), (192, 56, 56, 128),
+                  (192, 28, 28, 128), (192, 28, 28, 512), (192, 28, 28, 256),
+                  (192, 14, 14, 256), (192, 14, 14, 1024), (192, 14, 14, 512),
+                  (192, 7, 7, 512), (192, 7, 7, 2048)]
+
+
+def _bn_module(c, dtype, cuda, seed):
+    from bdvcil_torch.models.norm import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    bn = BatchNorm(c, dtype=dtype)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, generator=g) + 0.5)
+        bn.bias.copy_(torch.randn(c, generator=g) * 0.3)
+        bn.running_mean.copy_(torch.randn(c, generator=g) * 0.3)
+        bn.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+    return bn.to(cuda)
+
+
+def _bn_input(shape, dtype, cuda, seed, channels_last=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last) if channels_last else x
+
+
+def _bn_sums_close(got, ref, terms, what):
+    for u, v, t in zip(got, ref, terms):
+        err = (u.double() - v.double()).abs()
+        assert bool((err <= 1e-5 * t.double() + 1e-30).all()), (
+            f"{what}: off by {float(err.max())} of terms {float(t.max())}")
+
+
+def _bn_kernels_against_plain(x, bn, spec, s1=None, s2=None):
+    """The five kernels on x against the plain versions given the same sums;
+    returns the kernels' (out, dx)."""
+    import copy
+
+    dims = port_bn._dims(x, spec.cdim)
+    bn_plain = copy.deepcopy(bn)
+    kernels = port_bn._Kernels(x, spec.cdim)
+    _build.LAUNCHES.clear()
+    if s1 is None:
+        s1, s2 = kernels.stats(x, spec.cdim)
+        xd = x.double()
+        _bn_sums_close((s1, s2), (xd.sum(dims), (xd * xd).sum(dims)),
+                       (xd.abs().sum(dims), (xd * xd).sum(dims)), "stats")
+    coef = kernels.finalize(s1, s2, spec.count, bn, spec)
+    out = kernels.apply(x, coef, spec)
+    coef_p = port_bn.finalize_plain(s1, s2, spec.count, bn_plain, spec)
+    assert torch.equal(coef, coef_p)
+    assert torch.equal(bn.running_mean, bn_plain.running_mean)
+    assert torch.equal(bn.running_var, bn_plain.running_var)
+    out_p = port_bn.apply_plain(x, coef, spec)
+    assert out.dtype == out_p.dtype and out.stride() == out_p.stride()
+    assert torch.equal(out, out_p)
+
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    g = torch.randn(out.shape, generator=gen, device=x.device).to(out.dtype)
+    g = g.contiguous(memory_format=torch.channels_last) if spec.cdim == 1 else g
+    sg, sgx = kernels.bwd_reduce(g, x, coef, spec)
+    sg_p, sgx_p = port_bn.bwd_reduce_plain(g, x, coef, spec)
+    gm = port_bn._masked_g(g, x, coef, spec).abs()
+    _bn_sums_close((sg, sgx), (sg_p, sgx_p),
+                   (gm.sum(dims), (gm * port_bn._xhat(x, coef, spec).abs()).sum(dims)),
+                   "backward sums")
+    dx = kernels.bwd_dx(g, x, coef, sg, sgx, spec.count, spec)
+    dx_p = port_bn.bwd_dx_plain(g, x, coef, sg, sgx, spec.count, spec)
+    assert dx.dtype == x.dtype and dx.stride() == x.stride()
+    assert torch.equal(dx, dx_p)
+    torch.cuda.synchronize()
+    stats = 0 if spec.sums else 1
+    suffix = "" if x.dtype == torch.bfloat16 else port_bn.F32
+    assert _build.LAUNCHES == {k + suffix: 1 for k in port_bn.KERNELS[1 - stats:]}
+    return out, dx
+
+
+@pytest.mark.parametrize("shape", BN_MODULE_SHAPES)
+def test_batchnorm_kernels_match_plain_at_the_cells_shapes(cuda, shape):
+    """Every module BatchNorm shape of both cells, bf16, with and without the
+    relu: the kernels against the plain versions (ops/batchnorm)."""
+    for relu in (True, False):
+        x = _bn_input(shape, torch.bfloat16, cuda, shape[1] + relu)
+        bn = _bn_module(shape[1], torch.bfloat16, cuda, 3)
+        m = x.numel() // shape[1]
+        spec = port_bn._Spec(False, relu, torch.bfloat16, float(m), bn.epsilon, 1, False)
+        _bn_kernels_against_plain(x, bn, spec)
+
+
+@pytest.mark.parametrize("shape", BN_SUMS_SHAPES)
+def test_batchnorm_normalize_from_sums_matches_plain_at_r50_shapes(cuda, shape):
+    """conv1x1_bn's normalize at R50's 1x1 shapes, bf16, relu'd (conv1) or
+    not (conv3), from f32 sums of y."""
+    for relu in (True, False):
+        y = _bn_input(shape, torch.bfloat16, cuda, shape[-1] + relu, channels_last=False)
+        yf = y.float().reshape(-1, shape[-1])
+        bn = _bn_module(shape[-1], torch.bfloat16, cuda, 4)
+        spec = port_bn._Spec(True, relu, torch.bfloat16, float(yf.shape[0]), 1e-5, 3, False)
+        _bn_kernels_against_plain(y, bn, spec, yf.sum(0), (yf * yf).sum(0))
+
+
+@pytest.mark.parametrize("shape,dtype,out_dtype,sums", [
+    ((16, 64, 14, 14), torch.float32, torch.float32, False),
+    ((16, 13, 9, 7), torch.float32, torch.float32, False),
+    ((16, 12, 9, 7), torch.bfloat16, torch.bfloat16, False),
+    ((16, 3, 5, 5), torch.bfloat16, torch.float32, False),
+    ((16, 96, 6, 6), torch.bfloat16, torch.float32, False),
+    ((16, 96, 6, 6), torch.float32, torch.bfloat16, False),
+    ((16, 6, 6, 96), torch.float32, torch.float32, True),
+    ((16, 6, 6, 40), torch.bfloat16, torch.float32, True),
+    ((4, 2, 2, 9000), torch.bfloat16, torch.bfloat16, True),
+    ((4, 9000, 2, 2), torch.float32, torch.float32, False),
+])
+def test_batchnorm_kernels_take_any_channel_count_and_dtype(cuda, shape, dtype, out_dtype,
+                                                            sums):
+    """float32 and mixed dtypes, C off the 16-byte pack (the per-element
+    form), and C past one CTA's columns (9000)."""
+    cdim = 3 if sums else 1
+    c = shape[cdim]
+    for relu in (True, False):
+        x = _bn_input(shape, dtype, cuda, c, channels_last=not sums)
+        bn = _bn_module(c, out_dtype, cuda, 5)
+        spec = port_bn._Spec(sums, relu, out_dtype, float(x.numel() // c), 1e-5, cdim, False)
+        if sums:
+            xf = x.float().reshape(-1, c)
+            _bn_kernels_against_plain(x, bn, spec, xf.sum(0), (xf * xf).sum(0))
+        else:
+            _bn_kernels_against_plain(x, bn, spec)
+
+
+def test_batchnorm_kernels_take_a_misaligned_view(cuda):
+    """A view at an odd element offset takes the per-element form."""
+    base = _bn_input((8 * 33 * 7 * 7 + 1,), torch.bfloat16, cuda, 8, channels_last=False)
+    x = base[1:].view(33, 7, 7, 8).permute(0, 3, 1, 2)  # channels_last, 2-byte aligned
+    bn = _bn_module(8, torch.bfloat16, cuda, 6)
+    spec = port_bn._Spec(False, True, torch.bfloat16, float(33 * 49), 1e-5, 1, False)
+    _bn_kernels_against_plain(x, bn, spec)
+
+
+def test_batchnorm_function_repeats_its_bits(cuda):
+    """Two forward and backward passes of the Function give the same bits
+    (fixed-order partials, no float atomics)."""
+    runs = []
+    for _ in range(2):
+        bn = _bn_module(256, torch.bfloat16, cuda, 7)
+        x = _bn_input((96, 256, 28, 28), torch.bfloat16, cuda, 9).requires_grad_(True)
+        y = bn(x, True, relu=True)
+        y.backward(torch.ones_like(y))
+        runs.append((y, x.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                     bn.running_var))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _bn_function_run(cuda, shape, sums, relu, plain):
+    """One forward and backward of train-mode BatchNorm on seeded inputs, the
+    Function on the kernels or (``plain``) the plain versions under
+    autograd: (out, dx, dweight, dbias, running mean, running var)."""
+    cdim = 3 if sums else 1
+    c = shape[cdim]
+    bn = _bn_module(c, torch.bfloat16, cuda, 11)
+    x = _bn_input(shape, torch.bfloat16, cuda, 12, channels_last=not sums).requires_grad_(True)
+    if sums:  # differentiable sums: autograd's plain path takes dx through them
+        xf = x.float().reshape(-1, c)
+        out = port_bn.normalize_from_sums(x, xf.sum(0), (xf * xf).sum(0), bn,
+                                          float(xf.shape[0]), 1e-5, torch.bfloat16, relu, plain)
+    elif plain:
+        spec = port_bn._Spec(False, relu, torch.bfloat16, float(x.numel() // c), bn.epsilon,
+                             1, True)
+        out = port_bn._forward(port_bn.PLAIN, x, None, None, bn, spec)[0]
+    else:
+        out = port_bn.batchnorm_train(x, bn, torch.bfloat16, relu)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    out.backward(torch.randn(out.shape, generator=gen, device=cuda).to(out.dtype))
+    torch.cuda.synchronize()
+    return (out.detach(), x.grad, bn.weight.grad, bn.bias.grad, bn.running_mean.clone(),
+            bn.running_var.clone())
+
+
+@pytest.mark.parametrize("shape,sums,relu", [
+    ((8, 64, 8, 8), False, True), ((16, 256, 4, 4), False, False),
+    ((8, 8, 8, 512), True, True), ((16, 4, 4, 64), True, False),
+], ids=["module relu", "module", "sums relu", "sums"])
+def test_batchnorm_function_under_a_process_group(cuda, monkeypatch, shape, sums, relu):
+    """The Function as the model runs it, under a one-rank process group
+    (``distributed.is_initialized`` true, the all-reduce the identity, so
+    ``global_sums`` concatenates and splits as with ranks) at shapes small
+    enough for the caching allocator's small pool: the same bits as with no
+    group (the reduced sums stay alive through the launches that read them),
+    and against the plain versions under autograd on the same inputs: the
+    output within one bf16 step of its magnitude, the running statistics and
+    the gradients within 1e-4 and 1e-2 of their largest entry (the kernels'
+    sums differ from torch's in rounding order)."""
+    from bdvcil_torch.parallel import distributed
+
+    alone = _bn_function_run(cuda, shape, sums, relu, plain=False)
+    plain = _bn_function_run(cuda, shape, sums, relu, plain=True)
+    monkeypatch.setattr(distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(distributed, "all_reduce_sum", lambda t: t)
+    grouped = _bn_function_run(cuda, shape, sums, relu, plain=False)
+    for a, b in zip(alone, grouped):
+        assert torch.equal(a, b)
+    for what, a, b, rtol in zip(("out", "dx", "dweight", "dbias", "running mean",
+                                 "running var"), alone, plain, (2 ** -7, 1e-2, 1e-2, 1e-2,
+                                                                1e-4, 1e-4)):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= rtol * float(b.float().abs().max()), f"{what}: off by {err}"
+
+
+def test_batchnorm_kernels_refuse_what_they_do_not_take(cuda):
+    """NCHW-contiguous memory and float16 raise; nothing runs."""
+    bn = _bn_module(16, torch.bfloat16, cuda, 8)
+    _build.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="rows of channels"):
+        bn(_bn_input((4, 16, 5, 5), torch.bfloat16, cuda, 1, channels_last=False), True)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        bn(_bn_input((4, 16, 5, 5), torch.float16, cuda, 1), True)
+    torch.cuda.synchronize()
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("depth,switches,module_bns,sums_bns", [
+    (50, dict(shift_mode="pad", conv1x1_mode="pallas_stats"), 21, 32),
+    (34, dict(shift_mode="fused_block", conv1x1_mode="xla"), 36, 0),
+], ids=["R50 A", "R34 B"])
+def test_batchnorm_launches_per_train_step(cuda, depth, switches, module_bns, sums_bns):
+    """One train forward and backward of each cell's backbone (bf16, 2 clips x
+    8 frames at 64²): every train-mode BatchNorm takes the kernels, R50 in
+    configuration A 21 statistics launches and 53 of each other kernel, R34
+    in configuration B 36 of each; an eval forward launches none."""
+    from bdvcil_torch.models.resnet_tsm import ResNetTSM
+
+    torch.manual_seed(0)
+    model = ResNetTSM(depth=depth, num_segments=8, dtype=torch.bfloat16,
+                      norm_dtype=torch.bfloat16, device=cuda, **switches)
+    for p in model.parameters():
+        if p.dim() == 4:
+            torch.nn.init.normal_(p, std=p[0].numel() ** -0.5)
+    x = torch.randn((16, 64, 64, 3), device=cuda)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = model(x, train=True)["out"]
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    bns = module_bns + sums_bns
+    want = {name: bns for name in port_bn.KERNELS}
+    want[port_bn.STATS] = module_bns
+    assert {k: v for k, v in _build.LAUNCHES.items() if port_bn.is_launch(k)} == want
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        model(x, train=False)
+    torch.cuda.synchronize()
+    assert not any(port_bn.is_launch(k) for k, v in _build.LAUNCHES.items() if v)
