@@ -1,8 +1,9 @@
 """The readings that a cell's limits are set from, on the card, in one
-process: for each seed every number of ``compare.py``, the program against
-the reference (the lower readings), and on the first ``--variant-seeds``
-seeds those of the reference put in the program's place (``--variants``:
-the fp8 control, half of each batch left out, bf16; the upper readings).
+process: for each seed every number of the cell's family
+(``families/<family>.py``), the program against the reference (the lower
+readings), and on the first ``--variant-seeds`` seeds those of the
+reference put in the program's place (``--variants``: the fp8 control, half
+of each batch left out, bf16; the upper readings).
 Each seed is a whole set-up and the followed steps of the cell at its own
 sizes, with a short window.
 

@@ -11,8 +11,9 @@ it can end, and edits nothing of the program.
 A run:
 
   1. set-up: the corpus (written once a checkout), the trainer, the
-     weights (made on the device from the seed, in one draw, and loaded
-     into the trainer's model), the loader, the step; then the first
+     weights (made on the device from the seed by the configuration's
+     family, ``families/<family>.py``, and loaded into the trainer's
+     model), the loader, the step; then the first
      ``warmup_steps`` steps of the one ``train_epochs`` call. The first
      ``followed_steps`` of them are recorded for the check: their batches,
      their dropout seeds, their losses, the gradient norms the first update
@@ -25,9 +26,9 @@ A run:
      middle) runs under ``torch.profiler``; the per-layer readers take their
      numbers from the window's spans and counters and from that trace;
   4. the check, once the peak memory is read and the program's state freed:
-     the plain reference (``reference/``) runs the followed steps again in
-     float32 from the same weights and batches, and ``compare`` holds the
-     three numbers to the cell's limits.
+     the family's plain reference (``reference/``) runs the followed steps
+     again in float32 from the same weights and batches, and the family's
+     numbers are held to the cell's limits (``compare.verdict``).
 """
 
 from __future__ import annotations
@@ -41,13 +42,12 @@ import sys
 import tempfile
 import threading
 import time
+from types import ModuleType
 from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
-from . import compare, corpus, flops, manifest, tracing
-from .reference import model as ref_model
-from .reference import step as ref_step
+from . import compare, corpus, manifest, tracing
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "bdvcil_tpu")
 CORPUS_ROOT = manifest.HERE / ".corpus"
@@ -66,10 +66,12 @@ def sync(device: torch.device) -> None:
 # -- the configuration -------------------------------------------------------
 
 
-def trainer_config(cfg: Mapping, seed: int, data_dir: str, work_dir: str) -> Dict:
+def trainer_config(cfg: Mapping, family: ModuleType, seed: int, data_dir: str,
+                   work_dir: str) -> Dict:
     """The trainer's config: ``make_cil_config`` of the configuration's
-    dataset preset, with the configuration's switches and sizes set on it.
-    For the committed configurations the sizes are the preset's own."""
+    dataset preset, with the configuration's switches and sizes set on it
+    (the model's by its family). For the committed configurations the sizes
+    are the preset's own."""
     from bdvcil_torch.config_templates import make_cil_config
 
     c = make_cil_config(cfg["dataset"], cfg["split_seed"], cfg["num_stages"], cfg["variant"],
@@ -82,14 +84,7 @@ def trainer_config(cfg: Mapping, seed: int, data_dir: str, work_dir: str) -> Dic
     c["steps_per_dispatch"] = cfg["steps_per_dispatch"]
     c["videos_per_gpu"] = cfg["videos_per_gpu"]
     c["accumulate_grad_batches"] = cfg["accumulate_grad_batches"]
-    backbone = c["model"]["backbone"]
-    backbone.update(depth=cfg["depth"], num_segments=cfg["num_segments"],
-                    shift_div=cfg["shift_div"], shift_mode=cfg["shift_mode"],
-                    conv1x1_mode=cfg["conv1x1_mode"], pretrained=None)
-    head = c["model"]["cls_head"]
-    head.update(in_channels=cfg["in_channels"], num_segments=cfg["num_segments"],
-                dropout_ratio=cfg["dropout_ratio"])
-    head["inc_head_config"]["nb_proxies"] = cfg["nb_proxies"]
+    family.model_config(cfg, c["model"])
     for key in ("train", "val", "test", "features_extraction", "exemplar"):
         for op in c["data"][key].get("pipeline", []):
             if op["type"] == "SampleFrames":
@@ -106,40 +101,6 @@ def trainer_config(cfg: Mapping, seed: int, data_dir: str, work_dir: str) -> Dic
         c[opt].update(lr=cfg["lr"], momentum=cfg["momentum"], weight_decay=cfg["weight_decay"])
         c[opt]["paramwise_cfg"]["fc_lr_scale_factor"] = cfg["fc_lr_scale_factor"]
     return c
-
-
-def reference_config(cfg: Mapping) -> Dict:
-    """The reference's settings, from the configuration file alone."""
-    return dict(depth=cfg["depth"], segments=cfg["num_segments"], shift_div=cfg["shift_div"],
-                dropout=cfg["dropout_ratio"], alpha=cfg["bgmix_alpha"], margin=cfg["lsc_margin"],
-                lr=cfg["lr"], momentum=cfg["momentum"], weight_decay=cfg["weight_decay"],
-                fc_scale=cfg["fc_lr_scale_factor"], accumulate=cfg["accumulate_grad_batches"],
-                bn_momentum=cfg["bn_running_momentum"])
-
-
-def make_weights(cfg: Mapping, num_classes: int, seed: int,
-                 device: torch.device) -> Dict[str, torch.Tensor]:
-    """The model's float32 weights from the seed, on ``device``, in one draw:
-    every conv weight and the classifier's proxies N(0, 1 / fan_in) (LeCun's
-    normal), BatchNorm weight 1 and bias 0, the LSC temperature 1. The
-    BatchNorm running statistics start at mean 0 and variance 1."""
-    shapes = ref_model.param_shapes(cfg["depth"], num_classes, cfg["nb_proxies"])
-    drawn = [n for n, s in shapes.items() if len(s) == 4 or n.endswith("fc_weights")]
-    sizes = [math.prod(shapes[n]) for n in drawn]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    flat = torch.randn(sum(sizes), generator=gen, device=device)
-    out, offset = {}, 0
-    for name, size in zip(drawn, sizes):
-        shape = shapes[name]
-        out[name] = flat[offset:offset + size].view(shape) / math.sqrt(math.prod(shape[1:]))
-        offset += size
-    for name, shape in shapes.items():
-        if name.endswith("eta") or (name not in out and name.endswith("weight")):
-            out[name] = torch.ones(shape, device=device)
-        elif name not in out:
-            out[name] = torch.zeros(shape, device=device)
-    return out
 
 
 # -- the loader's stream, which the benchmark can end -----------------------
@@ -204,14 +165,15 @@ class Driver:
     closes the window, times each dispatch, and runs the traced slice."""
 
     def __init__(self, cellp: Mapping, seconds: float, trace: bool, device: torch.device,
-                 weights0: Mapping[str, torch.Tensor], ref_cfg: Mapping, meter,
-                 stats_fn: Callable[[], Dict]):
+                 weights0: Mapping[str, torch.Tensor], family: ModuleType, ref_cfg: Mapping,
+                 meter, stats_fn: Callable[[], Dict]):
         self.warmup = int(cellp["warmup_steps"])
         self.followed = int(cellp["followed_steps"])
         self.trace_steps = int(cellp["trace_steps"]) if trace else 0
         self.seconds = float(seconds)
         self.device = device
         self.w0 = weights0
+        self.family = family
         self.ref_cfg = ref_cfg
         self.meter = meter
         self.stats_fn = stats_fn
@@ -221,7 +183,7 @@ class Driver:
         self.dropout_seeds: List[int] = []
         self.losses: List[torch.Tensor] = []
         self.grad_norms: Optional[Dict[str, float]] = None
-        self.bn_vars: Optional[Dict[str, torch.Tensor]] = None
+        self.first_readings: Optional[Dict] = None
         self.change_norms: Optional[Dict[str, float]] = None
         self.window: Dict = {}
         self.dispatch_s: List[float] = []
@@ -264,18 +226,13 @@ class Driver:
     def _record_out(self, state, metrics):
         self.losses.append(metrics["loss"].detach().float().reshape(()))
         params = dict(state.module.named_parameters())
-        if self.bn_vars is None:
-            # the first forward's batch variances, from the running variance
-            # it updated: new = m old + (1 - m) batch, old = 1
-            m = self.ref_cfg["bn_momentum"]
-            self.bn_vars = {n[: -len(".running_var")]: ((b.detach().float() - m) / (1 - m)).cpu()
-                            for n, b in state.module.named_buffers()
-                            if n.endswith(".running_var")}
+        if self.first_readings is None:
+            self.first_readings = self.family.first_forward_readings(state.module, self.ref_cfg)
         if self.grad_norms is None and state.opt_state["count"] == 1:
             # the first update's buffer holds g + wd w0 (the reference's decay groups)
             norms = []
             for name in params:
-                wd = ref_step.lr_and_decay(name, 0.0, self.ref_cfg["weight_decay"], 1.0)[1]
+                wd = self.family.decay(name, self.ref_cfg)
                 g = state.opt_state["momentum"][name].float() - wd * self.w0[name]
                 norms.append(torch.linalg.vector_norm(g))
             self.grad_norms = dict(zip(params, torch.stack(norms).tolist()))
@@ -434,13 +391,14 @@ def _run(cell, seed, seconds, trace, device, t_start, man, root, work_dir, fault
 
     entry = man.workload(cell)
     cfg, traffic, cellp = man.config(entry["config"]), man.traffic(entry["traffic"]), man.cell(cell)
-    ref_cfg = reference_config(cfg)
-    c = trainer_config(cfg, seed, str(root), work_dir)
+    family = man.config_family(entry["config"])
+    ref_cfg = family.reference_config(cfg)
+    c = trainer_config(cfg, family, seed, str(root), work_dir)
     marks = {"start": time.perf_counter()}
     trainer = CILTrainer(Config(c), dump_config=False, device=device)
     marks["trainer"] = time.perf_counter()
     num_classes = trainer.num_classes(0)
-    weights0 = make_weights(cfg, num_classes, seed, device)
+    weights0 = family.make_weights(cfg, num_classes, seed, device)
     params = dict(trainer.model.named_parameters())
     if set(params) != set(weights0):
         raise RuntimeError(f"the program's parameters differ from the reference's: "
@@ -448,8 +406,7 @@ def _run(cell, seed, seconds, trace, device, t_start, man, root, work_dir, fault
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(weights0[name])
-        for name, b in trainer.model.named_buffers():  # BatchNorm starts from (0, 1)
-            b.fill_(1.0 if name.endswith("running_var") else 0.0)
+    family.reset_buffers(trainer.model)
     marks["weights"] = time.perf_counter()
     loader, input_fn = trainer._try_fast_loader()
     if loader is None:
@@ -467,7 +424,8 @@ def _run(cell, seed, seconds, trace, device, t_start, man, root, work_dir, fault
         step_fn = broken_step(step_fn, fault)
     state = TrainState.create(trainer.model, tx)
     meter = _window_meter()
-    driver = Driver(cellp, seconds, trace, device, weights0, ref_cfg, meter, producer_stats)
+    driver = Driver(cellp, seconds, trace, device, weights0, family, ref_cfg, meter,
+                    producer_stats)
     feed = EndableLoader(loader, driver.stop)
     launches0 = dict(_build.LAUNCHES)
     marks["loader and step"] = time.perf_counter()
@@ -501,15 +459,14 @@ def _run(cell, seed, seconds, trace, device, t_start, man, root, work_dir, fault
         f"{w['t0'] - t_start:.3f} s; kernel launches {launches}")
 
     program = dict(losses=[float(x) for x in driver.losses], grad_norms=driver.grad_norms,
-                   change_norms=driver.change_norms, bn_vars=driver.bn_vars)
+                   change_norms=driver.change_norms, **(driver.first_readings or {}))
     if program["grad_norms"] is None or program["change_norms"] is None:
         raise RuntimeError("the followed steps did not all run before the window")
 
     slice_ = _trace_numbers(driver) if driver.profiler is not None else None
     obs = dict(cell=cell, config=cfg, traffic=traffic, device=device.type,
                frames_per_step=cfg["videos_per_gpu"] * cfg["num_segments"],
-               flops_per_clip=flops.train_flops_per_clip(cfg["depth"], cfg["num_segments"],
-                                                         cfg["crop_size"]),
+               flops_per_clip=family.train_flops_per_clip(cfg),
                window=dict(seconds=window_s, steps=steps, clips=clips,
                            wait_s=w["wait1"] - w["wait0"], dispatch_s=driver.dispatch_s,
                            untraced=driver.pre or dict(seconds=window_s, clips=clips),
@@ -523,8 +480,8 @@ def _run(cell, seed, seconds, trace, device, t_start, man, root, work_dir, fault
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    readings, raw = check(cfg, ref_cfg, num_classes, seed, device, batches, seeds, program,
-                          variants)
+    readings, raw = check(family, cfg, ref_cfg, num_classes, seed, device, batches, seeds,
+                          program, variants)
     values = readings["program"]
     limits = cellp["limits"]
     correct = compare.verdict(values, limits) and all(math.isfinite(x) for x in
@@ -550,29 +507,31 @@ def _run(cell, seed, seconds, trace, device, t_start, man, root, work_dir, fault
             result["breakdown"] = slice_["breakdown"]
     if variants or want_readings or detail:
         result["readings"] = readings
-    if detail:  # every leaf's norms and every layer's variances, for the calibration
+    if detail:  # every leaf's norms and the family's readings, for the calibration
         result["detail"] = {k: plain(v) for k, v in dict(raw, program=program).items()}
     result["checks"] = compare.report(values, limits)
     return result
 
 
-def check(cfg, ref_cfg, num_classes, seed, device, batches, seeds, program, variants=()):
-    """The reference over the followed steps, and the numbers of the program
-    against it; with ``variants`` also those of the reference put in the
-    program's place: 'control' (fp8), 'bf16' and 'half' (half of each batch
-    left out). Returns ({'program': numbers, <variant>: numbers}, the raw
+def check(family, cfg, ref_cfg, num_classes, seed, device, batches, seeds, program,
+          variants=()):
+    """The family's reference over the followed steps, and the family's
+    numbers of the program against it; with ``variants`` also those of the
+    reference put in the program's place: 'control' (fp8), 'bf16' and 'half'
+    (half of each batch left out). Returns ({'program': numbers, <variant>: numbers}, the raw
     readings of the reference and of each variant)."""
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        reference = reference_readings(cfg, ref_cfg, num_classes, seed, device, batches, seeds)
-        out, raw = {"program": compare.numbers(program, reference)}, {"reference": reference}
+        reference = reference_readings(family, cfg, ref_cfg, num_classes, seed, device, batches,
+                                       seeds)
+        out, raw = {"program": family.numbers(program, reference)}, {"reference": reference}
         for v in variants:
             rows = slice(0, batches[0]["label"].shape[0] // 2) if v == "half" else None
-            raw[v] = reference_readings(cfg, ref_cfg, num_classes, seed, device, batches, seeds,
-                                        precision=None if v == "half" else v, rows=rows)
-            out[v] = compare.numbers(raw[v], reference)
+            raw[v] = reference_readings(family, cfg, ref_cfg, num_classes, seed, device, batches,
+                                        seeds, precision=None if v == "half" else v, rows=rows)
+            out[v] = family.numbers(raw[v], reference)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
     return out, raw
@@ -580,20 +539,23 @@ def check(cfg, ref_cfg, num_classes, seed, device, batches, seeds, program, vari
 
 def plain(readings: Mapping) -> Dict:
     """Readings with their tensors as lists, for JSON."""
-    return {k: ({n: t.tolist() for n, t in v.items()} if k == "bn_vars" else v)
+    return {k: ({n: t.tolist() if isinstance(t, torch.Tensor) else t for n, t in v.items()}
+                if isinstance(v, Mapping) else v)
             for k, v in readings.items()}
 
 
-def reference_readings(cfg, ref_cfg, num_classes, seed, device, batches, seeds,
+def reference_readings(family, cfg, ref_cfg, num_classes, seed, device, batches, seeds,
                        precision=None, rows=None) -> Dict:
-    w0 = make_weights(cfg, num_classes, seed, device)
+    """The reference's losses, gradient and change norms, and the family's
+    readings of its first forward."""
+    w0 = family.make_weights(cfg, num_classes, seed, device)
     dev_batches = [{k: v.to(device) if k not in HOST_DRAWS else v for k, v in b.items()}
                    for b in batches]
-    out = ref_step.train_steps(w0, dev_batches, seeds, ref_cfg, precision=precision, rows=rows)
-    grad = {n: float(torch.linalg.vector_norm(g)) for n, g in out["first_grad"].items()}
-    change = {n: float(torch.linalg.vector_norm(p - w0[n])) for n, p in out["params"].items()}
-    return dict(losses=out["losses"], grad_norms=grad, change_norms=change,
-                bn_vars={n: v.cpu() for n, v in out["bn_vars"].items()})
+    out = family.reference_train_steps(w0, dev_batches, seeds, ref_cfg, precision, rows)
+    first_grad, params = out.pop("first_grad"), out.pop("params")
+    grad = {n: float(torch.linalg.vector_norm(g)) for n, g in first_grad.items()}
+    change = {n: float(torch.linalg.vector_norm(p - w0[n])) for n, p in params.items()}
+    return dict(losses=out.pop("losses"), grad_norms=grad, change_norms=change, **out)
 
 
 # the loader's RandAugment draws stay on the host, as the program keeps them

@@ -3,8 +3,10 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Run from the root of a checkout. It needs as many CUDA devices as the cell
-asks for and exits non-zero without a result otherwise, or when the
-program cannot be imported. The last line of standard output is the result:
+asks for and exits non-zero without a result otherwise; it exits 2 without
+a result when the program cannot be imported, or when the cell's
+configuration names a model family that ``benchmark/families`` does not
+hold. The last line of standard output is the result:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
 metrics, or with ``--trace 1`` its per-layer ones), ``device`` and, last,
 ``checks``: each number compared with its limit. The same numbers end
@@ -54,9 +56,11 @@ def main(argv=None) -> int:
         from benchmark import harness, manifest
 
         man = manifest.Manifest(ROOT)
-        chips = int(man.workload(args.workload)["chips"])
+        entry = man.workload(args.workload)
+        chips = int(entry["chips"])
+        man.config_family(entry["config"])  # an unknown family, or a configuration it refuses
         import bdvcil_torch  # noqa: F401  the system under test
-    except (ImportError, OSError, KeyError) as e:
+    except (ImportError, OSError, KeyError, ValueError) as e:
         print(f"benchmark: cannot start: {type(e).__name__}: {e}", file=sys.stderr)
         return 2
     import torch

@@ -9,9 +9,6 @@ import pytest
 
 from benchmark import manifest
 
-NUMBERS = {"loss_gap", "grad_gap", "change_gap", "grad_gap_conv_median",
-           "change_gap_conv_median", "var_gap"}
-
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
@@ -74,10 +71,10 @@ def test_metric_names_and_units(section):
 @pytest.mark.parametrize("cell", [w["name"] for w in DATA["workloads"]])
 def test_every_file_is_found_by_name(cell):
     entry = MAN.workload(cell)
-    assert MAN.config(entry["config"])["depth"] in (18, 34, 50, 101)
+    family = MAN.config_family(entry["config"])  # the family has checked the configuration
     assert MAN.traffic(entry["traffic"])["frames"] > 0
     limits = MAN.cell(cell)["limits"]
-    assert limits and set(limits) <= NUMBERS and all(v > 0 for v in limits.values())
+    assert limits and set(limits) <= set(family.NUMBERS) and all(v > 0 for v in limits.values())
     for m in MAN.per_layer(cell):
         assert callable(MAN.reader(m["name"]))
     assert {"setup_s", "train_clips_per_s"} <= {m["name"] for m in MAN.end_to_end(cell)}
@@ -111,6 +108,7 @@ def test_a_new_cell_config_and_metric_are_files_alone(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
     man = manifest.Manifest(tmp_path, bench)
     assert man.config(man.workload("r101_hmdb51_train_task0")["config"])["depth"] == 101
+    assert man.config_family("tsm_r101_hmdb51").NUMBERS == MAN.family("tsm_resnet").NUMBERS
     assert man.traffic("hmdb51_task0_warm")["train_videos_per_class"] == 4
     assert [m["name"] for m in man.per_layer("r101_hmdb51_train_task0")] == ["steps_in_window"]
     assert man.reader("steps_in_window")({"window": {"steps": 7}}) == 7.0
@@ -129,7 +127,9 @@ def test_paths_hold_the_benchmark_alone():
 @pytest.mark.parametrize("config", [c["name"] for c in DATA["configs"]])
 def test_a_committed_configuration_runs_its_preset_unchanged(config):
     """The sizes a configuration file sets on ``make_cil_config``'s config are
-    the preset's own: the cells cut nothing (``reduced`` is empty)."""
+    the preset's own: the cells cut nothing (``reduced`` is empty). The
+    preset's model is a TSM-ResNet, so its model is compared for that
+    family's configurations; another family's model is its family's own."""
     from bdvcil_torch.config_templates import make_cil_config
 
     from benchmark import harness
@@ -137,14 +137,18 @@ def test_a_committed_configuration_runs_its_preset_unchanged(config):
     cfg = MAN.config(config)
     preset = make_cil_config(cfg["dataset"], cfg["split_seed"], cfg["num_stages"],
                              cfg["variant"], data_dir="d", work_dir="w")
-    run = harness.trainer_config(cfg, 7, "d", "w")
+    run = harness.trainer_config(cfg, MAN.config_family(config), 7, "d", "w")
     for key in ("videos_per_gpu", "accumulate_grad_batches", "workers_per_gpu", "data",
                 "optimizer", "cbf_optimizer", "task_splits", "methods", "randAug_prob"):
         assert run[key] == preset[key], key
+    assert run["model"]["backbone"]["pretrained"] is None
+    if manifest.family_name(cfg) != "tsm_resnet":
+        return
+    # every backbone key but the port's switches, and every head key (depth
+    # and in_channels among them), is the preset's
     switches = {"shift_mode", "conv1x1_mode", "pretrained"}
     backbone = {k: v for k, v in run["model"]["backbone"].items() if k not in switches}
     assert backbone == {k: v for k, v in preset["model"]["backbone"].items() if k not in switches}
     assert run["model"]["cls_head"] == preset["model"]["cls_head"]
-    assert run["model"]["backbone"]["pretrained"] is None
     assert (cfg["depth"], cfg["in_channels"]) == (preset["model"]["backbone"]["depth"],
                                                   preset["model"]["cls_head"]["in_channels"])

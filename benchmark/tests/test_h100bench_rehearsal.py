@@ -38,7 +38,7 @@ def test_rehearsal_untraced(tmp_path, cell):
     res = _run(tmp_path, cell)
     _shape_ok(res, {"train_clips_per_s", "setup_s"})
     assert res["correct"], res["checks"]
-    assert set(res["checks"]) == set(tiny.TINY_LIMITS)
+    assert set(res["checks"]) == set(tiny.limits(cell))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -60,10 +60,10 @@ def test_a_broken_step_is_not_correct(tmp_path, cell, fault):
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_fp8_control_and_half_batch_fail_the_limits(tmp_path, cell):
     res = _run(tmp_path, cell, variants=("control", "half"))
-    readings = res["readings"]
-    assert compare.verdict(readings["program"], tiny.TINY_LIMITS)
-    assert not compare.verdict(readings["control"], tiny.TINY_LIMITS), readings["control"]
-    assert not compare.verdict(readings["half"], tiny.TINY_LIMITS), readings["half"]
+    readings, limits = res["readings"], tiny.limits(cell)
+    assert compare.verdict(readings["program"], limits)
+    assert not compare.verdict(readings["control"], limits), readings["control"]
+    assert not compare.verdict(readings["half"], limits), readings["half"]
 
 
 def test_the_reference_input_function_equals_the_programs(tmp_path):
@@ -87,7 +87,8 @@ def test_the_reference_input_function_equals_the_programs(tmp_path):
     root = corpus.write_corpus(tmp_path / "corpus", man.traffic(entry["traffic"]), splits,
                                preset["train_ann"].format(split=1),
                                preset["val_ann"].format(split=1), threads=2)
-    c = harness.trainer_config(cfg, SEED, str(root), str(tmp_path / "work"))
+    c = harness.trainer_config(cfg, man.config_family(entry["config"]), SEED, str(root),
+                               str(tmp_path / "work"))
     c["videos_per_gpu"] = 26  # one batch: every clip of the corpus
     trainer = CILTrainer(Config(c), dump_config=False, device="cpu")
     loader, input_fn = trainer._try_fast_loader()

@@ -1,6 +1,6 @@
 """A benchmark tree at a size the CPU runs in seconds: the committed
-configurations with 64² crops, 2 segments and batch 4, a corpus of one
-video a class at 80 x 60, and limits for that size."""
+configurations with 32² crops, 2 segments and batch 4, a corpus of one
+video a class at 80 x 60, and limits for that size, set per model family."""
 
 from __future__ import annotations
 
@@ -10,9 +10,16 @@ import shutil
 
 from benchmark import manifest
 
-TINY_LIMITS = {"grad_gap_conv_median": 0.1, "change_gap_conv_median": 0.1, "var_gap": 0.06}
+TINY_LIMITS = {"tsm_resnet": {"grad_gap_conv_median": 0.1, "change_gap_conv_median": 0.1,
+                              "var_gap": 0.06}}
 CELLS = {"r50_hmdb51_train_task0": dict(followed=3, warmup=4),
          "r34_ucf101_train_task0": dict(followed=4, warmup=5)}
+
+
+def limits(cell: str) -> dict:
+    """The tiny limits of a committed cell: its configuration's family's."""
+    real = manifest.Manifest()
+    return TINY_LIMITS[manifest.family_name(real.config(real.workload(cell)["config"]))]
 
 
 def tiny_tree(tmp: pathlib.Path, cell: str) -> manifest.Manifest:
@@ -22,7 +29,9 @@ def tiny_tree(tmp: pathlib.Path, cell: str) -> manifest.Manifest:
     bench = tmp / "benchmark"
     for sub in ("configs", "traffic", "workloads"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(real.dir / "metrics", bench / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "families"):
+        shutil.copytree(real.dir / sub, bench / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     cfg = real.config(entry["config"])
     cfg.update(crop_size=32, short_side=37, num_segments=2, videos_per_gpu=4,
                workers_per_gpu=1)
@@ -33,7 +42,7 @@ def tiny_tree(tmp: pathlib.Path, cell: str) -> manifest.Manifest:
     sizes = CELLS[cell]
     (bench / "workloads" / f"{cell}.json").write_text(json.dumps(dict(
         warmup_steps=sizes["warmup"], followed_steps=sizes["followed"], trace_steps=2,
-        limits=TINY_LIMITS)))
+        limits=limits(cell))))
     data = dict(real.data)
     data["configs"] = [dict(real.config_entry(entry["config"]),
                             file=f"benchmark/configs/{entry['config']}.json")]
