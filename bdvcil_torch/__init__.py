@@ -17,7 +17,8 @@ Layout:
            layout (device half); the slow host pipeline (annotations,
            datasets, transforms, box, rand_augment, host_loader); SampleFrames, a
            synthetic JPEG corpus writer and synthetic wire batches
-  models   ResNet-TSM backbone (its s2d stem and 'fused' shift too),
+  models   ResNet-TSM backbone (its s2d stem and 'fused' shift too), the
+           TimeSformer (divided space-time attention) backbone,
            flax-semantics and grouped BatchNorm, incremental heads, the PyCIL
            linears, recognizer, builder, the JAX <-> torch weight converter,
            and the ImageNet backbone weights from local files (pretrained)
@@ -60,7 +61,8 @@ Layout:
   profile_e2e        the fed train loop's wall time split into wait, put,
                      dispatch and device, with the producer's phases
   reference_loop     the reference's CIL loop in plain torch (the accuracy
-                     yardstick), its synthetic tree and configs
+                     yardstick), its synthetic tree and configs; the plain
+                     TimeSformer the CPU tests hold the backbone to
   parity_study       paired CIL runs, the port against reference_loop, over
                      seeds: the per-stage accuracy bias and its SE
   bn_ablation        the BatchNorm statistics modes (global, per-device

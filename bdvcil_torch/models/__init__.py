@@ -5,6 +5,7 @@ from .norm import BatchNorm, GroupedBatchNorm
 from .pretrained import load_reference_cil_checkpoint
 from .recognizer import KD_TAPS, CILRecognizer2D, average_clips
 from .resnet_tsm import ARCH, ResNetTSM
+from .timesformer import TimeSformer
 
 __all__ = [
     "ARCH",
@@ -15,6 +16,7 @@ __all__ = [
     "KD_TAPS",
     "ModelSpec",
     "ResNetTSM",
+    "TimeSformer",
     "average_clips",
     "build_model",
     "from_jax_variables",

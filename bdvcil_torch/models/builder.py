@@ -6,6 +6,10 @@ Accepts the mmaction2-style model config verbatim:
     model = dict(
         type='CILRecognizer2D',
         backbone=dict(type='ResNetTSM', depth=50, num_segments=8, shift_div=8, ...),
+        # or mmaction2's TimeSformer keys: dict(type='TimeSformer', num_frames=8,
+        #    img_size=224, patch_size=16, embed_dims=768, num_heads=12,
+        #    num_transformer_layers=12, attention_type='divided_space_time',
+        #    norm_cfg=dict(type='LN', eps=1e-6), drop_path_rate=0.1)
         cls_head=dict(type='IncrementalTSMHead', num_classes=N, in_channels=2048,
                       inc_head_config=dict(type='LocalSimilarityClassifier',
                                            out_features=N, nb_proxies=1),
@@ -27,6 +31,7 @@ from .heads import IncrementalTSMHead
 from .norm import BatchNorm
 from .recognizer import CILRecognizer2D
 from .resnet_tsm import Conv2d, ResNetTSM
+from .timesformer import ATTENTION_TYPES, TimeSformer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,6 +48,10 @@ class ModelSpec:
     num_classes: int
     dtype: torch.dtype = torch.float32
     device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cuda"))
+    backbone_type: str = "ResNetTSM"
+    # a clip backbone's frames (it takes whole (N, T, C, H, W) clips); None
+    # for a frame backbone, whose clip length is the head's segments
+    frames_per_clip: Optional[int] = None
 
     @property
     def classifier_type(self) -> str:
@@ -50,6 +59,9 @@ class ModelSpec:
 
     @property
     def num_segments(self) -> int:
+        """Frames a clip: a clip backbone's frames, or the TSM head's segments."""
+        if self.frames_per_clip is not None:
+            return self.frames_per_clip
         return self.head_kwargs["num_segments"]
 
     @property
@@ -60,7 +72,8 @@ class ModelSpec:
         """The recognizer on ``self.device``; weights uninitialized (see
         ``init_model_params``)."""
         nc = self.num_classes if num_classes is None else num_classes
-        backbone = ResNetTSM(dtype=self.dtype, device=self.device, **self.backbone_kwargs)
+        backbone = BACKBONES[self.backbone_type](dtype=self.dtype, device=self.device,
+                                                 **self.backbone_kwargs)
         head = IncrementalTSMHead(num_classes=nc, dtype=self.dtype, device=self.device,
                                   **self.head_kwargs)
         return CILRecognizer2D(backbone, head)
@@ -78,30 +91,13 @@ def build_model(
     if cfg.get("type", "CILRecognizer2D") not in ("CILRecognizer2D", "Recognizer2D"):
         raise ValueError(f"unknown recognizer type {cfg.get('type')!r}")
     b = dict(cfg["backbone"])
-    if b.pop("type") != "ResNetTSM":
-        raise ValueError("only the ResNetTSM backbone exists")
-    backbone_kwargs = dict(
-        depth=b.get("depth", 50),
-        num_segments=b.get("num_segments", 8),
-        shift_div=b.get("shift_div", 8),
-        is_shift=b.get("is_shift", True),
-        norm_eval=b.get("norm_eval", False),
-        shift_mode=b.get("shift_mode", "pad"),
-        stem_mode=b.get("stem_mode", "conv"),
-        conv1x1_mode=b.get("conv1x1_mode", "xla"),
-        pretrained=b.get("pretrained"),
-        # 'per_device' resolves to the ranks of the process group (one card a
-        # rank): the reference's per-GPU statistics, DDP without SyncBN
-        bn_groups=(distributed.process_count() if b.get("bn_groups") == "per_device"
-                   else int(b.get("bn_groups", 1))),
-        bn_stats_rows=int(b.get("bn_stats_rows", 0)),
-    )
-    if "norm_dtype" in b:
-        nd = b["norm_dtype"]
-        backbone_kwargs["norm_dtype"] = _DTYPES.get(nd, nd)
+    backbone_type = b.pop("type")
+    if backbone_type == "TimeSformer":
+        backbone_kwargs = _timesformer_kwargs(b)
+    elif backbone_type == "ResNetTSM":
+        backbone_kwargs = _resnet_tsm_kwargs(b, dtype)
     else:
-        # follow the compute dtype: statistics are f32 either way
-        backbone_kwargs["norm_dtype"] = dtype
+        raise ValueError(f"unknown backbone {backbone_type!r}: not one of {sorted(BACKBONES)}")
 
     h = dict(cfg["cls_head"])
     if h.pop("type") != "IncrementalTSMHead":
@@ -126,6 +122,61 @@ def build_model(
         num_classes=h["num_classes"],
         dtype=dtype,
         device=device,
+        backbone_type=backbone_type,
+        frames_per_clip=backbone_kwargs.get("num_frames"),
+    )
+
+
+BACKBONES = {"ResNetTSM": ResNetTSM, "TimeSformer": TimeSformer}
+
+
+def _resnet_tsm_kwargs(b: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    backbone_kwargs = dict(
+        depth=b.get("depth", 50),
+        num_segments=b.get("num_segments", 8),
+        shift_div=b.get("shift_div", 8),
+        is_shift=b.get("is_shift", True),
+        norm_eval=b.get("norm_eval", False),
+        shift_mode=b.get("shift_mode", "pad"),
+        stem_mode=b.get("stem_mode", "conv"),
+        conv1x1_mode=b.get("conv1x1_mode", "xla"),
+        pretrained=b.get("pretrained"),
+        # 'per_device' resolves to the ranks of the process group (one card a
+        # rank): the reference's per-GPU statistics, DDP without SyncBN
+        bn_groups=(distributed.process_count() if b.get("bn_groups") == "per_device"
+                   else int(b.get("bn_groups", 1))),
+        bn_stats_rows=int(b.get("bn_stats_rows", 0)),
+    )
+    if "norm_dtype" in b:
+        nd = b["norm_dtype"]
+        backbone_kwargs["norm_dtype"] = _DTYPES.get(nd, nd)
+    else:
+        # follow the compute dtype: statistics are f32 either way
+        backbone_kwargs["norm_dtype"] = dtype
+    return backbone_kwargs
+
+
+def _timesformer_kwargs(b: Dict[str, Any]) -> Dict[str, Any]:
+    """mmaction2's TimeSformer keys; ``drop_path_rate`` (mmaction2 fixes it
+    at 0.1) and ``mlp_ratio`` (4) are the port's."""
+    attention_type = b.get("attention_type", "divided_space_time")
+    if attention_type not in ATTENTION_TYPES:
+        raise NotImplementedError(f"TimeSformer attention_type {attention_type!r}: the port has "
+                                  f"{ATTENTION_TYPES} (ROADMAP F)")
+    norm = dict(b.get("norm_cfg") or {"type": "LN", "eps": 1e-6})
+    if norm.get("type", "LN") != "LN":
+        raise ValueError(f"TimeSformer takes LayerNorm, not {norm['type']!r}")
+    return dict(
+        num_frames=b.get("num_frames", 8),
+        img_size=b.get("img_size", 224),
+        patch_size=b.get("patch_size", 16),
+        embed_dims=b.get("embed_dims", 768),
+        num_heads=b.get("num_heads", 12),
+        num_transformer_layers=b.get("num_transformer_layers", 12),
+        mlp_ratio=b.get("mlp_ratio", 4),
+        ln_eps=norm.get("eps", 1e-6),
+        drop_path_rate=b.get("drop_path_rate", 0.1),
+        pretrained=b.get("pretrained"),
     )
 
 
@@ -146,10 +197,15 @@ def init_model_params(
     num_classes: Optional[int] = None,
 ) -> CILRecognizer2D:
     """The recognizer with the JAX package's initializers, drawn on the CPU
-    from ``generator`` (or a seed) and placed on ``spec.device``."""
+    from ``generator`` (or a seed) and placed on ``spec.device``. A backbone
+    with a ``reset_parameters`` of its own (``TimeSformer``: mmaction2's)
+    draws with it first."""
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
     module = spec.module(num_classes)
+    reset_backbone = getattr(module.backbone, "reset_parameters", None)
+    if reset_backbone is not None:
+        reset_backbone(generator)
     for m in module.modules():
         if isinstance(m, Conv2d):
             _lecun_normal_(m.weight, generator)

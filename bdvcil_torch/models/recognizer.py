@@ -3,13 +3,17 @@
 
 The (B, M, H, W, C) batch is flattened to (B*M, H, W, C) for the backbone,
 the head folds segments via AvgConsensus, and test-time crop/clip scores are
-averaged by ``average_clips``. The output dict carries 'cls_score', 'repr'
-and 'feats' keyed with the reference's kd_modules_names.
+averaged by ``average_clips``. A clip backbone (one whose
+``frames_per_clip`` is set: ``TimeSformer``) takes the batch as
+(B*G, T, C, H, W) clips instead, G = M / T crops x clips, and its (B*G, C)
+feature goes to the head as one 1x1 frame a clip (the head's
+``num_segments`` 1): no consensus over segments. The output dict carries
+'cls_score', 'repr' and 'feats' keyed with the reference's kd_modules_names.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -17,6 +21,7 @@ from torch import nn
 from ..utils.profiling import annotate
 from .heads import IncrementalTSMHead
 from .resnet_tsm import ResNetTSM
+from .timesformer import TimeSformer
 
 KD_TAPS = (
     "backbone.layer1",
@@ -39,7 +44,7 @@ def average_clips(cls_score: torch.Tensor, mode: Optional[str] = "prob") -> torc
 
 
 class CILRecognizer2D(nn.Module):
-    def __init__(self, backbone: ResNetTSM, cls_head: IncrementalTSMHead):
+    def __init__(self, backbone: Union[ResNetTSM, TimeSformer], cls_head: IncrementalTSMHead):
         super().__init__()
         self.backbone = backbone
         self.cls_head = cls_head
@@ -59,12 +64,22 @@ class CILRecognizer2D(nn.Module):
         b, m = imgs.shape[0], imgs.shape[1]
         if imgs.shape[-1] not in (1, 3) and imgs.shape[2] in (1, 3):
             imgs = imgs.permute(0, 1, 3, 4, 2)
-        x = imgs.reshape((b * m,) + tuple(imgs.shape[2:]))
-        feats = self.backbone(x, train=train)
+        frames_per_clip = self.backbone.frames_per_clip
+        if frames_per_clip is not None:
+            frames_per_group = frames_per_clip
+            clips = imgs.reshape((b * m // frames_per_group, frames_per_group)
+                                 + tuple(imgs.shape[2:]))
+            feats = self.backbone(clips.permute(0, 1, 4, 2, 3), train=train, generator=generator)
+            head_in = feats["out"][:, None, None, :]  # one 1x1 frame a clip
+        else:
+            frames_per_group = self.cls_head.num_segments
+            x = imgs.reshape((b * m,) + tuple(imgs.shape[2:]))
+            feats = self.backbone(x, train=train)
+            head_in = feats["out"]
         with annotate("model.head", train):
-            head_out = self.cls_head(feats["out"], train=train, generator=generator)
+            head_out = self.cls_head(head_in, train=train, generator=generator)
 
-        num_groups = m // self.cls_head.num_segments
+        num_groups = m // frames_per_group
         kd_feats = {f"backbone.layer{i}": feats[f"layer{i}"] for i in range(1, 5)}
         kd_feats["cls_head.avg_pool"] = head_out["avg_pool"]
         return {

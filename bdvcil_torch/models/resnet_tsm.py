@@ -256,6 +256,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNetTSM(nn.Module):
+    # a frame backbone: the recognizer hands it (B*M, H, W, C) frames
+    frames_per_clip: Optional[int] = None
+
     def __init__(
         self,
         depth: int = 50,

@@ -14,7 +14,9 @@ compiler.
 ``sm_count`` is a card's SM count, which sizes the persistent kernels'
 grids and their partials. ``LAUNCHES`` counts kernel launches by kernel
 name. Each wrapper adds one where it launches its kernel and nowhere else,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels. A call
+that can take more than one path counts there too, under the path it took
+(``attention.<where>.<path>``).
 """
 
 from __future__ import annotations

@@ -10,6 +10,12 @@ partitions parameters into groups
   classifier_weight : fc_scale x lr,      weight decay   (LSC weights,
                       linear weight, LSCLoss eta)
   classifier_bias   : 2*fc_scale x lr,    no decay       (linear bias)
+  norm              : base lr,            no decay       (LayerNorm)
+  embed             : base lr,            no decay       (TimeSformer's
+                      cls_token, pos_embed, time_embed: mmaction2's
+                      decay_mult=0 keys)
+
+A linear's bias, ``in_proj_bias`` among them, is ``normal_bias``.
 
 SGD semantics match torch: grad += wd * w, buf = momentum * buf + grad,
 update = -lr(t) * buf, with the schedule stepped once per epoch. Before the
@@ -42,6 +48,8 @@ from .utils.profiling import annotate
 
 CLASSIFIER_LEAVES = {"fc_weights", "fc_weight", "eta"}
 CLASSIFIER_BIAS_LEAVES = {"fc_bias"}
+EMBED_LEAVES = {"cls_token", "pos_embed", "time_embed"}
+BIAS_LEAVES = {"bias", "in_proj_bias"}
 FIRST_CONV = ("backbone.conv1.weight", "conv1.weight")
 
 GROUP_POLICY = {
@@ -52,6 +60,8 @@ GROUP_POLICY = {
     "bn": (lambda s: 1.0, False),
     "classifier_weight": (lambda s: s, True),
     "classifier_bias": (lambda s: 2.0 * s, False),
+    "norm": (lambda s: 1.0, False),
+    "embed": (lambda s: 1.0, False),
 }
 
 MAX_EPOCHS = 4096
@@ -59,12 +69,13 @@ MAX_EPOCHS = 4096
 
 def label_params(module: nn.Module) -> Dict[str, str]:
     """An optimizer-group label for every parameter, by its state_dict name."""
-    bn_params = {
-        f"{mod_name}.{p_name}" if mod_name else p_name
-        for mod_name, mod in module.named_modules()
-        if isinstance(mod, BatchNorm)
-        for p_name, _ in mod.named_parameters(recurse=False)
-    }
+
+    def params_of(kind):
+        return {f"{mod_name}.{p_name}" if mod_name else p_name
+                for mod_name, mod in module.named_modules() if isinstance(mod, kind)
+                for p_name, _ in mod.named_parameters(recurse=False)}
+
+    bn_params, ln_params = params_of(BatchNorm), params_of(nn.LayerNorm)
     labels = {}
     for name, _ in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -74,7 +85,11 @@ def label_params(module: nn.Module) -> Dict[str, str]:
             labels[name] = "classifier_bias"
         elif name in bn_params:
             labels[name] = "bn"
-        elif leaf == "bias":
+        elif name in ln_params:
+            labels[name] = "norm"
+        elif leaf in EMBED_LEAVES:
+            labels[name] = "embed"
+        elif leaf in BIAS_LEAVES:
             labels[name] = "normal_bias"
         elif name in FIRST_CONV:
             labels[name] = "first_conv_weight"

@@ -11,6 +11,9 @@ study (the port's torch-only copy of ``tests/torch_oracle.py``,
   tree      the study's synthetic rawframe tree and its configs
             (``TREE_PARAMS``, ``DEPTH_TREE_PARAMS``, ``make_parity_config``,
             ``method_overrides``, ``depth_overrides``)
+  timesformer  TimeSformer (divided space-time attention) and the LSC
+            head as plain float32 functions of a weight dict, the CPU tests'
+            reference for ``models/timesformer.py``
 
 ``bdvcil_torch/parity_study.py`` runs ``TorchMiniCIL`` beside the port's
 ``CILTrainer`` on one tree, one init and one data order.

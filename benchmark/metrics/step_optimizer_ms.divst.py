@@ -1,0 +1,16 @@
+"""step_optimizer_ms.divst: ``step_optimizer_ms.train`` read on the TimeSformer
+cell, whose entry lists the TSM cells alone: milliseconds a step of the
+traced slice spent in the span ``step.optimizer`` (the labelled SGD over the
+TimeSformer's leaves). The reader is that metric's own, loaded from its
+file. Layer: optimizer (optim.py)."""
+
+import pathlib
+
+from benchmark import manifest
+
+_SAME = manifest.load_module(pathlib.Path(__file__).with_name("step_optimizer_ms.train.py"),
+                             "_bench_metric_step_optimizer_ms_train_for_divst")
+
+
+def read(obs):
+    return _SAME.read(obs)
